@@ -1,0 +1,28 @@
+"""FaTRQ in PyTorch with hand-written CUDA kernels for Hopper.
+
+A second package beside the JAX one (``repro``), laid out with the same
+subpackage names so each module's counterpart is easy to find:
+
+* ``memory`` — Table-I tier model and record layout (pure Python).
+* ``core`` — base-3 packing, optimal ternary codes, the decomposition
+  scalars, calibration, the progressive estimator and the TRQ encoder.
+* ``quant`` / ``index`` — k-means, product quantization and the IVF index.
+* ``kernels`` — the two CUDA kernels of the query path (PQ-ADC scoring
+  and the fused multi-level refinement), each beside its plain PyTorch
+  version, plus the nvcc/ctypes loader.
+* ``anns`` — stages, executor, pipeline build and the ``Database`` API
+  (static layout, IVF front).
+* ``data`` — synthetic clustered embeddings with exact ground truth.
+* ``interop`` — loads an index built by the JAX package from numpy arrays.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
+no device given and no GPU present they raise instead of falling back.
+"""
+
+import torch
+
+# The k-means, brute-force and PQ products must stay full float32 (as the
+# JAX package computes them on the CPU): TF32 keeps ~3 decimal digits,
+# enough to flip nearest-centroid assignments and ground-truth ties.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,90 @@
+"""Capability registry: which fronts, refine backends and index layouts
+the port runs.  ``validate_combo`` is the one plan-time check; anything
+the JAX package offers that is not ported yet raises ``PlanError`` saying
+so, never a mid-search error.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable
+
+#: layouts the port runs (the JAX package also has sharded, streaming and
+#: tiered layouts, which later slices port)
+LAYOUTS = ("static",)
+
+
+class PlanError(ValueError):
+    """A QueryPlan names an unsupported or unported combination."""
+
+
+@dataclass
+class FrontSpec:
+    name: str
+    layouts: tuple[str, ...]
+    factories: dict[str, Callable] = field(default_factory=dict)
+
+
+@dataclass
+class BackendSpec:
+    name: str
+    make: Callable
+
+
+_FRONTS: dict[str, FrontSpec] = {}
+_BACKENDS: dict[str, BackendSpec] = {}
+
+
+def register_front(name: str, *, make: dict[str, Callable]) -> None:
+    """Declare a front stage with one stage factory per layout."""
+    for lay in make:
+        if lay not in LAYOUTS:
+            raise ValueError(f"unknown layout {lay!r}; expected one of "
+                             f"{LAYOUTS}")
+    _FRONTS[name] = FrontSpec(name=name, layouts=tuple(make),
+                              factories=dict(make))
+
+
+def register_backend(name: str, *, make: Callable) -> None:
+    """Declare a refine backend (every backend runs on every layout)."""
+    _BACKENDS[name] = BackendSpec(name=name, make=make)
+
+
+def front_names() -> tuple[str, ...]:
+    return tuple(_FRONTS)
+
+
+def backend_names() -> tuple[str, ...]:
+    return tuple(_BACKENDS)
+
+
+def _not_ported(kind: str, name: str, have) -> PlanError:
+    return PlanError(f"{kind} {name!r} is not ported to repro_torch yet; "
+                     f"the port has {kind}s {tuple(have)}")
+
+
+def _front(name: str, layout: str) -> FrontSpec:
+    if layout not in LAYOUTS:
+        raise _not_ported("layout", layout, LAYOUTS)
+    if name not in _FRONTS:
+        raise _not_ported("front", name, _FRONTS)
+    if layout not in _FRONTS[name].layouts:
+        raise _not_ported("layout", layout, _FRONTS[name].layouts)
+    return _FRONTS[name]
+
+
+def validate_combo(front: str, backend: str, layout: str) -> None:
+    """Raise ``PlanError`` unless the port runs (front, backend, layout)."""
+    _front(front, layout)
+    if backend not in _BACKENDS:
+        raise _not_ported("backend", backend, _BACKENDS)
+
+
+def make_front(name: str, layout: str, index, **opts):
+    return _front(name, layout).factories[layout](index, **opts)
+
+
+def make_backend(name: str, **opts):
+    if name not in _BACKENDS:
+        raise _not_ported("backend", name, _BACKENDS)
+    return _BACKENDS[name].make(**opts)

@@ -1,0 +1,230 @@
+"""Search stages of the executor (paper Fig. 5), over query micro-batches.
+
+  front   : IVF probe + PQ-ADC coarse scoring (the ``pq_adc`` kernel).
+  refine  : FaTRQ progressive estimation over every TRQ level.  Two
+            backends with the same semantics: ``reference`` (plain PyTorch
+            ``trq.progressive_search``) and ``cuda`` (the fused
+            ``ternary_refine`` kernel).
+  rerank  : survivors fetch full-precision vectors ("SSD") for exact L2.
+
+Each stage returns device-side counters (0-d tensors) beside its tensors;
+the executor folds them into a ``QueryCost`` ledger with one host
+transfer per search.
+
+Every top-k cut here that can tie uses a stable ascending sort, because
+``jax.lax.top_k`` puts the lower index first on ties and the budget cut
+depends on that order; ``torch.topk`` on CUDA promises no tie order.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.anns import registry
+from repro_torch.core import trq as trq_mod
+from repro_torch.core.trq import TRQCodes
+from repro_torch.index import ivf as ivf_mod
+from repro_torch.kernels.pq_adc import pq_adc
+from repro_torch.kernels.ternary_refine import RefineStores, \
+    ternary_refine_fused
+from repro_torch.memory import QueryCost, RecordLayout, Tier
+from repro_torch.quant import pq as pq_mod
+
+Counters = dict[str, torch.Tensor]     # name → 0-d device counter
+
+#: bytes of gathered full-precision rows per exact-L2 step
+_RERANK_BYTES = 1 << 30
+
+
+class Candidates(NamedTuple):
+    """Front-stage output for a query micro-batch."""
+
+    ids: torch.Tensor        # (Q, C) int32, clamped ≥ 0
+    valid: torch.Tensor      # (Q, C) bool
+    d0: torch.Tensor         # (Q, C) f32 coarse ADC distance, +inf if invalid
+    counters: Counters
+    is_delta: torch.Tensor | None = None   # (Q, C) bool delta-page rows
+
+
+class Refined(NamedTuple):
+    """Refine-stage output: calibrated estimates + survivor mask."""
+
+    est: torch.Tensor        # (Q, C) f32
+    alive: torch.Tensor      # (Q, C) bool (already ∧ valid)
+    counters: Counters
+
+
+def _smallest(v: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions of the k smallest per row, lower position first on ties."""
+    return torch.sort(v, dim=-1, stable=True).indices[..., :k]
+
+
+# ------------------------------------------------------------- front stage
+
+
+def fold_ivf_front_cost(cost: QueryCost, counts: dict[str, int],
+                        layout: RecordLayout) -> None:
+    """IVF front traffic: PQ codes + LUT live in fast memory (HBM)."""
+    cost.record("coarse", Tier.HBM, counts["front_cand"], layout.fast_bytes)
+
+
+def rank_centroid_lists(centroids: torch.Tensor, queries: torch.Tensor, *,
+                        nprobe: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Squared-L2 centroid ranking → (distances (Q, nlist), the nprobe
+    nearest list ids (Q, nprobe))."""
+    d = ((queries[:, None, :] - centroids[None]) ** 2).sum(-1)
+    return d, _smallest(d, nprobe)
+
+
+def adc_score(codebook: pq_mod.PQCodebook, pq_codes: torch.Tensor,
+              ids: torch.Tensor, queries: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+    """PQ-ADC distances of candidates ``ids`` (Q, C), +inf outside
+    ``valid``: the per-query LUTs, then the ``pq_adc`` kernel."""
+    return pq_adc(pq_codes, ids, valid, pq_mod.adc_table(codebook, queries))
+
+
+@dataclass
+class IVFFrontStage:
+    """Inverted-file probe + PQ-ADC scoring (the paper's primary front)."""
+
+    ivf: ivf_mod.IVFIndex
+    codebook: pq_mod.PQCodebook
+    pq_codes: torch.Tensor
+    nprobe: int = 8
+    name: str = field(default="ivf", init=False)
+
+    def candidates(self, queries: torch.Tensor) -> Candidates:
+        _, top_lists = rank_centroid_lists(self.ivf.centroids, queries,
+                                           nprobe=self.nprobe)
+        ids = self.ivf.lists[top_lists].reshape(queries.shape[0], -1)
+        valid = ids >= 0
+        safe = torch.clamp(ids, min=0).contiguous()
+        d0 = adc_score(self.codebook, self.pq_codes, safe, queries, valid)
+        return Candidates(ids=safe, valid=valid, d0=d0,
+                          counters={"front_cand": valid.sum()})
+
+    def fold_cost(self, cost: QueryCost, counts: dict[str, int],
+                  layout: RecordLayout) -> None:
+        fold_ivf_front_cost(cost, counts, layout)
+
+
+# ---------------------------------------------------------- refine backends
+
+
+def _level_counters(level_alive: tuple[torch.Tensor, ...],
+                    is_delta: torch.Tensor | None = None) -> Counters:
+    """``refine_alive``: final survivors; ``refine_alive_l{ℓ}``: candidates
+    entering level ℓ ≥ 1 (survivors of ℓ−1), whose level-ℓ codes stream
+    from far memory; ``_delta``: their delta-page share."""
+    counters: Counters = {"refine_alive": level_alive[-1].sum()}
+    for lv in range(1, len(level_alive)):
+        counters[f"refine_alive_l{lv}"] = level_alive[lv - 1].sum()
+        if is_delta is not None:
+            counters[f"refine_alive_l{lv}_delta"] = (
+                level_alive[lv - 1] & is_delta).sum()
+    return counters
+
+
+@dataclass
+class ReferenceRefineBackend:
+    """Plain PyTorch estimator path (``trq.progressive_search``)."""
+
+    name: str = field(default="reference", init=False)
+
+    def refine(self, queries: torch.Tensor, cand: Candidates, trq: TRQCodes,
+               *, k: int, bound: str, z: float) -> Refined:
+        state, level_alive = trq_mod.progressive_search(
+            queries, cand.d0, trq, cand.ids.long(), k=k, bound=bound, z=z)
+        level_alive = tuple(a & cand.valid for a in level_alive)
+        return Refined(est=state.est, alive=level_alive[-1],
+                       counters=_level_counters(level_alive, cand.is_delta))
+
+
+@dataclass
+class CudaRefineBackend:
+    """The fused refinement kernel (``kernels.ternary_refine``): every TRQ
+    level, the certified bounds, the pruning chain and the per-level
+    survivor counts.  The per-index stores it gathers from are built on
+    first use and kept for the TRQ codes they came from."""
+
+    name: str = field(default="cuda", init=False)
+    _trq: TRQCodes | None = field(default=None, init=False, repr=False)
+    _stores: RefineStores | None = field(default=None, init=False,
+                                         repr=False)
+
+    def stores(self, trq: TRQCodes) -> RefineStores:
+        if trq is not self._trq:
+            self._trq, self._stores = trq, RefineStores.from_trq(trq)
+        return self._stores
+
+    def refine(self, queries: torch.Tensor, cand: Candidates, trq: TRQCodes,
+               *, k: int, bound: str, z: float) -> Refined:
+        est, alive, counts = ternary_refine_fused(
+            self.stores(trq), queries, cand.ids, cand.d0, cand.valid,
+            cand.is_delta, trq.model, k=k, bound=bound, z=z)
+        nl = trq.num_levels
+        counters: Counters = {"refine_alive": counts[:, nl - 1].sum()}
+        for lv in range(1, nl):
+            counters[f"refine_alive_l{lv}"] = counts[:, lv - 1].sum()
+            if cand.is_delta is not None:
+                counters[f"refine_alive_l{lv}_delta"] = \
+                    counts[:, nl + lv - 1].sum()
+        return Refined(est=est, alive=alive, counters=counters)
+
+
+# ----------------------------------------------------------------- rerank
+
+
+def _exact_sq(x: torch.Tensor, queries: torch.Tensor,
+              ids: torch.Tensor) -> torch.Tensor:
+    """||x[ids] − q||² (Q, C), gathered a few queries at a time so the
+    (q, C, D) rows stay under ``_RERANK_BYTES``."""
+    nq, c = ids.shape
+    step = max(1, _RERANK_BYTES // max(1, c * x.shape[1] * 4))
+    out = torch.empty((nq, c), dtype=x.dtype, device=x.device)
+    for a in range(0, nq, step):
+        rows = x[ids[a:a + step].long()]
+        out[a:a + step] = ((rows - queries[a:a + step, None, :]) ** 2).sum(-1)
+    return out
+
+
+def _rerank_survivors(x, queries, ids, est, alive, *, k: int, budget: int):
+    """The top-``budget`` survivors by estimate fetch full vectors; exact
+    L2; top-k.  Returns (ids, distances, n_ssd)."""
+    est_m = torch.where(alive, est, torch.full_like(est, float("inf")))
+    order = _smallest(est_m, budget)
+    fetch_ids = torch.gather(ids, 1, order)
+    fetch_alive = torch.gather(alive, 1, order)
+    d = _exact_sq(x, queries, fetch_ids)
+    d = torch.where(fetch_alive, d, torch.full_like(d, float("inf")))
+    best = _smallest(d, k)
+    return (torch.gather(fetch_ids, 1, best), torch.gather(d, 1, best),
+            fetch_alive.sum())
+
+
+def _rerank_all(x, queries, ids, valid, *, k: int):
+    """Baseline rerank: exact L2 over the whole candidate list."""
+    d = _exact_sq(x, queries, ids)
+    d = torch.where(valid, d, torch.full_like(d, float("inf")))
+    best = _smallest(d, k)
+    return torch.gather(ids, 1, best), torch.gather(d, 1, best), valid.sum()
+
+
+# ----------------------------------------------------------------- registry
+
+
+def make_ivf_front(index, **opts) -> IVFFrontStage:
+    nprobe = opts.pop("nprobe", index.config.nprobe)
+    if opts:
+        raise TypeError(f"unknown IVF front options: {sorted(opts)}")
+    return IVFFrontStage(ivf=index.ivf, codebook=index.codebook,
+                         pq_codes=index.pq_codes, nprobe=nprobe)
+
+
+registry.register_front("ivf", make={"static": make_ivf_front})
+registry.register_backend("reference", make=ReferenceRefineBackend)
+registry.register_backend("cuda", make=CudaRefineBackend)

@@ -1,0 +1,100 @@
+"""Progressive distance estimation with level-wise pruning (FaTRQ §III/§IV).
+
+Each level scores a whole candidate batch, computes the top-k threshold τ
+(kth-smallest certified upper bound among survivors) and keeps a candidate
+only while its certified lower bound is ≤ τ.  Bounds:
+
+* ``cauchy`` (provable, needs per-record rho): the error of −2⟨q,δ⟩'s
+  estimate is at most ``2·||q||·||δ||·√(1−⟨e_q,e_c⟩²)·√(1−rho²)``.
+* ``quantile``: margin ``z · resid_std`` from the calibration model.
+
+Unlike the JAX module (single query, vmapped by its callers) every function
+here takes leading batch dimensions: ``q (..., D)``, candidates
+``(..., C)`` and codes ``(..., C, D)``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.core import calibration as calib
+from repro_torch.core.decomposition import RecordScalars
+from repro_torch.core.ternary import ternary_inner
+
+
+@dataclass(frozen=True)
+class ProgressiveState:
+    """State after one refinement level."""
+
+    est: torch.Tensor     # (..., C) calibrated estimate
+    lo: torch.Tensor      # (..., C) certified lower bound
+    alive: torch.Tensor   # (..., C) bool
+    tau: torch.Tensor     # (...,) pruning threshold
+
+
+def _unit(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    qn = torch.linalg.vector_norm(q, dim=-1)
+    return qn, q / torch.clamp(qn, min=1e-30)[..., None]
+
+
+def residual_ip_estimate(q: torch.Tensor, codes: torch.Tensor,
+                         norms: torch.Tensor,
+                         rho: torch.Tensor | None = None) -> torch.Tensor:
+    """Estimate −2⟨q, δ⟩ = −2·||q||·||δ||·⟨e_q, e_code⟩·rho.
+    q (..., D), codes (..., C, D) int8, norms/rho (..., C)."""
+    qn, e_q = _unit(q)
+    align = ternary_inner(codes, e_q[..., None, :])
+    scale = rho if rho is not None else 1.0
+    return -2.0 * qn[..., None] * norms * align * scale
+
+
+def cauchy_margin(q: torch.Tensor, codes: torch.Tensor, norms: torch.Tensor,
+                  rho: torch.Tensor) -> torch.Tensor:
+    """Provable half-width of −2⟨q,δ⟩ around its estimate."""
+    qn, e_q = _unit(q)
+    align = ternary_inner(codes, e_q[..., None, :])
+    orth_q = torch.sqrt(torch.clamp(1.0 - align * align, 0.0, 1.0))
+    orth_d = torch.sqrt(torch.clamp(1.0 - rho * rho, 0.0, 1.0))
+    return 2.0 * qn[..., None] * norms * orth_q * orth_d
+
+
+def pooled_k_smallest(values: torch.Tensor, k: int) -> torch.Tensor:
+    """kth-smallest value along the last axis (+inf encodes masked entries).
+    Only the value is returned, so ``topk``'s tie order does not matter."""
+    kk = min(k, values.shape[-1])
+    return torch.topk(values, kk, dim=-1, largest=False).values[..., -1]
+
+
+def topk_threshold(estimates: torch.Tensor, alive: torch.Tensor,
+                   k: int) -> torch.Tensor:
+    """kth-smallest upper estimate among alive candidates (τ)."""
+    masked = torch.where(alive, estimates,
+                         torch.full_like(estimates, float("inf")))
+    return pooled_k_smallest(masked, k)
+
+
+def refine_level(q: torch.Tensor, d0: torch.Tensor, scalars: RecordScalars,
+                 codes: torch.Tensor, model: calib.CalibrationModel, *,
+                 k: int, bound: str = "cauchy", z: float = 3.0,
+                 prev_alive: torch.Tensor | None = None) -> ProgressiveState:
+    """One FaTRQ refinement level over a candidate batch."""
+    if prev_alive is None:
+        prev_alive = torch.ones_like(d0, dtype=torch.bool)
+    d_ip = residual_ip_estimate(q, codes, scalars.norm, scalars.rho)
+    feats = calib.build_features(d0, d_ip, scalars.delta_sq, scalars.cross)
+    est = calib.predict(model, feats)
+    if bound == "cauchy":
+        # certified interval around the uncalibrated decomposition identity
+        est_raw = d0 + scalars.delta_sq + 2.0 * scalars.cross + d_ip
+        margin = cauchy_margin(q, codes, scalars.norm, scalars.rho)
+        lo, hi = est_raw - margin, est_raw + margin
+    elif bound == "quantile":
+        margin = z * model.resid_std
+        lo, hi = est - margin, est + margin
+    else:
+        raise ValueError(f"unknown bound {bound!r}")
+    tau = topk_threshold(hi, prev_alive, k)
+    alive = prev_alive & (lo <= tau[..., None])
+    return ProgressiveState(est=est, lo=lo, alive=alive, tau=tau)

@@ -1,0 +1,136 @@
+"""Tiered Residual Quantization: the database's far-memory encoding.
+
+Records are encoded against their coarse (PQ) reconstructions into L
+stacked ternary levels plus per-record scalars; level ℓ encodes what is
+left after projecting out level ℓ−1's approximation.  ``progressive_search``
+is the plain PyTorch refinement (the ``reference`` backend); the ``cuda``
+backend runs the same math in ``kernels.ternary_refine``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.core import calibration as calib
+from repro_torch.core import packing
+from repro_torch.core.decomposition import RecordScalars, compute_scalars
+from repro_torch.core.estimator import (ProgressiveState, refine_level,
+                                        residual_ip_estimate,
+                                        topk_threshold)
+from repro_torch.core.ternary import reconstruct, ternary_encode, \
+    ternary_inner
+from repro_torch.device import chunks
+
+#: rows per encoding step: every per-record quantity is row-independent,
+#: so encoding in chunks only bounds the sort/unpack working set
+ENCODE_ROWS = 1 << 16
+
+
+@dataclass(frozen=True)
+class TRQLevel:
+    """One far-memory level: packed codes + per-level scalars."""
+
+    packed: torch.Tensor    # (N, ceil(D/5)) uint8
+    proj: torch.Tensor      # (N,) ⟨δ_ℓ, e_code⟩ = ||δ_ℓ||·rho_ℓ
+    norm: torch.Tensor      # (N,) ||δ_ℓ||
+    rho: torch.Tensor       # (N,) ⟨e_δℓ, e_code⟩
+
+
+@dataclass(frozen=True)
+class TRQCodes:
+    """Full FaTRQ encoding of a database."""
+
+    dim: int
+    levels: tuple[TRQLevel, ...]
+    scalars: RecordScalars
+    model: calib.CalibrationModel
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.levels)
+
+
+def _encode_rows(x: torch.Tensor, x_c: torch.Tensor, num_levels: int):
+    resid = x - x_c
+    levels = []
+    rho0 = None
+    for _ in range(num_levels):
+        tc = ternary_encode(resid)
+        rho0 = tc.rho if rho0 is None else rho0
+        levels.append((packing.pack_ternary(tc.code), tc.norm * tc.rho,
+                       tc.norm, tc.rho))
+        resid = resid - reconstruct(tc)
+    return levels, compute_scalars(x, x_c, rho=rho0)
+
+
+def encode_database(x: torch.Tensor, x_c: torch.Tensor, *,
+                    num_levels: int = 1) -> TRQCodes:
+    """Encode records ``x (N, D)`` against coarse reconstructions ``x_c``
+    (identity calibration model: call ``calibrate`` to fit)."""
+    parts = [_encode_rows(x[a:b], x_c[a:b], num_levels)
+             for a, b in chunks(x.shape[0], ENCODE_ROWS)]
+    levels = tuple(
+        TRQLevel(*(torch.cat([p[0][lv][i] for p in parts]) for i in range(4)))
+        for lv in range(num_levels))
+    scalars = RecordScalars(*(torch.cat([getattr(p[1], f) for p in parts])
+                              for f in ("delta_sq", "cross", "rho", "norm")))
+    return TRQCodes(dim=x.shape[-1], levels=levels, scalars=scalars,
+                    model=calib.identity_model(x.device))
+
+
+def unpack_level(codes: TRQCodes, level: int,
+                 idx: torch.Tensor | None = None) -> torch.Tensor:
+    """int8 trits for (a subset of) records at one level."""
+    packed = codes.levels[level].packed
+    if idx is not None:
+        packed = packed[idx]
+    return packing.unpack_ternary(packed, codes.dim)
+
+
+def calibrate(codes: TRQCodes, q_samples: torch.Tensor, x: torch.Tensor,
+              x_c: torch.Tensor, pair_idx: torch.Tensor) -> TRQCodes:
+    """Fit the OLS calibration model on (query, record) pairs: row p of
+    ``q_samples (P, D)`` is paired with database row ``pair_idx[p]``."""
+    xi, xci = x[pair_idx], x_c[pair_idx]
+    d0 = ((q_samples - xci) ** 2).sum(-1)
+    true_d = ((q_samples - xi) ** 2).sum(-1)
+    sc = codes.scalars.take(pair_idx)
+    trits = unpack_level(codes, 0, pair_idx)
+    d_ip = residual_ip_estimate(q_samples, trits[:, None],
+                                sc.norm[:, None], sc.rho[:, None])[:, 0]
+    feats = calib.build_features(d0, d_ip, sc.delta_sq, sc.cross)
+    return TRQCodes(dim=codes.dim, levels=codes.levels, scalars=codes.scalars,
+                    model=calib.fit(feats, true_d))
+
+
+def progressive_search(q: torch.Tensor, d0: torch.Tensor, codes: TRQCodes,
+                       cand_idx: torch.Tensor, *, k: int,
+                       bound: str = "cauchy", z: float = 3.0
+                       ) -> tuple[ProgressiveState, tuple[torch.Tensor, ...]]:
+    """All TRQ levels over per-query candidate lists, pruning between
+    levels.  q (Q, D), d0 and cand_idx (Q, C).  Returns the final state and
+    the alive mask after every level (level ℓ+1's far-memory traffic is
+    billed to level ℓ's survivors)."""
+    scalars = codes.scalars.take(cand_idx)
+    state = refine_level(q, d0, scalars, unpack_level(codes, 0, cand_idx),
+                         codes.model, k=k, bound=bound, z=z)
+    level_alive = [state.alive]
+    qn = torch.linalg.vector_norm(q, dim=-1)[..., None]
+    est = state.est
+    for lv in range(1, codes.num_levels):
+        level = codes.levels[lv]
+        align = ternary_inner(unpack_level(codes, lv, cand_idx),
+                              q[..., None, :])
+        est = est - 2.0 * level.proj[cand_idx] * align
+        rho = level.rho[cand_idx]
+        rem = level.norm[cand_idx] * torch.sqrt(
+            torch.clamp(1.0 - rho ** 2, 0.0, 1.0))
+        margin = 2.0 * qn * rem + codes.model.resid_std
+        tau = topk_threshold(est + margin, state.alive, k)
+        alive = state.alive & (est - margin <= tau[..., None])
+        state = ProgressiveState(est=est, lo=est - margin, alive=alive,
+                                 tau=tau)
+        level_alive.append(alive)
+    return state, tuple(level_alive)

@@ -1,0 +1,4 @@
+from repro_torch.data.synthetic import Dataset, brute_force_topk, \
+    make_dataset, make_embeddings
+
+__all__ = ["Dataset", "brute_force_topk", "make_dataset", "make_embeddings"]

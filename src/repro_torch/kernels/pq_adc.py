@@ -1,0 +1,64 @@
+"""PQ-ADC scoring of a query micro-batch: the CUDA kernel and its plain
+PyTorch version.
+
+``pq_adc(pq_codes, ids, valid, lut)`` scores candidate ``ids (Q, C)`` of
+each query against its LUT ``(Q, M, K)``: ``d = Σ_m lut[q, m, code[id, m]]``,
+``+inf`` where ``valid`` is false.  It replaces the TPU kernel
+``repro.kernels.pq_adc.pq_adc`` and the jnp scoring in
+``repro.anns.stages.adc_score``; the kernel source is ``csrc/pq_adc.cu``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ops
+from repro_torch.quant.pq import adc_distances
+
+#: launches of the CUDA kernel (the plain version does not count)
+launches = 0
+
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def pq_adc_plain(pq_codes: torch.Tensor, ids: torch.Tensor,
+                 valid: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """The same function in plain PyTorch (the kernel's oracle)."""
+    d = adc_distances(lut, pq_codes[ids.long()])
+    return torch.where(valid, d, torch.full_like(d, float("inf")))
+
+
+def pq_adc(pq_codes: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+           lut: torch.Tensor) -> torch.Tensor:
+    """pq_codes (N, M) uint8, ids (Q, C) int32, valid (Q, C) bool,
+    lut (Q, M, K) f32 → (Q, C) f32.  CPU tensors take the plain version; a
+    CUDA tensor launches the kernel or raises."""
+    nq, c = ids.shape
+    m, k = lut.shape[1], lut.shape[2]
+    ops.check_smem_budget("pq_adc", ops.adc_smem_bytes(m, k))
+    if ids.device.type == "cpu":
+        return pq_adc_plain(pq_codes, ids, valid, lut)
+    dev = ids.device
+    build.require("pq_codes", pq_codes, dtype=torch.uint8,
+                  shape=(pq_codes.shape[0], m), device=dev)
+    build.require("ids", ids, dtype=torch.int32, shape=(nq, c), device=dev)
+    build.require("valid", valid, dtype=torch.bool, shape=(nq, c), device=dev)
+    build.require("lut", lut, dtype=torch.float32, shape=(nq, m, k),
+                  device=dev)
+    if k > 256:
+        raise ValueError(f"pq_adc: K={k} does not fit uint8 codes")
+    if m % 4 or pq_codes.data_ptr() % 4:
+        raise ValueError(f"pq_adc: the kernel reads code rows as 4-byte "
+                         f"words; M={m} must be a multiple of 4 and the "
+                         f"code store 4-byte aligned")
+    out = torch.empty((nq, c), dtype=torch.float32, device=dev)
+    fn = build.entry("pq_adc", "fatrq_pq_adc", _ARGS)
+    status = fn(build.ptr(pq_codes), build.ptr(ids), build.ptr(valid),
+                build.ptr(lut), build.ptr(out), nq, c, m, k,
+                torch.cuda.current_stream(dev).cuda_stream)
+    build.check("pq_adc", status, "pq_adc")
+    global launches
+    launches += 1
+    return out
