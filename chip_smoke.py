@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FaTRQ on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # 1M x 768 index, 1000 queries
+    python3 chip_smoke.py            # 1M x 768 index, 1000 queries, 4 shards
 
 Phases, each of which raises on failure:
 
 1. print the card (``nvidia-smi``) and build every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
-2. make a synthetic 1M x 768 dataset with exact ground truth and build
-   the index (PQ M=96, K=256; IVF nlist=1024; one TRQ level);
+2. make a synthetic 1M x 768 dataset with exact ground truth, build the
+   index (PQ M=96, K=256; IVF nlist=1024; one TRQ level) and partition it
+   into ``--shards`` shards for the sharded layout;
 3. kernel phase: each kernel against its plain PyTorch version on the card
-   at the main path's shapes (64 queries x nprobe 16 lists), the refine
-   kernel also with two TRQ levels, both bounds and delta rows;
-4. main path: ``Database.query`` with ``mode="fatrq"`` (``cuda`` backend)
-   and ``mode="baseline"`` over all queries in 64-query micro-batches,
-   each with every kernel's launch count reset just before its run and
-   read just after; then queries/s (median of 5 runs, the modes in turns)
-   and, from one more profiled run of each mode, its device time by
-   kernel and idle share (``torch.profiler`` and CUDA events);
+   at the shapes its path gives it (64 queries x nprobe 16 lists): the
+   fused refine kernel also with two TRQ levels, both bounds and delta
+   rows; the bounds kernel on one shard's candidates, both bounds, one and
+   two levels, its estimates bit-identical to the fused kernel's and its
+   intervals' alive chain giving the fused kernel's survivors; the
+   level-0 kernels on the gathered code rows of those 64 queries, driven
+   once through ``ops.refine_scores_batch`` / ``ops.refine_scores`` (the
+   ops path);
+4. search paths: ``Database.query`` with ``mode="fatrq"`` (``cuda``
+   backend), ``mode="baseline"`` and ``QueryPlan(shards=S)`` (``cuda``)
+   over all queries in 64-query micro-batches, each with every kernel's
+   launch count reset just before its run and read just after; the
+   sharded ids and per-tier bytes must equal fatrq's; then queries/s
+   (median of 5 runs, the modes in turns) and, from one more profiled run
+   of each mode, its device time by kernel and idle share
+   (``torch.profiler`` and CUDA events);
 5. the plain ``reference`` backend on the card over a subset of queries
-   must give the same ids and ledger as the ``cuda`` backend;
+   must give the same ids and ledger as the ``cuda`` backend, unsharded
+   and sharded;
 6. print one ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -41,6 +51,7 @@ SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12          # H100 SXM float32, outside the tensor cores
 EST_TOL = 3e-5                  # rtol = atol, as tests/test_kernels.py uses
+LEVEL0_TOL = 2e-5               # the level-0 kernels' tolerance there
 ADC_ATOL, ADC_RTOL = 1e-4, 1e-5  # sums of M f32 LUT entries in other orders
 
 
@@ -195,12 +206,125 @@ def refine_cost(torch, stores, cand, q) -> dict:
                           nq * c * (2 * g + 20))))
 
 
+def check_bounds(torch, tr, ops, alive_chain, stores, model, cand, q, *, k,
+                 bound_name, z, label):
+    """Bounds kernel vs its plain version and vs the fused kernel on the
+    same candidates; returns the max error and the alive mismatches
+    explained by near-ties."""
+    nl = stores.num_levels
+    args = (cand.ids, cand.d0, cand.valid)
+    est, lo, hi = tr.ternary_refine_fused_bounds(stores, q, *args, model,
+                                                 bound=bound_name, z=z)
+    planes = ops.make_query_planes(q, stores.packed[0].shape[1])
+    params = ops.query_params(q, model.w, model.bias, model.resid_std, z)
+    want = tr.refine_bounds_plain(stores, planes, params, *args,
+                                  bound=bound_name)
+    f_est, f_alive, f_counts = tr.ternary_refine_fused(
+        stores, q, *args, None, model, k=k, bound=bound_name, z=z)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, got, ref in zip(("est", "lo", "hi"), (est, lo, hi), want):
+        ok, e = close(got, ref, EST_TOL, EST_TOL)
+        if not ok:
+            fail(f"ternary_refine_fused_bounds {label}: {name} off (max err "
+                 f"{e})")
+        err = max(err, e)
+    v = cand.valid
+    if not torch.equal(est[v], f_est[v]):
+        fail(f"ternary_refine_fused_bounds {label}: est is not bit-identical "
+             f"to ternary_refine_fused's")
+    level_alive, taus = alive_chain(lo, hi, v, k)
+    mism = level_alive[-1] != f_alive
+    near = torch.zeros_like(mism)
+    for lv in range(nl):
+        tau = taus[lv][:, None]
+        near |= (lo[:, lv] - tau).abs() <= EST_TOL * (1 + tau.abs())
+    if bool((mism & ~near).any()):
+        fail(f"ternary_refine_fused_bounds {label}: "
+             f"{int((mism & ~near).sum())} alive mismatches away from the "
+             f"pruning threshold")
+    rows_equal = ~mism.any(dim=1)
+    counts = torch.stack([a.sum(-1, dtype=torch.int32)
+                          for a in level_alive], dim=1)
+    if not torch.equal(counts[rows_equal], f_counts[rows_equal, :nl]):
+        fail(f"ternary_refine_fused_bounds {label}: counts differ")
+    n_mism = int(mism.sum())
+    print(f"bounds {label}: L={nl} {int(v.sum())} valid of {v.numel()} "
+          f"slots, max err {err:.3g}, est bit-identical to the fused "
+          f"kernel's, alive mismatches at near-ties {n_mism}")
+    return err, n_mism
+
+
+def bounds_cost(torch, stores, cand, q) -> dict:
+    """Bound of one bounds-kernel call: each distinct valid row's G code
+    bytes and 16 B of scalars per level read once; per slot its valid
+    flag, est and L (lo, hi) written; per valid slot its id and d0; per
+    query its planes and parameters.  Invalid slots need no scoring, so
+    the operations are 2·G + 20 per valid slot and level."""
+    nq, c = cand.ids.shape
+    nl = stores.num_levels
+    g = stores.packed[0].shape[1]
+    n_valid = int(cand.valid.sum())
+    rows = int(torch.unique(cand.ids[cand.valid]).numel())
+    nbytes = (rows * nl * (g + 16) + nq * c * (1 + 4 + 8 * nl)
+              + n_valid * 8 + nq * (5 * g + 8) * 4)
+    return dict(zip(("bound_ms", "bound_by"),
+                    bound("ternary_refine_fused_bounds", nbytes,
+                          n_valid * nl * (2 * g + 20))))
+
+
+def level0_cost(label: str, nq: int, c: int, g: int) -> dict:
+    """Bound of one level-0 call over gathered rows: every gathered row's
+    G bytes and its 5 scalars read, 3 floats written per slot, per query
+    its planes and parameters; 2·G + 20 operations per slot."""
+    nbytes = nq * c * (g + 5 * 4 + 3 * 4) + nq * (5 * g + 8) * 4
+    return dict(zip(("bound_ms", "bound_by"),
+                    bound(label, nbytes, nq * c * (2 * g + 20))))
+
+
+def check_level0(torch, tr, ops, model, q, packed, cols, counted):
+    """The ops path's level-0 outputs (``counted``: batch, then single
+    query) against the plain version on the same gathered rows ``packed``
+    (Q, C, G) and scalars ``cols``; returns the kernels' rows.  Kernel and
+    plain version are timed alike, on the inputs already assembled (the
+    ops entry points' stacking of the scalars is not part of either)."""
+    nq, c, g = packed.shape
+    print(f"level-0 kernels: {packed.numel() / 1e6:.1f} MB of gathered "
+          f"codes ({nq} x {c} x {g})")
+    planes, params, scalars = ops.level0_inputs(q, g, *cols, model.w,
+                                                model.bias)
+    batch = (packed, planes, scalars, params)
+    single = tuple(t[:1] for t in batch)
+    rows = {}
+    for name, got, args, call in (
+            ("ternary_refine_batch", counted[0], batch,
+             lambda: tr.ternary_refine_batch(*batch)),
+            ("ternary_refine", counted[1], single,
+             lambda: tr.ternary_refine(packed[0], planes[0], scalars[0],
+                                       params[:1]))):
+        want = tr.refine_level0_plain(*args).reshape(got.shape)
+        torch.cuda.synchronize()
+        ok, err = close(got, want, LEVEL0_TOL, LEVEL0_TOL)
+        if not ok:
+            fail(f"{name} disagrees with its plain version (max err {err})")
+        print(f"{name}: max err {err:.3g} over {got.shape[-2]} x "
+              f"{got.numel() // got.shape[-2] // 3} slots")
+        rows[name] = dict(
+            max_abs_err=err, ms=time_ms(call, 20),
+            plain_ms=time_ms(lambda: tr.refine_level0_plain(*args), 3),
+            library_ms=None,
+            **level0_cost(name, args[0].shape[0], c, g))
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="database rows (only N is ever cut)")
     ap.add_argument("--queries", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shards", type=int, default=4,
+                    help="shards of the sharded path (on one card)")
     args = ap.parse_args()
 
     import torch
@@ -214,14 +338,28 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     from repro_torch.anns import Database, PipelineConfig, QueryPlan, \
-        recall_at_k
-    from repro_torch.anns.stages import make_ivf_front
+        make_sharded_executor, recall_at_k
+    from repro_torch.anns import registry
+    from repro_torch.anns.stages import Candidates, make_ivf_front
     from repro_torch.core import trq as trq_mod
+    from repro_torch.core.estimator import alive_chain
     from repro_torch.data import make_dataset
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import pq_adc as pq_adc_mod
     from repro_torch.kernels import ternary_refine as tr
     from repro_torch.quant import pq as pq_mod
+
+    def reset_launches():
+        pq_adc_mod.launches = 0
+        tr.launches = tr.bounds_launches = 0
+        tr.batch_launches = tr.single_launches = 0
+
+    def read_launches() -> dict:
+        return {"pq_adc": pq_adc_mod.launches,
+                "ternary_refine_fused": tr.launches,
+                "ternary_refine_fused_bounds": tr.bounds_launches,
+                "ternary_refine_batch": tr.batch_launches,
+                "ternary_refine": tr.single_launches}
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -249,6 +387,13 @@ def main() -> int:
     build_s = time.perf_counter() - t
     index = db.index
     print(f"index build: {build_s:.1f} s (IVF cap {index.ivf.cap})")
+    t = time.perf_counter()
+    si = make_sharded_executor(index, shards=args.shards).sharded
+    torch.cuda.synchronize()
+    print(f"partition into {args.shards} shards: "
+          f"{time.perf_counter() - t:.2f} s (rows per shard "
+          f"{si.shard_rows.tolist()}, up to {si.list_gid.shape[1]} lists "
+          f"each)")
 
     # ---- kernel phase, at the main path's shapes
     q64 = ds.queries[:64].contiguous()
@@ -273,7 +418,64 @@ def main() -> int:
                               is_delta, k=cfg.final_k, bound_name=bnd,
                               z=cfg.z, label=f"{bnd} L={stores.num_levels}")
         refine_err, near_ties = max(refine_err, err), near_ties + n
+    # the bounds kernel on shard 0's candidates (the sharded path's shapes),
+    # read by global id so that the one- and two-level stores both serve
+    sh = registry.sharded_front("ivf").body(
+        q64, si.front_rep, si.front_db, si.codebook, si.pq_codes,
+        **dict(si.front_args))[0]
+    sh_cand = Candidates(ids=si.gid[0][sh.ids.long()].int().contiguous(),
+                         valid=sh.valid, d0=sh.d0, counters={})
+    bounds_err, bounds_ties = 0.0, 0
+    for stores, bnd in ((stores1, "cauchy"), (stores1, "quantile"),
+                        (stores2, "cauchy"), (stores2, "quantile")):
+        err, n = check_bounds(torch, tr, ops, alive_chain, stores, model,
+                              sh_cand, q64, k=cfg.final_k, bound_name=bnd,
+                              z=cfg.z,
+                              label=f"{bnd} L={stores.num_levels}")
+        bounds_err, bounds_ties = max(bounds_err, err), bounds_ties + n
     del stores2
+    b_args = (stores1, q64, sh_cand.ids, sh_cand.d0, sh_cand.valid)
+    b_planes = ops.make_query_planes(q64, stores1.packed[0].shape[1])
+    b_params = ops.query_params(q64, model.w, model.bias, model.resid_std,
+                                cfg.z)
+    bounds_row = dict(
+        max_abs_err=bounds_err,
+        ms=time_ms(lambda: tr.ternary_refine_fused_bounds(
+            *b_args, model, bound="cauchy", z=cfg.z), 20),
+        plain_ms=time_ms(lambda: tr.refine_bounds_plain(
+            stores1, b_planes, b_params, *b_args[2:], bound="cauchy"), 3),
+        library_ms=None, **bounds_cost(torch, stores1, sh_cand, q64))
+    # what the skip of invalid slots spares: the same call with every slot
+    # scored
+    every = torch.ones_like(sh_cand.valid)
+    no_skip_ms = time_ms(lambda: tr.ternary_refine_fused_bounds(
+        *b_args[:4], every, model, bound="cauchy", z=cfg.z), 20)
+    print(f"ternary_refine_fused_bounds: {bounds_row['ms']:.3f} ms with "
+          f"{int(sh_cand.valid.sum())} valid slots of {sh_cand.valid.numel()}"
+          f", {no_skip_ms:.3f} ms with every slot scored")
+    del sh, sh_cand, every
+
+    # the ops path: the level-0 kernels through the JAX-signature entry
+    # points, once each, with every count reset just before and read after
+    ids64 = cand.ids.long()
+    rec64 = stores1.records[ids64]
+    packed64 = stores1.packed[0][ids64]
+    cols = (cand.d0, rec64[..., 0], rec64[..., 1], rec64[..., 2],
+            rec64[..., 3])
+    reset_launches()
+    counted = (ops.refine_scores_batch(packed64, q64, *cols, model.w,
+                                       model.bias),
+               ops.refine_scores(packed64[0], q64[0], *(t[0] for t in cols),
+                                 model.w, model.bias))
+    torch.cuda.synchronize()
+    launches = {"ops": read_launches()}
+    print(f"ops path launches: {launches['ops']}")
+    for name in ("ternary_refine_batch", "ternary_refine"):
+        if launches["ops"][name] == 0:
+            fail(f"the ops path never launched {name}")
+    level0_rows = check_level0(torch, tr, ops, model, q64, packed64, cols,
+                               counted)
+    del packed64, rec64, cols, counted
     refine_args = (stores1, q64, cand.ids, cand.d0, cand.valid, None, model)
     refine_kw = dict(k=cfg.final_k, bound="cauchy", z=cfg.z)
     planes = ops.make_query_planes(q64, stores1.packed[0].shape[1])
@@ -292,27 +494,30 @@ def main() -> int:
     # ---- main path
     queries = ds.queries
     plans = {"fatrq": QueryPlan(backend="cuda"),
-             "baseline": QueryPlan(mode="baseline")}
+             "baseline": QueryPlan(mode="baseline"),
+             "sharded": QueryPlan(shards=args.shards, backend="cuda")}
     for plan in plans.values():                 # warm-up: load, allocate
         db.query(q64, plan=plan)
     torch.cuda.synchronize()
     # each path runs with every count set to 0 just before it and read just
-    # after; pq_adc must launch in both, the refine kernel in fatrq
+    # after; pq_adc must launch in all three, the fused refine kernel in
+    # fatrq, the bounds kernel (and not the fused one) in sharded
     needs = {"fatrq": ("pq_adc", "ternary_refine_fused"),
-             "baseline": ("pq_adc",)}
-    results, launches = {}, {}
+             "baseline": ("pq_adc",),
+             "sharded": ("pq_adc", "ternary_refine_fused_bounds")}
+    results = {}
     for mode, plan in plans.items():
-        pq_adc_mod.launches = 0
-        tr.launches = 0
+        reset_launches()
         results[mode] = db.query(queries, plan=plan)
         torch.cuda.synchronize()
-        launches[mode] = {"pq_adc": pq_adc_mod.launches,
-                          "ternary_refine_fused": tr.launches}
+        launches[mode] = read_launches()
         for name in needs[mode]:
             if launches[mode][name] == 0:
                 fail(f"the {mode} path never launched {name}")
         print(f"{mode} path launches over {queries.shape[0]} queries in "
               f"{cfg.micro_batch}-query micro-batches: {launches[mode]}")
+    if launches["sharded"]["ternary_refine_fused"]:
+        fail("the sharded path launched ternary_refine_fused")
 
     # queries/s: host clock around whole searches ended by a synchronize,
     # the two modes in turns, median of 5
@@ -343,6 +548,19 @@ def main() -> int:
             fail(f"{label}: recall@10 {recall:.4f} below 0.5")
         device_breakdown(torch, label, lambda: db.query(
             queries, plan=plans[label]))
+    tier_bytes = lambda c: {t.value: v.bytes                  # noqa: E731
+                            for t, v in c.by_tier().items()}
+    if not torch.equal(results["sharded"].ids, results["fatrq"].ids):
+        n_rows = int((results["sharded"].ids != results["fatrq"].ids)
+                     .any(1).sum())
+        fail(f"sharded ids differ from the unsharded fatrq ids in {n_rows} "
+             f"queries")
+    if tier_bytes(results["sharded"].cost) != tier_bytes(
+            results["fatrq"].cost):
+        fail(f"sharded per-tier bytes {tier_bytes(results['sharded'].cost)}"
+             f" differ from fatrq's {tier_bytes(results['fatrq'].cost)}")
+    print(f"sharded ({args.shards} shards): ids and per-tier bytes equal to "
+          f"the unsharded fatrq path's")
 
     # ---- the plain reference backend on the card, over a subset
     sub = queries[:64]
@@ -356,27 +574,44 @@ def main() -> int:
         fail(f"ledgers differ: {ledger(ref.cost)} vs {ledger(cud.cost)}")
     print(f"reference backend on {sub.shape[0]} queries: ids and ledger "
           f"equal to the cuda backend's")
+    sp = QueryPlan(shards=args.shards, backend="reference", micro_batch=8)
+    ref = db.query(sub, plan=sp)
+    cud = db.query(sub, plan=plans["sharded"])
+    if not torch.equal(ref.ids, cud.ids):
+        fail("sharded: reference and cuda backends return different ids")
+    if ledger(ref.cost) != ledger(cud.cost):
+        fail(f"sharded ledgers differ: {ledger(ref.cost)} vs "
+             f"{ledger(cud.cost)}")
+    print(f"sharded reference backend on {sub.shape[0]} queries: ids and "
+          f"ledger equal to the cuda backend's")
 
-    print("library_ms: null for both kernels; no single PyTorch call "
-          "computes either function")
-    print("launches: the fatrq (main) path's; launches_by_path gives each "
-          "path's own run")
+    print("library_ms: null for every kernel; no single PyTorch call "
+          "computes any of these functions")
+    print("launches: each kernel's own path's run (fatrq for pq_adc and "
+          "ternary_refine_fused, sharded for ternary_refine_fused_bounds, "
+          "ops for ternary_refine_batch and ternary_refine); "
+          "launches_by_path gives every path's own run")
 
-    def by_path(name):
-        return {mode: launches[mode][name] for mode in plans}
-
+    src = "src/repro_torch/kernels/csrc/ternary_refine.cu"
+    rows = [("pq_adc", "src/repro_torch/kernels/csrc/pq_adc.cu",
+             "src/repro/kernels/pq_adc.py:36", "fatrq", adc),
+            ("ternary_refine_fused", src,
+             "src/repro/kernels/ternary_refine.py:364", "fatrq", refine),
+            ("ternary_refine_fused_bounds", src,
+             "src/repro/kernels/ternary_refine.py:418", "sharded",
+             bounds_row),
+            ("ternary_refine_batch", src,
+             "src/repro/kernels/ternary_refine.py:178", "ops",
+             level0_rows["ternary_refine_batch"]),
+            ("ternary_refine", src,
+             "src/repro/kernels/ternary_refine.py:213", "ops",
+             level0_rows["ternary_refine"])]
     print(json.dumps({"kernels": [
-        {"name": "pq_adc", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/pq_adc.cu",
-         "replaces": "src/repro/kernels/pq_adc.py:36",
-         "launches": launches["fatrq"]["pq_adc"],
-         "launches_by_path": by_path("pq_adc"), **adc},
-        {"name": "ternary_refine_fused", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/ternary_refine.cu",
-         "replaces": "src/repro/kernels/ternary_refine.py:364",
-         "launches": launches["fatrq"]["ternary_refine_fused"],
-         "launches_by_path": by_path("ternary_refine_fused"), **refine},
-    ]}))
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches[path][name],
+         "launches_by_path": {p: launches[p][name] for p in launches},
+         **row}
+        for name, source, replaces, path, row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

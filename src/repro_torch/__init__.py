@@ -7,11 +7,12 @@ subpackage names so each module's counterpart is easy to find:
 * ``core`` — base-3 packing, optimal ternary codes, the decomposition
   scalars, calibration, the progressive estimator and the TRQ encoder.
 * ``quant`` / ``index`` — k-means, product quantization and the IVF index.
-* ``kernels`` — the two CUDA kernels of the query path (PQ-ADC scoring
-  and the fused multi-level refinement), each beside its plain PyTorch
+* ``kernels`` — the CUDA kernels (PQ-ADC scoring, the fused multi-level
+  refinement, its bounds-emitting form for the sharded layout and the
+  level-0 scoring of gathered rows), each beside its plain PyTorch
   version, plus the nvcc/ctypes loader.
-* ``anns`` — stages, executor, pipeline build and the ``Database`` API
-  (static layout, IVF front).
+* ``anns`` — stages, executor, pipeline build, the sharded layout and the
+  ``Database`` API (static and sharded layouts, IVF front).
 * ``data`` — synthetic clustered embeddings with exact ground truth.
 * ``interop`` — loads an index built by the JAX package from numpy arrays.
 

@@ -1,15 +1,22 @@
-"""Staged FaTRQ search over the static layout with the IVF front.
+"""Staged FaTRQ search with the IVF front, on the static and sharded
+layouts.
 
 ``stages`` (IVF front with the PQ-ADC kernel, ``reference`` and ``cuda``
 refine backends, exact rerank) → ``executor`` (micro-batches, one ledger
 fold per search) → ``api`` (``Database`` / ``QueryPlan`` /
-``SearchResult``); ``pipeline`` holds the build.
+``SearchResult``); ``sharding`` partitions the database into shards and
+searches them with pooled thresholds; ``pipeline`` holds the build.
 """
 
 from repro_torch.anns.api import Database, PlanError, QueryPlan, \
     SearchResult
 from repro_torch.anns.pipeline import (FaTRQIndex, PipelineConfig, build,
                                        recall_at_k)
+from repro_torch.anns.sharding import (ShardedExecutor, ShardedIndex,
+                                       lpt_assign, make_sharded_executor,
+                                       partition_database)
 
 __all__ = ["Database", "PlanError", "QueryPlan", "SearchResult",
-           "FaTRQIndex", "PipelineConfig", "build", "recall_at_k"]
+           "FaTRQIndex", "PipelineConfig", "build", "recall_at_k",
+           "ShardedExecutor", "ShardedIndex", "lpt_assign",
+           "make_sharded_executor", "partition_database"]

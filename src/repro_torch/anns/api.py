@@ -1,10 +1,12 @@
 """``Database`` handle + ``QueryPlan``: the port's query API.
 
 ``Database.build(x, config)`` builds a static index (on the GPU unless a
-device is given); ``Database.wrap(index)`` adopts one.  ``query`` resolves
-a plan against the index config, validates it once against the
-capability registry (``PlanError`` for anything not ported yet), fetches
-or builds the executor and returns a ``SearchResult``.
+device is given); ``Database.wrap(index)`` adopts a static ``FaTRQIndex``
+or a ``ShardedIndex``.  ``query`` resolves a plan against the index
+config, validates it once against the capability registry (``PlanError``
+for anything not ported yet), fetches or builds the executor and returns a
+``SearchResult``.  A plan with ``shards`` on a static index runs the
+sharded layout (``anns.sharding``) over a partition kept on the index.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from repro_torch.anns.executor import make_executor, search_budget
 from repro_torch.anns.pipeline import FaTRQIndex, PipelineConfig
 from repro_torch.anns.pipeline import build as _build_index
 from repro_torch.anns.registry import PlanError
+from repro_torch.anns.sharding import ShardedIndex, make_sharded_executor
 from repro_torch.memory import QueryCost
 
 __all__ = ["Database", "QueryPlan", "SearchResult", "PlanError"]
@@ -30,13 +33,13 @@ class QueryPlan:
 
     front: str | None = None          # "ivf"
     backend: str | None = None        # "reference" | "cuda"
-    shards: int | None = None         # sharded search is not ported yet
+    shards: int | None = None         # None = unsharded; S ≥ 1 shards
     k: int | None = None
     refine_budget: int | None = None
     micro_batch: int | None = None
     mode: str = "fatrq"               # "fatrq" | "baseline"
 
-    def resolve(self, index: FaTRQIndex) -> "QueryPlan":
+    def resolve(self, index: FaTRQIndex | ShardedIndex) -> "QueryPlan":
         config = index.config
         k = self.k or config.final_k
         return dataclasses.replace(
@@ -56,12 +59,17 @@ class SearchResult:
 
 
 class Database:
-    """Query handle over one static ``FaTRQIndex``."""
+    """Query handle over one ``FaTRQIndex`` (static) or ``ShardedIndex``."""
 
-    def __init__(self, index: FaTRQIndex):
-        if not isinstance(index, FaTRQIndex):
+    def __init__(self, index: FaTRQIndex | ShardedIndex):
+        if isinstance(index, ShardedIndex):
+            self.layout = "sharded"
+        elif isinstance(index, FaTRQIndex):
+            self.layout = "static"
+        else:
             raise TypeError(f"cannot wrap {type(index).__name__}: the port "
-                            f"has the static FaTRQIndex layout only")
+                            f"has the static FaTRQIndex and ShardedIndex "
+                            f"layouts")
         self.index = index
 
     @classmethod
@@ -85,18 +93,40 @@ class Database:
         return self.index.config
 
     def __len__(self) -> int:
+        if self.layout == "sharded":
+            return int(self.index.shard_rows.sum())
         return int(self.index.x.shape[0])
+
+    def _effective_layout(self, plan: QueryPlan) -> str:
+        """A shard count on a static index routes through the sharded
+        layout."""
+        return "sharded" if plan.shards is not None else self.layout
 
     def validate(self, plan: QueryPlan | None = None) -> QueryPlan:
         """Resolve and check a plan; raise ``PlanError`` before any work."""
         p = (plan or QueryPlan()).resolve(self.index)
-        if p.shards is not None:
-            raise PlanError(f"shards={p.shards}: the sharded layout is not "
-                            f"ported to repro_torch yet")
-        registry.validate_combo(p.front, p.backend, "static")
-        if p.mode not in ("fatrq", "baseline"):
+        layout = self._effective_layout(p)
+        registry.validate_combo(p.front, p.backend, layout)
+        if p.mode == "baseline":
+            if layout != "static":
+                raise PlanError(
+                    f"unsupported plan: mode 'baseline' cannot run on the "
+                    f"{layout!r} index layout — the no-refinement baseline "
+                    f"supports layouts [static] only")
+        elif p.mode != "fatrq":
             raise PlanError(f"unknown search mode {p.mode!r}; expected "
                             f"'fatrq' or 'baseline'")
+        if self.layout == "sharded":
+            if p.shards not in (None, self.index.n_shards):
+                raise PlanError(
+                    f"plan asks for {p.shards} shards but the wrapped "
+                    f"ShardedIndex is partitioned {self.index.n_shards} "
+                    f"ways — re-partition the base index instead")
+            if p.front != self.index.front:
+                raise PlanError(
+                    f"plan asks for the {p.front!r} front but the wrapped "
+                    f"ShardedIndex was partitioned for the "
+                    f"{self.index.front!r} front")
         return p
 
     def query(self, queries, *, plan: QueryPlan | None = None,
@@ -118,9 +148,17 @@ class Database:
         rp = self.validate(p)
         q = torch.as_tensor(queries, dtype=torch.float32) \
             .to(self.index.device).contiguous()
-        ex = make_executor(self.index, front=rp.front, backend=rp.backend,
-                           micro_batch=rp.micro_batch,
-                           refine_budget=rp.refine_budget)
+        if self._effective_layout(rp) == "sharded":
+            ex = make_sharded_executor(
+                self.index, shards=self.index.n_shards
+                if rp.shards is None else rp.shards,
+                front=rp.front, backend=rp.backend,
+                micro_batch=rp.micro_batch, refine_budget=rp.refine_budget)
+        else:
+            ex = make_executor(self.index, front=rp.front,
+                               backend=rp.backend,
+                               micro_batch=rp.micro_batch,
+                               refine_budget=rp.refine_budget)
         if rp.mode == "baseline":
             ids, dists, out = ex.execute_baseline(q, k=rp.k)
             if cost is not None:

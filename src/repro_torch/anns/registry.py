@@ -2,6 +2,10 @@
 the port runs.  ``validate_combo`` is the one plan-time check; anything
 the JAX package offers that is not ported yet raises ``PlanError`` saying
 so, never a mid-search error.
+
+A front declares its layouts and a stage factory per layout; the sharded
+layout builds no stage object, its front registers ``ShardedFrontHooks``
+(``anns.sharding`` registers the IVF front's).
 """
 
 from __future__ import annotations
@@ -9,13 +13,32 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable
 
-#: layouts the port runs (the JAX package also has sharded, streaming and
-#: tiered layouts, which later slices port)
-LAYOUTS = ("static",)
+#: layouts the port runs (the JAX package also has streaming and tiered
+#: layouts, which later slices port)
+LAYOUTS = ("static", "sharded")
 
 
 class PlanError(ValueError):
     """A QueryPlan names an unsupported or unported combination."""
+
+
+@dataclass(frozen=True)
+class ShardedFrontHooks:
+    """How a front runs on the sharded layout (see ``anns.sharding``):
+
+    * ``partition(index, n_shards) -> (rows_per, rep, db, args)``: the
+      per-shard global rows, the front's replicated (``rep``) and
+      shard-stacked (``db``) tensors and a hashable tuple of static
+      traversal args;
+    * ``body(queries, rep, db, codebook, pq_codes, **args)
+      -> list[Candidates]``: one micro-batch's candidates on every shard,
+      in shard order, with shard-local ids and 0-d counters each;
+    * ``fold(cost, counts, layout)``: the front's per-shard ledger fold.
+    """
+
+    partition: Callable
+    body: Callable
+    fold: Callable
 
 
 @dataclass
@@ -23,6 +46,7 @@ class FrontSpec:
     name: str
     layouts: tuple[str, ...]
     factories: dict[str, Callable] = field(default_factory=dict)
+    sharded: ShardedFrontHooks | None = None
 
 
 @dataclass
@@ -35,14 +59,35 @@ _FRONTS: dict[str, FrontSpec] = {}
 _BACKENDS: dict[str, BackendSpec] = {}
 
 
-def register_front(name: str, *, make: dict[str, Callable]) -> None:
-    """Declare a front stage with one stage factory per layout."""
-    for lay in make:
+def register_front(name: str, *, layouts: tuple[str, ...],
+                   make: dict[str, Callable]) -> None:
+    """Declare a front stage, the layouts it runs on and a stage factory
+    per layout (the sharded layout takes hooks instead, below)."""
+    for lay in layouts:
         if lay not in LAYOUTS:
             raise ValueError(f"unknown layout {lay!r}; expected one of "
                              f"{LAYOUTS}")
-    _FRONTS[name] = FrontSpec(name=name, layouts=tuple(make),
+    _FRONTS[name] = FrontSpec(name=name, layouts=tuple(layouts),
                               factories=dict(make))
+
+
+def register_sharded_front(name: str, hooks: ShardedFrontHooks) -> None:
+    """Attach the sharded layout's hooks to a front declaring it."""
+    spec = _FRONTS[name]
+    if "sharded" not in spec.layouts:
+        raise ValueError(f"front {name!r} does not declare layout "
+                         f"'sharded' (declared: {spec.layouts})")
+    spec.sharded = hooks
+
+
+def sharded_front(name: str) -> ShardedFrontHooks:
+    """The sharded layout's hooks for ``name``; a front that declares the
+    layout without hooks is a wiring bug, not a plan error."""
+    spec = _FRONTS[name]
+    if spec.sharded is None:
+        raise KeyError(f"front {name!r} has no sharded-front hooks "
+                       f"registered (declared layouts: {spec.layouts})")
+    return spec.sharded
 
 
 def register_backend(name: str, *, make: Callable) -> None:

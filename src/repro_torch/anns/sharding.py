@@ -1,0 +1,423 @@
+"""Sharded search: the database partitioned into S shards, searched front →
+refine → rerank shard by shard with every data-dependent decision pooled
+across shards (the IVF half of ``repro.anns.sharding``).
+
+* ``partition_database(index, S)`` assigns WHOLE inverted lists to shards,
+  balanced by list length with an LPT greedy (``lpt_assign``), so a
+  candidate's codes, scalars and full vector co-reside with its list.
+  Per-shard record arrays are gathered on the device into shard-local row
+  order and stacked on a leading shard axis (zero-padded to the largest
+  shard); ``gid`` maps local rows back to global database ids.
+* ``ShardedIndex`` holds the stacked database; ``.to(device)`` moves it.
+* ``ShardedExecutor`` runs the stages per shard.  The JAX package runs the
+  body under ``shard_map`` across devices; here the shards sit on one
+  device, the body is a loop over shards (one launch per kernel per shard,
+  what a per-device body is) and the three collectives are tensor ops over
+  the stacked per-shard results:
+
+    - front: each shard ranks the replicated centroid table (computed once
+      per micro-batch) and keeps the global top-``nprobe`` lists it owns,
+      so the union across shards is exactly the unsharded probe set;
+    - refine: each level's pruning threshold pools every shard's k
+      smallest upper bounds in shard order (the all-gather) and takes the
+      kth smallest (``estimator.pooled_k_smallest``), so every survivor
+      mask matches the unsharded run;
+    - rerank: the SSD budget is a pooled threshold τ_b the same way, each
+      shard fetches only its own survivors at or below it, and the
+      per-shard (distance, global id) pairs are concatenated in shard
+      order and cut to the top k by a stable sort (exact up to exact-f32
+      estimate ties at the budget boundary, see
+      ``_rerank_survivors_sharded``).
+
+  Stage counters stay on the device, one per shard; one host transfer at
+  the end builds one ``QueryCost`` ledger per shard, folded with
+  ``QueryCost.merge_parallel`` (shards run concurrently: per-tier time is
+  the slowest shard's, bytes and accesses sum).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from functools import cached_property
+
+import numpy as np
+import torch
+
+from repro_torch.anns import registry
+from repro_torch.anns.executor import (_accumulate, _cat, fold_counts,
+                                       iter_chunks, search_budget)
+from repro_torch.anns.stages import (Candidates, Counters, _exact_sq,
+                                     _smallest, fold_ivf_front_cost,
+                                     rank_centroid_lists)
+from repro_torch.core.estimator import pooled_k_smallest
+from repro_torch.core.trq import TRQCodes
+from repro_torch.kernels.pq_adc import pq_adc
+from repro_torch.memory import QueryCost, RecordLayout
+from repro_torch.quant import pq as pq_mod
+
+
+def _map_fields(obj, fn):
+    """A copy of a dataclass of tensors with ``fn`` applied to each."""
+    return type(obj)(**{f.name: fn(getattr(obj, f.name))
+                        for f in dataclasses.fields(obj)})
+
+
+# ------------------------------------------------------------- partitioner
+
+
+@dataclass(eq=False)
+class ShardedIndex:
+    """A FaTRQIndex partitioned into S shards, stacked on a leading axis.
+
+    Replicated: ``codebook`` (PQ), the calibration model inside ``trq`` and
+    ``front_rep`` (IVF: the coarse centroid table).  Stacked on the shard
+    axis: ``front_db`` (IVF: each shard's list ids and its lists with LOCAL
+    row ids), per-record ``pq_codes``/``trq``/``x`` and ``gid`` (local row
+    → global id, -1 on padding).  ``front_args`` holds the static
+    traversal parameters captured at partition time.
+    """
+
+    config: "PipelineConfig"         # noqa: F821 - import cycle via pipeline
+    layout: RecordLayout
+    n_shards: int
+    front: str                       # which front this partition serves
+    codebook: pq_mod.PQCodebook      # replicated
+    front_rep: tuple                 # replicated front tensors
+    front_db: tuple                  # shard-stacked front tensors
+    front_args: tuple                # static (name, value) traversal args
+    pq_codes: torch.Tensor           # (S, n_max, M) uint8
+    trq: TRQCodes                    # every per-record leaf (S, n_max, ...)
+    x: torch.Tensor                  # (S, n_max, D) full precision ("SSD")
+    gid: torch.Tensor                # (S, n_max) int32 global row id, -1 pad
+    shard_rows: np.ndarray           # (S,) real rows per shard
+
+    @property
+    def centroids(self) -> torch.Tensor:
+        return self.front_rep[0]
+
+    @property
+    def list_gid(self) -> torch.Tensor:
+        return self.front_db[0]
+
+    @property
+    def lists(self) -> torch.Tensor:
+        return self.front_db[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+    @property
+    def default_backend(self) -> str:
+        if self.config.backend is not None:
+            return self.config.backend
+        return "cuda" if self.device.type == "cuda" else "reference"
+
+    @cached_property
+    def shard_trqs(self) -> tuple[TRQCodes, ...]:
+        """Each shard's TRQ codes (views of the stacked tensors), built
+        once so a backend can key its per-shard stores on them."""
+        trq = self.trq
+        return tuple(
+            TRQCodes(dim=trq.dim,
+                     levels=tuple(_map_fields(lv, lambda t, s=s: t[s])
+                                  for lv in trq.levels),
+                     scalars=_map_fields(trq.scalars, lambda t, s=s: t[s]),
+                     model=trq.model)
+            for s in range(self.n_shards))
+
+    def to(self, device) -> "ShardedIndex":
+        """The same partition with every tensor on ``device``."""
+        mv = lambda t: t.to(device)                           # noqa: E731
+        trq = TRQCodes(dim=self.trq.dim,
+                       levels=tuple(_map_fields(lv, mv)
+                                    for lv in self.trq.levels),
+                       scalars=_map_fields(self.trq.scalars, mv),
+                       model=_map_fields(self.trq.model, mv))
+        return dataclasses.replace(
+            self, codebook=_map_fields(self.codebook, mv),
+            front_rep=tuple(map(mv, self.front_rep)),
+            front_db=tuple(map(mv, self.front_db)),
+            pq_codes=mv(self.pq_codes), trq=trq, x=mv(self.x),
+            gid=mv(self.gid))
+
+
+def lpt_assign(lens: np.ndarray, n_shards: int
+               ) -> tuple[list[list[int]], np.ndarray]:
+    """LPT greedy list→shard assignment: sort lists by member count
+    descending, place each on the currently lightest shard.  Bounds the
+    heaviest shard at (4/3 − 1/3S)× the optimum.  Returns (per-shard list
+    ids, per-shard loads)."""
+    order = np.argsort(-lens, kind="stable")
+    loads = np.zeros(n_shards, np.int64)
+    members: list[list[int]] = [[] for _ in range(n_shards)]
+    for li in order:
+        s = int(np.argmin(loads))
+        members[s].append(int(li))
+        loads[s] += int(lens[li])
+    return members, loads
+
+
+def _partition_ivf_front(index, n_shards: int):
+    """IVF partitioner: whole inverted lists → shards via ``lpt_assign``.
+    Returns (per-shard global rows, replicated tensors, shard-stacked
+    front tensors, static front args)."""
+    ivf = index.ivf
+    lens = ivf.list_len.cpu().numpy()
+    lists_np = ivf.lists.cpu().numpy()
+    nlist, cap = lists_np.shape
+    if not 1 <= n_shards <= nlist:
+        raise ValueError(f"n_shards={n_shards} must be in [1, nlist={nlist}]"
+                         f" — whole lists are the partitioning unit")
+
+    members, _ = lpt_assign(lens, n_shards)
+
+    lmax = max(len(m) for m in members)
+    rows_per: list[np.ndarray] = []
+    list_gid = np.full((n_shards, lmax), -1, np.int32)
+    local_lists = np.full((n_shards, lmax, cap), -1, np.int32)
+    for s, m in enumerate(members):
+        off = 0
+        rows: list[np.ndarray] = []
+        for j, li in enumerate(m):
+            n_li = int(lens[li])
+            list_gid[s, j] = li
+            local_lists[s, j, :n_li] = np.arange(off, off + n_li)
+            rows.append(lists_np[li, :n_li])
+            off += n_li
+        rows_per.append(np.concatenate(rows) if rows
+                        else np.zeros((0,), np.int32))
+    dev = index.device
+    fdb = (torch.from_numpy(list_gid).to(dev),
+           torch.from_numpy(local_lists).to(dev))
+    return rows_per, (ivf.centroids,), fdb, (("nprobe",
+                                              index.config.nprobe),)
+
+
+def partition_database(index, n_shards: int,
+                       front: str = "ivf") -> ShardedIndex:
+    """Partition ``index`` for ``front``'s sharded datapath.
+
+    The front's registered partitioner chooses which global rows each shard
+    owns; the per-record arrays (PQ codes, TRQ levels + scalars, full
+    vectors) are then gathered on the device into shard-local row order
+    and stacked, zero-padded to the largest shard.
+    """
+    hooks = registry.sharded_front(front)
+    rows_per, front_rep, front_db, front_args = hooks.partition(
+        index, n_shards)
+    shard_rows = np.array([r.size for r in rows_per])
+    n_max = max(int(shard_rows.max()), 1)
+
+    gid_np = np.full((n_shards, n_max), -1, np.int32)
+    for s, rows in enumerate(rows_per):
+        gid_np[s, :rows.size] = rows
+    gid = torch.from_numpy(gid_np).to(index.device)
+    rows = gid.long().clamp(min=0)
+    pad = gid < 0
+
+    def stack(t: torch.Tensor) -> torch.Tensor:
+        out = t[rows]
+        out[pad] = 0
+        return out
+
+    trq = index.trq
+    return ShardedIndex(
+        config=index.config, layout=index.layout, n_shards=n_shards,
+        front=front, codebook=index.codebook, front_rep=front_rep,
+        front_db=front_db, front_args=front_args,
+        pq_codes=stack(index.pq_codes),
+        trq=TRQCodes(dim=trq.dim,
+                     levels=tuple(_map_fields(lv, stack)
+                                  for lv in trq.levels),
+                     scalars=_map_fields(trq.scalars, stack),
+                     model=trq.model),
+        x=stack(index.x), gid=gid, shard_rows=shard_rows)
+
+
+# ------------------------------------------------------- per-shard front
+
+
+def _ivf_shard_front(queries, rep, fdb, codebook, pq_codes, *,
+                     nprobe: int) -> list[Candidates]:
+    """The IVF front on every shard of one micro-batch.  The replicated
+    centroid ranking and ADC tables are computed once; then per shard the
+    chosen lists it owns are gathered and scored with one ``pq_adc``
+    launch.  The global top-``nprobe`` set has ``nprobe`` lists in all, so
+    ``pl = min(nprobe, lmax)`` slots per shard always suffice."""
+    (centroids,) = rep
+    list_gid, lists = fdb
+    nq = queries.shape[0]
+    n_shards, lmax, cap = lists.shape
+    d_cent, top_lists = rank_centroid_lists(centroids, queries,
+                                            nprobe=nprobe)
+    lut = pq_mod.adc_table(codebook, queries)
+    pl = min(nprobe, lmax)
+    inf = torch.tensor(float("inf"), device=queries.device)
+    cands = []
+    for s in range(n_shards):
+        own = list_gid[s]
+        chosen = (own[None, :, None] == top_lists[:, None, :]).any(-1)
+        d_own = torch.where(chosen & (own >= 0)[None, :],
+                            d_cent[:, own.clamp(min=0).long()], inf)
+        slot = _smallest(d_own, pl)                           # (Q, pl)
+        sel = torch.gather(chosen, 1, slot)
+        ids_l = lists[s][slot]                                # (Q, pl, cap)
+        valid = ((ids_l >= 0) & sel[:, :, None]).reshape(nq, pl * cap)
+        ids = ids_l.clamp(min=0).reshape(nq, pl * cap).contiguous()
+        d0 = pq_adc(pq_codes[s], ids, valid, lut)
+        cands.append(Candidates(ids=ids, valid=valid, d0=d0,
+                                counters={"front_cand": valid.sum()}))
+    return cands
+
+
+registry.register_sharded_front("ivf", registry.ShardedFrontHooks(
+    partition=_partition_ivf_front, body=_ivf_shard_front,
+    fold=fold_ivf_front_cost))
+
+
+# ------------------------------------------------------ per-shard rerank
+
+
+def _rerank_survivors_sharded(x, gid, queries, ids, est, alive, *, k: int,
+                              budget: int):
+    """Shard-local exact rerank under a GLOBAL SSD budget, then the
+    cross-shard top-k merge.  ids/est/alive (S, Q, C_s).
+
+    Each shard takes its ``min(budget, C_s)`` best estimates; the pooled
+    budget-th smallest estimate among alive candidates (τ_b) decides which
+    of them fetch their full vectors.  Returns (top-k global ids, their
+    exact distances, (S,) fetch counts).
+
+    Tie caveat: the unsharded path cuts EXACTLY ``budget`` slots in index
+    order, while this threshold cut keeps every candidate at τ_b; records
+    with exactly equal f32 estimates straddling the budget boundary (e.g.
+    duplicate rows) can fetch one extra candidate per tie.
+    """
+    bl = min(budget, est.shape[-1])
+    est_m = torch.where(alive, est, torch.full_like(est, float("inf")))
+    tau_b = pooled_k_smallest(est_m, budget, shard_dim=0)    # (Q,)
+    order = _smallest(est_m, bl)                              # (S, Q, bl)
+    fetch_alive = torch.gather(alive, 2, order) & \
+        (torch.gather(est_m, 2, order) <= tau_b[None, :, None])
+    fetch_ids = torch.gather(ids, 2, order)
+    d_parts, g_parts = [], []
+    for s in range(ids.shape[0]):
+        d = _exact_sq(x[s], queries, fetch_ids[s])
+        d_parts.append(torch.where(fetch_alive[s], d,
+                                   torch.full_like(d, float("inf"))))
+        g_parts.append(gid[s][fetch_ids[s].long()])
+    d_all = torch.cat(d_parts, dim=1)                         # shard order
+    g_all = torch.cat(g_parts, dim=1)
+    best = _smallest(d_all, k)
+    return (torch.gather(g_all, 1, best), torch.gather(d_all, 1, best),
+            fetch_alive.sum((1, 2)))
+
+
+# ---------------------------------------------------------------- executor
+
+
+def _collect_shards(counters: Counters) -> list[dict[str, int]]:
+    """The single device→host transfer: (S,) counters → one dict per
+    shard."""
+    names = list(counters)
+    vals = torch.stack([counters[n].to(torch.int64) for n in names])
+    return [dict(zip(names, col)) for col in vals.cpu().T.tolist()]
+
+
+@dataclass
+class ShardedExecutor:
+    """Staged search over a ShardedIndex, with the same top-k as the
+    unsharded ``SearchExecutor`` on the same database (see the module
+    docstring for why) and per-shard ledgers folded under the
+    parallel-shard overlap model."""
+
+    sharded: ShardedIndex
+    backend: object
+    micro_batch: int | None = None
+    refine_budget: int | None = None  # plan-level SSD budget override
+
+    def execute(self, queries: torch.Tensor, *, k: int | None = None,
+                cost: QueryCost | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor, QueryCost]:
+        """Sharded FaTRQ search: (Q, k) GLOBAL ids, their exact squared-L2
+        distances and the merged per-shard ledger."""
+        ids, dists, shard_counts = self._search(queries, k=k)
+        merged = self._fold(shard_counts)
+        if cost is not None:
+            merged = cost.merge(merged)
+        return ids, dists, merged
+
+    def _search(self, queries: torch.Tensor, *, k: int | None = None):
+        """(ids, distances, per-shard counts) of a search."""
+        si = self.sharded
+        cfg = si.config
+        k = k or cfg.final_k
+        budget = search_budget(cfg, k, self.refine_budget)
+        body = registry.sharded_front(si.front).body
+        ids_parts, dist_parts = [], []
+        counters: Counters = {}
+        for chunk in iter_chunks(queries, self.micro_batch):
+            cands = body(chunk, si.front_rep, si.front_db, si.codebook,
+                         si.pq_codes, **dict(si.front_args))
+            refined = self.backend.refine_sharded(
+                chunk, cands, si.shard_trqs, k=k, bound=cfg.bound, z=cfg.z)
+            topk, topk_d, n_ssd = _rerank_survivors_sharded(
+                si.x, si.gid, chunk, torch.stack([c.ids for c in cands]),
+                refined.est, refined.alive, k=k, budget=budget)
+            ids_parts.append(topk)
+            dist_parts.append(topk_d)
+            _accumulate(counters, {n: torch.stack([c.counters[n]
+                                                   for c in cands])
+                                   for n in cands[0].counters})
+            _accumulate(counters, refined.counters)
+            _accumulate(counters, {"ssd_fetch": n_ssd})
+        return _cat(ids_parts), _cat(dist_parts), _collect_shards(counters)
+
+    def _fold(self, shard_counts: list[dict[str, int]]) -> QueryCost:
+        """S Table-I ledgers, one per shard's counts, folded into one with
+        ``merge_parallel`` (max time, summed bytes)."""
+        si = self.sharded
+        front_fold = registry.sharded_front(si.front).fold
+        costs = [fold_counts(c, cost=None, config=si.config,
+                             layout=si.layout, front_fold=front_fold)
+                 for c in shard_counts]
+        merged = costs[0]
+        for c in costs[1:]:
+            merged.merge_parallel(c)
+        return merged
+
+
+def make_sharded_executor(index, *, shards: int, front: str = "ivf",
+                          backend: str = "reference",
+                          micro_batch: int | None = None,
+                          refine_budget: int | None = None
+                          ) -> ShardedExecutor:
+    """Memoized sharded-executor factory.
+
+    A ``FaTRQIndex`` is partitioned once per (shards, front) and the
+    partition kept on it; a ``ShardedIndex`` is used as it is.  Executors
+    are cached on the partition per (backend, micro_batch, refine_budget),
+    so executors with another backend share one partition.
+    """
+    if isinstance(index, ShardedIndex):
+        if (shards, front) != (index.n_shards, index.front):
+            raise ValueError(f"the ShardedIndex has {index.n_shards} "
+                             f"{index.front!r} shards, not {shards} "
+                             f"{front!r} shards")
+        si = index
+    else:
+        parts = index.__dict__.setdefault("_sharded_cache", {})
+        si = parts.get((shards, front))
+        if si is None:
+            si = parts[(shards, front)] = partition_database(
+                index, shards, front=front)
+    cache = si.__dict__.setdefault("_executor_cache", {})
+    key = (backend, micro_batch, refine_budget)
+    ex = cache.get(key)
+    if ex is None:
+        ex = cache[key] = ShardedExecutor(
+            sharded=si, backend=registry.make_backend(backend),
+            micro_batch=micro_batch, refine_budget=refine_budget)
+    return ex

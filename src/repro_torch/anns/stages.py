@@ -4,7 +4,11 @@
   refine  : FaTRQ progressive estimation over every TRQ level.  Two
             backends with the same semantics: ``reference`` (plain PyTorch
             ``trq.progressive_search``) and ``cuda`` (the fused
-            ``ternary_refine`` kernel).
+            ``ternary_refine`` kernel).  On the sharded layout
+            (``anns.sharding``) each backend's ``refine_sharded`` takes
+            every level's interval per shard (``trq.level_bounds`` / the
+            ``ternary_refine_fused_bounds`` kernel) and runs one alive
+            chain over the stacked shards with pooled thresholds.
   rerank  : survivors fetch full-precision vectors ("SSD") for exact L2.
 
 Each stage returns device-side counters (0-d tensors) beside its tensors;
@@ -25,11 +29,12 @@ import torch
 
 from repro_torch.anns import registry
 from repro_torch.core import trq as trq_mod
+from repro_torch.core.estimator import alive_chain
 from repro_torch.core.trq import TRQCodes
 from repro_torch.index import ivf as ivf_mod
 from repro_torch.kernels.pq_adc import pq_adc
 from repro_torch.kernels.ternary_refine import RefineStores, \
-    ternary_refine_fused
+    ternary_refine_fused, ternary_refine_fused_bounds
 from repro_torch.memory import QueryCost, RecordLayout, Tier
 from repro_torch.quant import pq as pq_mod
 
@@ -50,7 +55,8 @@ class Candidates(NamedTuple):
 
 
 class Refined(NamedTuple):
-    """Refine-stage output: calibrated estimates + survivor mask."""
+    """Refine-stage output: calibrated estimates + survivor mask (with a
+    leading shard axis S on the sharded layout, and (S,) counters)."""
 
     est: torch.Tensor        # (Q, C) f32
     alive: torch.Tensor      # (Q, C) bool (already ∧ valid)
@@ -116,17 +122,32 @@ class IVFFrontStage:
 
 
 def _level_counters(level_alive: tuple[torch.Tensor, ...],
-                    is_delta: torch.Tensor | None = None) -> Counters:
+                    is_delta: torch.Tensor | None = None, *,
+                    dims: tuple[int, ...] | None = None) -> Counters:
     """``refine_alive``: final survivors; ``refine_alive_l{ℓ}``: candidates
     entering level ℓ ≥ 1 (survivors of ℓ−1), whose level-ℓ codes stream
-    from far memory; ``_delta``: their delta-page share."""
-    counters: Counters = {"refine_alive": level_alive[-1].sum()}
+    from far memory; ``_delta``: their delta-page share.  ``dims`` sums
+    over those dimensions only (one counter per shard on the sharded
+    layout) instead of over everything."""
+    def total(m: torch.Tensor) -> torch.Tensor:
+        return m.sum() if dims is None else m.sum(dims)
+
+    counters: Counters = {"refine_alive": total(level_alive[-1])}
     for lv in range(1, len(level_alive)):
-        counters[f"refine_alive_l{lv}"] = level_alive[lv - 1].sum()
+        counters[f"refine_alive_l{lv}"] = total(level_alive[lv - 1])
         if is_delta is not None:
-            counters[f"refine_alive_l{lv}_delta"] = (
-                level_alive[lv - 1] & is_delta).sum()
+            counters[f"refine_alive_l{lv}_delta"] = total(
+                level_alive[lv - 1] & is_delta)
     return counters
+
+
+def _stack_bounds(backend, queries: torch.Tensor, cands: list[Candidates],
+                  trqs, *, bound: str, z: float):
+    """Each shard's (est, lo, hi) from ``backend.bounds``, stacked on a
+    leading shard axis: est (S, Q, C_s), lo/hi (S, Q, L, C_s)."""
+    parts = [backend.bounds(queries, c, t, bound=bound, z=z)
+             for c, t in zip(cands, trqs)]
+    return tuple(torch.stack(p) for p in zip(*parts))
 
 
 @dataclass
@@ -143,23 +164,65 @@ class ReferenceRefineBackend:
         return Refined(est=state.est, alive=level_alive[-1],
                        counters=_level_counters(level_alive, cand.is_delta))
 
+    def bounds(self, queries: torch.Tensor, cand: Candidates, trq: TRQCodes,
+               *, bound: str, z: float):
+        return trq_mod.level_bounds(queries, cand.d0, trq, cand.ids.long(),
+                                    bound=bound, z=z)
+
+    def refine_sharded(self, queries: torch.Tensor,
+                       cands: list[Candidates], trqs, *, k: int, bound: str,
+                       z: float) -> Refined:
+        """One alive chain over the stacked shards, as the JAX reference
+        runs it: the chain starts from every slot, thresholds pooled
+        across shards, and ``valid`` is ANDed afterwards."""
+        est, lo, hi = _stack_bounds(self, queries, cands, trqs, bound=bound,
+                                    z=z)
+        valid = torch.stack([c.valid for c in cands])
+        level_alive, _ = alive_chain(lo, hi, torch.ones_like(valid), k,
+                                     shard_dim=0)
+        level_alive = tuple(a & valid for a in level_alive)
+        return Refined(est=est, alive=level_alive[-1],
+                       counters=_level_counters(level_alive, dims=(1, 2)))
+
 
 @dataclass
 class CudaRefineBackend:
     """The fused refinement kernel (``kernels.ternary_refine``): every TRQ
     level, the certified bounds, the pruning chain and the per-level
-    survivor counts.  The per-index stores it gathers from are built on
-    first use and kept for the TRQ codes they came from."""
+    survivor counts; on the sharded layout the bounds kernel per shard.
+    The per-index stores it gathers from are built on first use and kept
+    for the TRQ codes they came from (one per shard when sharded)."""
 
     name: str = field(default="cuda", init=False)
-    _trq: TRQCodes | None = field(default=None, init=False, repr=False)
-    _stores: RefineStores | None = field(default=None, init=False,
-                                         repr=False)
+    _stores: list[tuple[TRQCodes, RefineStores]] = field(
+        default_factory=list, init=False, repr=False)
 
     def stores(self, trq: TRQCodes) -> RefineStores:
-        if trq is not self._trq:
-            self._trq, self._stores = trq, RefineStores.from_trq(trq)
-        return self._stores
+        for codes, stores in self._stores:
+            if codes is trq:
+                return stores
+        stores = RefineStores.from_trq(trq)
+        self._stores.append((trq, stores))
+        return stores
+
+    def bounds(self, queries: torch.Tensor, cand: Candidates, trq: TRQCodes,
+               *, bound: str, z: float):
+        return ternary_refine_fused_bounds(
+            self.stores(trq), queries, cand.ids, cand.d0, cand.valid,
+            trq.model, bound=bound, z=z)
+
+    def refine_sharded(self, queries: torch.Tensor,
+                       cands: list[Candidates], trqs, *, k: int, bound: str,
+                       z: float) -> Refined:
+        """One alive chain over the stacked shards, as the JAX kernel path
+        runs it: the chain starts from ``valid`` (the bounds kernel writes
+        +inf on invalid slots), thresholds pooled across shards."""
+        est, lo, hi = _stack_bounds(self, queries, cands, trqs, bound=bound,
+                                    z=z)
+        valid = torch.stack([c.valid for c in cands])
+        level_alive, _ = alive_chain(lo, hi, valid, k, shard_dim=0)
+        return Refined(est=est, alive=level_alive[-1],
+                       counters=_level_counters(level_alive, dims=(1, 2)))
 
     def refine(self, queries: torch.Tensor, cand: Candidates, trq: TRQCodes,
                *, k: int, bound: str, z: float) -> Refined:
@@ -225,6 +288,7 @@ def make_ivf_front(index, **opts) -> IVFFrontStage:
                          pq_codes=index.pq_codes, nprobe=nprobe)
 
 
-registry.register_front("ivf", make={"static": make_ivf_front})
+registry.register_front("ivf", layouts=("static", "sharded"),
+                        make={"static": make_ivf_front})
 registry.register_backend("reference", make=ReferenceRefineBackend)
 registry.register_backend("cuda", make=CudaRefineBackend)

@@ -60,19 +60,71 @@ def cauchy_margin(q: torch.Tensor, codes: torch.Tensor, norms: torch.Tensor,
     return 2.0 * qn[..., None] * norms * orth_q * orth_d
 
 
-def pooled_k_smallest(values: torch.Tensor, k: int) -> torch.Tensor:
+def pooled_k_smallest(values: torch.Tensor, k: int,
+                      shard_dim: int | None = None) -> torch.Tensor:
     """kth-smallest value along the last axis (+inf encodes masked entries).
-    Only the value is returned, so ``topk``'s tie order does not matter."""
+    Only the value is returned, so ``topk``'s tie order does not matter.
+
+    With ``shard_dim`` (a non-negative dimension of ``values`` stacking
+    shards) each shard contributes its ``min(k, C_s)`` smallest, the pools
+    are concatenated in shard order (the all-gather of the sharded layout)
+    and the kth smallest of the pool is the exact global kth smallest: any
+    global top-k member is in its shard's local top-k.  The result drops
+    ``shard_dim`` and the last axis."""
+    if shard_dim is not None:
+        kk = min(k, values.shape[-1])
+        local = torch.topk(values, kk, dim=-1, largest=False).values
+        values = local.movedim(shard_dim, -2).flatten(-2)
     kk = min(k, values.shape[-1])
     return torch.topk(values, kk, dim=-1, largest=False).values[..., -1]
 
 
-def topk_threshold(estimates: torch.Tensor, alive: torch.Tensor,
-                   k: int) -> torch.Tensor:
-    """kth-smallest upper estimate among alive candidates (τ)."""
+def topk_threshold(estimates: torch.Tensor, alive: torch.Tensor, k: int,
+                   shard_dim: int | None = None) -> torch.Tensor:
+    """kth-smallest upper estimate among alive candidates (τ), pooled
+    across ``shard_dim`` when it is given (see ``pooled_k_smallest``)."""
     masked = torch.where(alive, estimates,
                          torch.full_like(estimates, float("inf")))
-    return pooled_k_smallest(masked, k)
+    return pooled_k_smallest(masked, k, shard_dim)
+
+
+def alive_chain(lo: torch.Tensor, hi: torch.Tensor, alive: torch.Tensor,
+                k: int, shard_dim: int | None = None
+                ) -> tuple[tuple[torch.Tensor, ...], tuple[torch.Tensor, ...]]:
+    """Level-wise pruning over precomputed certified intervals.
+
+    lo/hi (..., L, C), alive (..., C) the starting mask.  Per level
+    τ = kth-smallest ``hi`` among the alive (pooled across ``shard_dim``
+    when given), then ``alive &= lo ≤ τ``.  Returns the alive mask and τ
+    after every level."""
+    alives, taus = [], []
+    for lv in range(lo.shape[-2]):
+        tau = topk_threshold(hi[..., lv, :], alive, k, shard_dim)
+        wide = tau[..., None] if shard_dim is None \
+            else tau.unsqueeze(shard_dim)[..., None]
+        alive = alive & (lo[..., lv, :] <= wide)
+        alives.append(alive)
+        taus.append(tau)
+    return tuple(alives), tuple(taus)
+
+
+def level0_bounds(q: torch.Tensor, d0: torch.Tensor, scalars: RecordScalars,
+                  codes: torch.Tensor, model: calib.CalibrationModel, *,
+                  bound: str = "cauchy", z: float = 3.0
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Level 0's calibrated estimate and certified (lo, hi), unpruned."""
+    d_ip = residual_ip_estimate(q, codes, scalars.norm, scalars.rho)
+    feats = calib.build_features(d0, d_ip, scalars.delta_sq, scalars.cross)
+    est = calib.predict(model, feats)
+    if bound == "cauchy":
+        # certified interval around the uncalibrated decomposition identity
+        est_raw = d0 + scalars.delta_sq + 2.0 * scalars.cross + d_ip
+        margin = cauchy_margin(q, codes, scalars.norm, scalars.rho)
+        return est, est_raw - margin, est_raw + margin
+    if bound == "quantile":
+        margin = z * model.resid_std
+        return est, est - margin, est + margin
+    raise ValueError(f"unknown bound {bound!r}")
 
 
 def refine_level(q: torch.Tensor, d0: torch.Tensor, scalars: RecordScalars,
@@ -82,19 +134,8 @@ def refine_level(q: torch.Tensor, d0: torch.Tensor, scalars: RecordScalars,
     """One FaTRQ refinement level over a candidate batch."""
     if prev_alive is None:
         prev_alive = torch.ones_like(d0, dtype=torch.bool)
-    d_ip = residual_ip_estimate(q, codes, scalars.norm, scalars.rho)
-    feats = calib.build_features(d0, d_ip, scalars.delta_sq, scalars.cross)
-    est = calib.predict(model, feats)
-    if bound == "cauchy":
-        # certified interval around the uncalibrated decomposition identity
-        est_raw = d0 + scalars.delta_sq + 2.0 * scalars.cross + d_ip
-        margin = cauchy_margin(q, codes, scalars.norm, scalars.rho)
-        lo, hi = est_raw - margin, est_raw + margin
-    elif bound == "quantile":
-        margin = z * model.resid_std
-        lo, hi = est - margin, est + margin
-    else:
-        raise ValueError(f"unknown bound {bound!r}")
+    est, lo, hi = level0_bounds(q, d0, scalars, codes, model, bound=bound,
+                                z=z)
     tau = topk_threshold(hi, prev_alive, k)
     alive = prev_alive & (lo <= tau[..., None])
     return ProgressiveState(est=est, lo=lo, alive=alive, tau=tau)

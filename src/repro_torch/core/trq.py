@@ -3,8 +3,10 @@
 Records are encoded against their coarse (PQ) reconstructions into L
 stacked ternary levels plus per-record scalars; level ℓ encodes what is
 left after projecting out level ℓ−1's approximation.  ``progressive_search``
-is the plain PyTorch refinement (the ``reference`` backend); the ``cuda``
-backend runs the same math in ``kernels.ternary_refine``.
+is the plain PyTorch refinement (the ``reference`` backend) and
+``level_bounds`` its unpruned intervals (the sharded layout pools its
+thresholds across shards); the ``cuda`` backend runs the same math in
+``kernels.ternary_refine``.
 """
 
 from __future__ import annotations
@@ -16,9 +18,8 @@ import torch
 from repro_torch.core import calibration as calib
 from repro_torch.core import packing
 from repro_torch.core.decomposition import RecordScalars, compute_scalars
-from repro_torch.core.estimator import (ProgressiveState, refine_level,
-                                        residual_ip_estimate,
-                                        topk_threshold)
+from repro_torch.core.estimator import (ProgressiveState, alive_chain,
+                                        level0_bounds, residual_ip_estimate)
 from repro_torch.core.ternary import reconstruct, ternary_encode, \
     ternary_inner
 from repro_torch.device import chunks
@@ -105,20 +106,19 @@ def calibrate(codes: TRQCodes, q_samples: torch.Tensor, x: torch.Tensor,
                     model=calib.fit(feats, true_d))
 
 
-def progressive_search(q: torch.Tensor, d0: torch.Tensor, codes: TRQCodes,
-                       cand_idx: torch.Tensor, *, k: int,
-                       bound: str = "cauchy", z: float = 3.0
-                       ) -> tuple[ProgressiveState, tuple[torch.Tensor, ...]]:
-    """All TRQ levels over per-query candidate lists, pruning between
-    levels.  q (Q, D), d0 and cand_idx (Q, C).  Returns the final state and
-    the alive mask after every level (level ℓ+1's far-memory traffic is
-    billed to level ℓ's survivors)."""
-    scalars = codes.scalars.take(cand_idx)
-    state = refine_level(q, d0, scalars, unpack_level(codes, 0, cand_idx),
-                         codes.model, k=k, bound=bound, z=z)
-    level_alive = [state.alive]
+def level_bounds(q: torch.Tensor, d0: torch.Tensor, codes: TRQCodes,
+                 cand_idx: torch.Tensor, *, bound: str = "cauchy",
+                 z: float = 3.0
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every TRQ level's estimate and certified interval, with no pruning
+    (nothing depends across levels but each candidate's running estimate).
+    q (Q, D), d0 and cand_idx (Q, C) → (est (Q, C) after the last level,
+    lo (Q, L, C), hi (Q, L, C))."""
+    est, lo, hi = level0_bounds(q, d0, codes.scalars.take(cand_idx),
+                                unpack_level(codes, 0, cand_idx), codes.model,
+                                bound=bound, z=z)
+    los, his = [lo], [hi]
     qn = torch.linalg.vector_norm(q, dim=-1)[..., None]
-    est = state.est
     for lv in range(1, codes.num_levels):
         level = codes.levels[lv]
         align = ternary_inner(unpack_level(codes, lv, cand_idx),
@@ -128,9 +128,22 @@ def progressive_search(q: torch.Tensor, d0: torch.Tensor, codes: TRQCodes,
         rem = level.norm[cand_idx] * torch.sqrt(
             torch.clamp(1.0 - rho ** 2, 0.0, 1.0))
         margin = 2.0 * qn * rem + codes.model.resid_std
-        tau = topk_threshold(est + margin, state.alive, k)
-        alive = state.alive & (est - margin <= tau[..., None])
-        state = ProgressiveState(est=est, lo=est - margin, alive=alive,
-                                 tau=tau)
-        level_alive.append(alive)
-    return state, tuple(level_alive)
+        los.append(est - margin)
+        his.append(est + margin)
+    return est, torch.stack(los, dim=-2), torch.stack(his, dim=-2)
+
+
+def progressive_search(q: torch.Tensor, d0: torch.Tensor, codes: TRQCodes,
+                       cand_idx: torch.Tensor, *, k: int,
+                       bound: str = "cauchy", z: float = 3.0
+                       ) -> tuple[ProgressiveState, tuple[torch.Tensor, ...]]:
+    """All TRQ levels over per-query candidate lists, pruning between
+    levels.  q (Q, D), d0 and cand_idx (Q, C).  Returns the final state and
+    the alive mask after every level (level ℓ+1's far-memory traffic is
+    billed to level ℓ's survivors)."""
+    est, lo, hi = level_bounds(q, d0, codes, cand_idx, bound=bound, z=z)
+    level_alive, taus = alive_chain(
+        lo, hi, torch.ones_like(d0, dtype=torch.bool), k)
+    state = ProgressiveState(est=est, lo=lo[..., -1, :],
+                             alive=level_alive[-1], tau=taus[-1])
+    return state, level_alive

@@ -1,8 +1,12 @@
-"""Input assembly for the kernels and the shared-memory budget check.
+"""Input assembly for the kernels, the shared-memory budget check and the
+level-0 scoring entry points.
 
-The refine kernel reads a query as 5 digit planes of (G,) floats (byte g's
+The refine kernels read a query as 5 digit planes of (G,) floats (byte g's
 digit i holds dim 5g+i), one parameter row per query, and per-record
 scalars gathered by candidate id from (N, 4) tables built once per index.
+``refine_scores_batch`` / ``refine_scores`` keep the JAX package's
+signatures (``repro.kernels.ops``): they assemble those inputs from
+per-candidate arrays and run the level-0 kernel.
 """
 
 from __future__ import annotations
@@ -10,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.packing import TRITS_PER_BYTE
+from repro_torch.kernels import ternary_refine as _kernels
 
 #: shared memory one block may use on Hopper (227 KB; above 48 KB only as
 #: dynamic shared memory after the opt-in attribute)
@@ -69,3 +74,40 @@ def level_table(level) -> torch.Tensor:
     return torch.stack([level.proj, level.norm, level.rho,
                         torch.zeros_like(level.proj)], dim=1) \
         .float().contiguous()
+
+
+def level0_inputs(q, g, d0, delta_sq, cross, norm, rho, w, bias):
+    """Planes (Q, 5, G), params (Q, 8) [||q||, w0..w3, bias, 0, 0] and
+    scalars (Q, C, 5) [d0, ||δ||², ⟨x_c,δ⟩, ||δ||, rho]."""
+    # a zero resid_std leaves the two trailing parameters 0
+    params = query_params(q, w, bias, torch.zeros(1, device=q.device), 0.0)
+    scalars = torch.stack([d0, delta_sq, cross, norm, rho], dim=-1)
+    return make_query_planes(q, g), params, scalars.float().contiguous()
+
+
+def refine_scores_batch(packed: torch.Tensor, q: torch.Tensor,
+                        d0: torch.Tensor, delta_sq: torch.Tensor,
+                        cross: torch.Tensor, norm: torch.Tensor,
+                        rho: torch.Tensor, w: torch.Tensor,
+                        bias: torch.Tensor) -> torch.Tensor:
+    """Level-0 refine of a query micro-batch → (Q, C, 3) [est, est_raw,
+    margin].  packed (Q, C, G) per-query gathered codes, q (Q, D), the
+    per-record scalars (Q, C); calibration w (4,) and bias are shared."""
+    g = packed.shape[-1]
+    planes, params, scalars = level0_inputs(q, g, d0, delta_sq, cross,
+                                             norm, rho, w, bias)
+    return _kernels.ternary_refine_batch(packed.contiguous(), planes,
+                                         scalars, params)
+
+
+def refine_scores(packed: torch.Tensor, q: torch.Tensor, d0: torch.Tensor,
+                  delta_sq: torch.Tensor, cross: torch.Tensor,
+                  norm: torch.Tensor, rho: torch.Tensor, w: torch.Tensor,
+                  bias: torch.Tensor) -> torch.Tensor:
+    """``refine_scores_batch`` for one query: packed (C, G), q (D,), the
+    scalars (C,) → (C, 3)."""
+    g = packed.shape[-1]
+    planes, params, scalars = level0_inputs(
+        q.reshape(1, -1), g, d0, delta_sq, cross, norm, rho, w, bias)
+    return _kernels.ternary_refine(packed.contiguous(), planes[0], scalars,
+                                   params)

@@ -18,6 +18,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.quant import pq as jpq  # noqa: E402
 from repro_torch.core import calibration as cal  # noqa: E402
 from repro_torch.core import decomposition as dec  # noqa: E402
+from repro_torch.core import estimator as est_mod  # noqa: E402
 from repro_torch.core import trq  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import pq_adc as pq_adc_mod  # noqa: E402
@@ -90,6 +91,87 @@ def test_refine_matches_pallas_kernel(levels, bound):
                                atol=TOL)
     np.testing.assert_array_equal(alive.numpy(), np.asarray(want[1]))
     np.testing.assert_array_equal(counts.numpy(), np.asarray(want[2]))
+
+
+def _jax_bounds(codes, qs, ids, valid, is_delta, d0, *, bound):
+    sc, lv = codes.scalars, codes.levels
+    j = jnp.asarray
+    return jops.fused_refine_bounds_batch(
+        jnp.stack([v.packed[ids] for v in lv]), j(qs), j(d0),
+        sc.delta_sq[ids], sc.cross[ids], sc.norm[ids], sc.rho[ids], j(valid),
+        j(is_delta), jnp.stack([v.proj[ids] for v in lv]),
+        jnp.stack([v.norm[ids] for v in lv]),
+        jnp.stack([v.rho[ids] for v in lv]), codes.model.w, codes.model.bias,
+        codes.model.resid_std, 3.0, bound=bound, block_c=64)
+
+
+@pytest.mark.parametrize("levels", [1, 3])
+@pytest.mark.parametrize("bound", ["cauchy", "quantile"])
+def test_refine_bounds_matches_pallas_kernel(levels, bound):
+    """The bounds kernel's plain version against the TPU bounds kernel on
+    valid slots, and its intervals' alive chain against the fused kernel's
+    alive mask and counts."""
+    codes, qs, ids, valid, is_delta, d0 = _refine_problem(levels * 5,
+                                                          levels)
+    want = _jax_bounds(codes, qs, ids, valid, is_delta, d0, bound=bound)
+    pc = _trq_to_port(codes)
+    stores = tr.RefineStores.from_trq(pc)
+    args = (torch.from_numpy(qs), torch.from_numpy(ids),
+            torch.from_numpy(d0), torch.from_numpy(valid))
+    est, lo, hi = tr.ternary_refine_fused_bounds(stores, *args, pc.model,
+                                                 bound=bound, z=3.0)
+    assert lo.shape == hi.shape == (ids.shape[0], levels, ids.shape[1])
+    for got, ref in zip((est, lo.transpose(1, 2), hi.transpose(1, 2)),
+                        (want[0], np.swapaxes(np.asarray(want[1]), 1, 2),
+                         np.swapaxes(np.asarray(want[2]), 1, 2))):
+        np.testing.assert_allclose(got.numpy()[valid], np.asarray(ref)[valid],
+                                   rtol=TOL, atol=TOL)
+        assert np.isinf(got.numpy()[~valid]).all()
+    delta = torch.from_numpy(is_delta)
+    est_f, alive_f, counts_f = tr.ternary_refine_fused(
+        stores, *args, delta, pc.model, k=5, bound=bound, z=3.0)
+    assert torch.equal(est[args[3]], est_f[args[3]])
+    level_alive, _ = est_mod.alive_chain(lo, hi, args[3], 5)
+    assert torch.equal(level_alive[-1], alive_f)
+    for lv, a in enumerate(level_alive):
+        assert torch.equal(a.sum(-1, dtype=torch.int32), counts_f[:, lv])
+        assert torch.equal((a & delta).sum(-1, dtype=torch.int32),
+                           counts_f[:, levels + lv])
+
+
+def _level0_problem(rng, shape, d):
+    """Random packed codes (..., C, G) and per-candidate scalars (..., C)."""
+    g = -(-d // 5)
+    packed = rng.integers(0, 243, shape + (g,)).astype(np.uint8)
+    q = rng.standard_normal(shape[:-1] + (d,)).astype(np.float32)
+    d0, dsq, norm = (rng.random(shape).astype(np.float32) * 4 + 0.1
+                     for _ in range(3))
+    cross = rng.standard_normal(shape).astype(np.float32)
+    rho = rng.random(shape).astype(np.float32)
+    w = np.array([1.0, 1.1, 0.95, 2.1], np.float32)
+    bias = np.array(0.3, np.float32)
+    return packed, q, d0, dsq, cross, norm, rho, w, bias
+
+
+@pytest.mark.parametrize("nq,c,d", [(3, 130, 63), (5, 512, 100),
+                                    (1, 7, 11)])
+def test_refine_scores_batch_matches_pallas_kernel(nq, c, d):
+    args = _level0_problem(np.random.default_rng(nq * c), (nq, c), d)
+    want = jops.refine_scores_batch(*map(jnp.asarray, args), block_c=64)
+    got = ops.refine_scores_batch(*map(torch.from_numpy, args))
+    assert got.shape == (nq, c, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("c,d", [(64, 65), (300, 768), (7, 5), (512, 100)])
+def test_refine_scores_matches_pallas_kernel(c, d):
+    args = _level0_problem(np.random.default_rng(c + d), (c,), d)
+    want = jops.refine_scores(*map(jnp.asarray, args), block_c=64)
+    got = ops.refine_scores(*map(torch.from_numpy, args))
+    assert got.shape == (c, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
 
 
 @pytest.mark.parametrize("k", [1, 5, 400])

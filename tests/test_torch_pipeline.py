@@ -160,7 +160,7 @@ def test_unported_plans_raise_plan_error(data, pindex):
     with pytest.raises(PlanError, match="not ported"):
         db.query(data[1], plan=QueryPlan(front="graph"))
     with pytest.raises(PlanError, match="not ported"):
-        db.query(data[1], plan=QueryPlan(shards=2))
+        db.query(data[1], plan=QueryPlan(front="graph", shards=2))
     with pytest.raises(PlanError, match="not ported"):
         db.query(data[1], plan=QueryPlan(backend="pallas"))
     with pytest.raises(PlanError, match="mode"):
