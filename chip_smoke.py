@@ -5,12 +5,19 @@
 
 Phases, each of which raises on failure:
 
-1. print the card (``nvidia-smi``) and build every CUDA kernel from
-   ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
+1. print the card (``nvidia-smi``), build every CUDA kernel from
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and
+   print each kernel's registers and shared memory (``cuobjdump
+   -res-usage``);
 2. make a synthetic 1M x 768 dataset with exact ground truth, build the
    index (PQ M=96, K=256; IVF nlist=1024; one TRQ level) and partition it
    into ``--shards`` shards for the sharded layout;
-3. kernel phase: each kernel against its plain PyTorch version on the card
+3. edge-shape phase: the fused and bounds refine kernels against their
+   plain versions, and the bounds est against the fused est bit for bit,
+   on random code stores at G in {1, 13, 20, 154} and L in {1, 2, 3}, with
+   C = 4133 slots (not a multiple of 32 or of a block's tile), one query
+   with no valid slot and one with every slot valid;
+   kernel phase: each kernel against its plain PyTorch version on the card
    at the shapes its path gives it (64 queries x nprobe 16 lists): the
    fused refine kernel also with two TRQ levels, both bounds and delta
    rows; the bounds kernel on one shard's candidates, both bounds, one and
@@ -18,7 +25,9 @@ Phases, each of which raises on failure:
    intervals' alive chain giving the fused kernel's survivors; the
    level-0 kernels on the gathered code rows of those 64 queries, driven
    once through ``ops.refine_scores_batch`` / ``ops.refine_scores`` (the
-   ops path);
+   ops path); the fused call's score and prune launches timed apart
+   (``torch.profiler``), and both multi-level kernels also with every slot
+   scored;
 4. search paths: ``Database.query`` with ``mode="fatrq"`` (``cuda``
    backend), ``mode="baseline"`` and ``QueryPlan(shards=S)`` (``cuda``)
    over all queries in 64-query micro-batches, each with every kernel's
@@ -41,6 +50,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -72,6 +84,48 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def print_resources(libs) -> None:
+    """Registers and shared memory of every kernel in the built libraries
+    ``libs``, as ``cuobjdump -res-usage`` reports them."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    for lib in libs:
+        out = subprocess.run([tool, "-res-usage", str(lib)],
+                             capture_output=True, text=True,
+                             check=True).stdout.splitlines()
+        for name, usage in zip(out, out[1:]):
+            kernel = re.search(r"(\w+_kernel)", name)
+            if name.strip().startswith("Function") and kernel:
+                print(f"{Path(lib).name.split('-')[0]} "
+                      f"{kernel.group(1)}: {usage.strip()}")
+
+
+def kernel_ms(torch, fn, reps: int) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, by name, over
+    ``reps`` calls under ``torch.profiler`` after a warm-up; empty if the
+    profiler recorded no device events."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def print_launches(torch, label: str, fn, reps: int) -> None:
+    """Each launch of one call of ``fn`` apart (``kernel_ms``)."""
+    split = kernel_ms(torch, fn, reps)
+    if not split:
+        print(f"{label} launches: not measured (the profiler recorded no "
+              f"device events)")
+    for name, ms in sorted(split.items(), key=lambda kv: -kv[1]):
+        print(f"{label} launch: {ms:.4f} ms per call {name[:80]}")
 
 
 def bound(label: str, nbytes: float, ops: float) -> tuple[float, str]:
@@ -188,22 +242,23 @@ def check_refine(torch, tr, ops, stores, model, cand, q, is_delta, *, k,
 
 
 def refine_cost(torch, stores, cand, q) -> dict:
-    """Bound of one level-0 refine call: each distinct code row and its
-    16 B of record scalars read once; per candidate its id, d0, valid flag,
-    est and alive; per query its digit planes, parameters and counts.  The
-    operations are what the function needs, not what this kernel does: a
-    per-query (G, 243) table of partial dot products scores each code byte
-    in one lookup and add, a 243-entry table gives its nonzero count in
-    another add, so 2·G adds per slot, plus ~20 for the slot's estimate,
-    bounds and pruning test."""
+    """Bound of one level-0 refine call: each distinct valid code row and
+    its 16 B of record scalars read once; per valid slot its id; per slot
+    its d0, valid flag, est and alive; per query its digit planes,
+    parameters and counts.  The operations are what the function needs,
+    not what this kernel does: a per-query (G, 243) table of partial dot
+    products scores each code byte in one lookup and add, a 243-entry table
+    gives its nonzero count in another add, so 2·G adds per valid slot,
+    plus ~20 per slot for its estimate, bounds and pruning test."""
     nq, c = cand.ids.shape
     g = stores.packed[0].shape[1]
-    rows = int(torch.unique(cand.ids).numel())
-    nbytes = (rows * (g + 16) + nq * c * (4 + 4 + 1 + 4 + 1)
+    n_valid = int(cand.valid.sum())
+    rows = int(torch.unique(cand.ids[cand.valid]).numel())
+    nbytes = (rows * (g + 16) + n_valid * 4 + nq * c * (4 + 1 + 4 + 1)
               + nq * (5 * g + 8 + 2) * 4)
     return dict(zip(("bound_ms", "bound_by"),
                     bound("ternary_refine_fused", nbytes,
-                          nq * c * (2 * g + 20))))
+                          n_valid * 2 * g + nq * c * 20)))
 
 
 def check_bounds(torch, tr, ops, alive_chain, stores, model, cand, q, *, k,
@@ -317,6 +372,69 @@ def check_level0(torch, tr, ops, model, q, packed, cols, counted):
     return rows
 
 
+EDGE_G = (1, 13, 20, 154)      # packed widths of the edge-shape phase
+EDGE_Q, EDGE_C, EDGE_N = 5, 4133, 20_000
+
+
+def edge_shapes(torch, tr, ops, alive_chain, trq_mod, cal, Candidates,
+                gen) -> tuple[float, float]:
+    """The fused and bounds kernels against their plain versions, and the
+    bounds est against the fused est, on random code stores: each G of
+    ``EDGE_G`` (rows at every byte alignment G allows) and L = 1, 2, 3,
+    both bounds.  C = 4133 is not a multiple of 32 or of the 1024-slot
+    tile; query 0 has no valid slot, query 1 only valid ones, the rest
+    ~30%.  Invalid slots carry d0 = +inf (as the front gives), or a finite
+    d0 at L = 2 so that the kernels' invalid-slot values are compared too.
+    Returns the fused and the bounds kernel's max error."""
+    dev = gen.device
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    model = cal.CalibrationModel(
+        w=torch.tensor([1.0, 1.1, 0.95, 2.1], device=dev),
+        bias=torch.tensor(0.3, device=dev),
+        resid_std=torch.tensor(0.05, device=dev))
+    valid = rand(EDGE_Q, EDGE_C) < 0.3
+    valid[0], valid[1] = False, True
+    ids = torch.randint(0, EDGE_N, (EDGE_Q, EDGE_C), generator=gen,
+                        device=dev, dtype=torch.int32)
+    is_delta = rand(EDGE_Q, EDGE_C) < 0.3
+    errs, ties = [0.0, 0.0], 0
+    for g in EDGE_G:
+        q = torch.randn((EDGE_Q, 5 * g - (g > 1)), generator=gen,
+                        device=dev)
+        for nl in (1, 2, 3):
+            levels = tuple(trq_mod.TRQLevel(
+                packed=torch.randint(0, 243, (EDGE_N, g), generator=gen,
+                                     device=dev, dtype=torch.uint8),
+                proj=rand(EDGE_N) - 0.5, norm=rand(EDGE_N), rho=rand(EDGE_N))
+                for _ in range(nl))
+            stores = tr.RefineStores(
+                packed=tuple(lv.packed for lv in levels),
+                records=torch.stack([rand(EDGE_N) * 2, rand(EDGE_N) - 0.5,
+                                     rand(EDGE_N), rand(EDGE_N)], 1)
+                .contiguous(),
+                levels=tuple(ops.level_table(lv) for lv in levels),
+                dim=q.shape[1])
+            d0 = rand(EDGE_Q, EDGE_C) * 4 + 0.1
+            d0 = torch.where(valid | (nl == 2), d0, float("inf"))
+            cand = Candidates(ids=ids, valid=valid, d0=d0, counters={})
+            for bnd in ("cauchy", "quantile"):
+                label = f"edge G={g} {bnd} L={nl}"
+                err, n = check_refine(torch, tr, ops, stores, model, cand, q,
+                                      is_delta, k=10, bound_name=bnd, z=3.0,
+                                      label=label)
+                b_err, b_n = check_bounds(torch, tr, ops, alive_chain, stores,
+                                          model, cand, q, k=10,
+                                          bound_name=bnd, z=3.0, label=label)
+                errs = [max(errs[0], err), max(errs[1], b_err)]
+                ties += n + b_n
+    print(f"edge-shape phase: {len(EDGE_G) * 6} configurations, max err "
+          f"{max(errs):.3g}, alive mismatches at near-ties {ties}")
+    return errs[0], errs[1]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -341,6 +459,7 @@ def main() -> int:
         make_sharded_executor, recall_at_k
     from repro_torch.anns import registry
     from repro_torch.anns.stages import Candidates, make_ivf_front
+    from repro_torch.core import calibration as cal
     from repro_torch.core import trq as trq_mod
     from repro_torch.core.estimator import alive_chain
     from repro_torch.data import make_dataset
@@ -369,6 +488,10 @@ def main() -> int:
     t = time.perf_counter()
     build.build_all()
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
+    print_resources(build._target(name) for name in build.SOURCES)
+    edge_err, edge_bounds_err = edge_shapes(
+        torch, tr, ops, alive_chain, trq_mod, cal, Candidates,
+        torch.Generator(device="cuda").manual_seed(args.seed + 1))
 
     # ---- data + index build
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -439,7 +562,7 @@ def main() -> int:
     b_params = ops.query_params(q64, model.w, model.bias, model.resid_std,
                                 cfg.z)
     bounds_row = dict(
-        max_abs_err=bounds_err,
+        max_abs_err=max(bounds_err, edge_bounds_err),
         ms=time_ms(lambda: tr.ternary_refine_fused_bounds(
             *b_args, model, bound="cauchy", z=cfg.z), 20),
         plain_ms=time_ms(lambda: tr.refine_bounds_plain(
@@ -450,6 +573,9 @@ def main() -> int:
     every = torch.ones_like(sh_cand.valid)
     no_skip_ms = time_ms(lambda: tr.ternary_refine_fused_bounds(
         *b_args[:4], every, model, bound="cauchy", z=cfg.z), 20)
+    print_launches(torch, "ternary_refine_fused_bounds",
+                   lambda: tr.ternary_refine_fused_bounds(
+                       *b_args, model, bound="cauchy", z=cfg.z), 20)
     print(f"ternary_refine_fused_bounds: {bounds_row['ms']:.3f} ms with "
           f"{int(sh_cand.valid.sum())} valid slots of {sh_cand.valid.numel()}"
           f", {no_skip_ms:.3f} ms with every slot scored")
@@ -482,14 +608,25 @@ def main() -> int:
     params = ops.query_params(q64, model.w, model.bias, model.resid_std,
                               cfg.z)
     refine = dict(
-        max_abs_err=refine_err,
+        max_abs_err=max(refine_err, edge_err),
         ms=time_ms(lambda: tr.ternary_refine_fused(*refine_args,
                                                    **refine_kw), 20),
         plain_ms=time_ms(lambda: tr.refine_plain(
             stores1, planes, params, cand.ids, cand.d0, cand.valid, None,
             k=cfg.final_k, bound="cauchy"), 3),
         library_ms=None, **refine_cost(torch, stores1, cand, q64))
-    del cand, stores1
+    # the fused call's launches apart: scoring, pruning, and the query's
+    # planes and parameter row
+    print_launches(torch, "ternary_refine_fused",
+                   lambda: tr.ternary_refine_fused(*refine_args, **refine_kw),
+                   20)
+    every = torch.ones_like(cand.valid)
+    no_skip_ms = time_ms(lambda: tr.ternary_refine_fused(
+        *refine_args[:4], every, *refine_args[5:], **refine_kw), 20)
+    print(f"ternary_refine_fused: {refine['ms']:.3f} ms with "
+          f"{int(cand.valid.sum())} valid slots of {cand.valid.numel()}, "
+          f"{no_skip_ms:.3f} ms with every slot scored")
+    del cand, stores1, every
 
     # ---- main path
     queries = ds.queries
@@ -516,8 +653,16 @@ def main() -> int:
                 fail(f"the {mode} path never launched {name}")
         print(f"{mode} path launches over {queries.shape[0]} queries in "
               f"{cfg.micro_batch}-query micro-batches: {launches[mode]}")
-    if launches["sharded"]["ternary_refine_fused"]:
-        fail("the sharded path launched ternary_refine_fused")
+    # the multi-level kernels are each path's only refine scoring
+    for mode, others in (("fatrq", ("ternary_refine_fused_bounds",
+                                    "ternary_refine_batch",
+                                    "ternary_refine")),
+                         ("sharded", ("ternary_refine_fused",
+                                      "ternary_refine_batch",
+                                      "ternary_refine"))):
+        for name in others:
+            if launches[mode][name]:
+                fail(f"the {mode} path launched {name}")
 
     # queries/s: host clock around whole searches ended by a synchronize,
     # the two modes in turns, median of 5

@@ -4,6 +4,8 @@ level-0 scoring entry points.
 The refine kernels read a query as 5 digit planes of (G,) floats (byte g's
 digit i holds dim 5g+i), one parameter row per query, and per-record
 scalars gathered by candidate id from (N, 4) tables built once per index.
+The multi-level kernels turn the planes into per-query tables of partial
+dot products in shared memory (``refine_smem_bytes``).
 ``refine_scores_batch`` / ``refine_scores`` keep the JAX package's
 signatures (``repro.kernels.ops``): they assemble those inputs from
 per-candidate arrays and run the level-0 kernel.
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.packing import TRITS_PER_BYTE
+from repro_torch.core.packing import POW3, TRITS_PER_BYTE
 from repro_torch.kernels import ternary_refine as _kernels
 
 #: shared memory one block may use on Hopper (227 KB; above 48 KB only as
@@ -39,8 +41,31 @@ def adc_smem_bytes(m: int, k: int) -> int:
     return m * k * 4
 
 
+#: 32-bit words a lane group of the multi-level kernels reads per pass
+#: over a code row (8 lanes × 5; kPassWords in the source)
+_PASS_WORDS = 40
+
+
+def table_width(g: int) -> int:
+    """Columns of the multi-level kernels' partial-dot tables: byte g sits
+    in column g + 4, after 4 zero columns for the lead bytes of a row's
+    first aligned word and before zero columns up to the last column the
+    row's passes address (4 per word + 4), rounded up to 32 banks."""
+    passes = -(-((g + 6) // 4) // _PASS_WORDS)
+    return -(-(4 * _PASS_WORDS * passes + 4) // 32) * 32
+
+
 def refine_smem_bytes(g: int) -> int:
-    """The refine scoring kernel holds the (5, G) f32 digit planes plus the
+    """The multi-level refine kernels (fused and bounds) hold one query's
+    f32 tables T27 (27 rows: digits 0-2 of a byte) and T9 (10 rows: digits
+    3-4, and a zero row for byte values 243-255 outside a row), each
+    ``table_width`` wide; the planes are read from device memory while
+    building them."""
+    return (27 + 10) * table_width(g) * 4
+
+
+def level0_smem_bytes(g: int) -> int:
+    """The level-0 kernel holds the (5, G) f32 digit planes plus the
     243-entry byte → trits table (uint16 each)."""
     return TRITS_PER_BYTE * g * 4 + 243 * 2
 
@@ -69,11 +94,28 @@ def record_table(scalars) -> torch.Tensor:
                         scalars.rho], dim=1).float().contiguous()
 
 
+#: nonzero trits of each packed byte value 0..242
+_NONZERO = tuple(sum((y // p) % 3 != 1 for p in POW3) for y in range(243))
+#: code rows per step of ``sqrt_nonzero`` (bounds its int64 index copy)
+_COUNT_ROWS = 1 << 16
+
+
+def sqrt_nonzero(packed: torch.Tensor) -> torch.Tensor:
+    """(N,) f32 √max(k, 1) of packed codes (N, G), k a row's nonzero trits:
+    the divisor of align = Σ c·q / √k, as the kernels round it
+    (``sqrtf(fmaxf((float)k, 1.f))``)."""
+    lut = torch.tensor(_NONZERO, dtype=torch.int32, device=packed.device)
+    k = torch.cat([lut[part.long()].sum(-1)
+                   for part in packed.split(_COUNT_ROWS)])
+    return torch.sqrt(torch.clamp(k.float(), min=1.0))
+
+
 def level_table(level) -> torch.Tensor:
-    """(N, 4) f32 [proj, norm, rho, 0] from a ``TRQLevel``."""
-    return torch.stack([level.proj, level.norm, level.rho,
-                        torch.zeros_like(level.proj)], dim=1) \
-        .float().contiguous()
+    """(N, 4) f32 [proj, norm, rho, √max(k, 1)] from a ``TRQLevel``, k the
+    nonzero trits of each code row (``sqrt_nonzero``)."""
+    return torch.stack([level.proj.float(), level.norm.float(),
+                        level.rho.float(), sqrt_nonzero(level.packed)],
+                       dim=1).contiguous()
 
 
 def level0_inputs(q, g, d0, delta_sq, cross, norm, rho, w, bias):

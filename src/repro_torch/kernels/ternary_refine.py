@@ -20,7 +20,9 @@ names do (``kernels.ops.refine_scores_batch`` / ``refine_scores``).
 
 The multi-level kernels (``csrc/ternary_refine.cu``) read packed codes and
 record scalars by candidate id from per-index stores (``RefineStores``),
-so no (Q, C, G) gathered copy of the codes is made.
+so no (Q, C, G) gathered copy of the codes is made, and score only valid
+slots: an invalid slot reads no code row and no scalar, and takes align
+and every scalar as 0 (``_plain_levels`` applies the same rule).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ MAX_K = 64
 #: most TRQ levels the bounds kernel walks (kMaxLevels in the source)
 MAX_LEVELS = 8
 
-_ARGS = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+_ARGS = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 _BOUNDS_ARGS = ([ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p] * 9
                 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _LEVEL0_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -63,7 +65,9 @@ class RefineStores:
 
     packed: tuple[torch.Tensor, ...]   # per level (N, G) uint8
     records: torch.Tensor              # (N, 4) [||δ||², ⟨x_c,δ⟩, ||δ||, rho]
-    levels: tuple[torch.Tensor, ...]   # per level (N, 4) [proj, norm, rho, 0]
+    # per level (N, 4) [proj, norm, rho, √max(k, 1)], k the code row's
+    # nonzero trits (``ops.level_table``)
+    levels: tuple[torch.Tensor, ...]
     dim: int
 
     @classmethod
@@ -88,9 +92,10 @@ class LevelTrace:
     alive: tuple[torch.Tensor, ...]   # per level (Q, C) bool
 
 
-def _align(packed_rows: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
-    """Σ c·q / √k from packed bytes (Q, C, G) and digit planes (Q, 5, G),
-    accumulated digit by digit as the TPU kernel does."""
+def _dot_count(packed_rows: torch.Tensor, planes: torch.Tensor):
+    """(Σ c·q, k) from packed bytes (Q, C, G) and digit planes (Q, 5, G),
+    k the nonzero trits, accumulated digit by digit as the TPU kernel
+    does."""
     y = packed_rows.to(torch.int32)
     acc = torch.zeros(y.shape, dtype=torch.float32, device=y.device)
     kcnt = torch.zeros(y.shape, dtype=torch.int32, device=y.device)
@@ -98,8 +103,13 @@ def _align(packed_rows: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
         digit = torch.div(y, p, rounding_mode="floor") % 3 - 1
         acc = acc + digit.float() * planes[:, i, None, :]
         kcnt += digit * digit
-    k = kcnt.sum(-1).float()
-    return acc.sum(-1) / torch.sqrt(torch.clamp(k, min=1.0))
+    return acc.sum(-1), kcnt.sum(-1)
+
+
+def _align(packed_rows: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """Σ c·q / √k (``_dot_count``)."""
+    dot, k = _dot_count(packed_rows, planes)
+    return dot / torch.sqrt(torch.clamp(k.float(), min=1.0))
 
 
 def _score0(align, params, d0, dsq, cross, norm, rho):
@@ -116,17 +126,24 @@ def _score0(align, params, d0, dsq, cross, norm, rho):
     return est, raw, margin
 
 
-def _plain_levels(stores, planes, params, ids, d0, *, bound):
+def _plain_levels(stores, planes, params, ids, d0, valid, *, bound):
     """(est, lo, hi) of every TRQ level in turn, unpruned: level 0 scores
     the calibrated estimate and its certified interval, deeper levels stack
-    ``est −= 2·proj·align`` with the remaining-residual margin."""
+    ``est −= 2·proj·align`` with the remaining-residual margin.  Invalid
+    slots take align and the record and level scalars as 0, as the kernels
+    do: est = w0·d0 + bias, (lo, hi) = (d0, d0) (Cauchy) or est ∓ z·rs
+    (quantile) at level 0; est carried, margin rs, deeper."""
     long_ids = ids.long()
     qn, zr, rs = params[:, 0:1], params[:, 6:7], params[:, 7:8]
+    zero = torch.zeros((), dtype=torch.float32, device=ids.device)
+    gather = lambda table: torch.where(                       # noqa: E731
+        valid[..., None], table[long_ids], zero).unbind(-1)
     est = None
     for lv in range(stores.num_levels):
-        align = _align(stores.packed[lv][long_ids], planes)
+        align = torch.where(valid, _align(stores.packed[lv][long_ids],
+                                          planes), zero)
         if lv == 0:
-            dsq, cross, norm, rho = stores.records[long_ids].unbind(-1)
+            dsq, cross, norm, rho = gather(stores.records)
             est, raw, margin = _score0(align, params, d0, dsq, cross, norm,
                                        rho)
             if bound == "cauchy":
@@ -136,7 +153,7 @@ def _plain_levels(stores, planes, params, ids, d0, *, bound):
             else:
                 raise ValueError(f"unknown bound {bound!r}")
         else:
-            proj, norm, rho, _ = stores.levels[lv][long_ids].unbind(-1)
+            proj, norm, rho, _ = gather(stores.levels[lv])
             est = est - 2.0 * proj * align
             rem = norm * torch.sqrt(torch.clamp(1.0 - rho * rho, 0.0, 1.0))
             marg = 2.0 * qn * rem + rs
@@ -146,7 +163,7 @@ def _plain_levels(stores, planes, params, ids, d0, *, bound):
 
 def _plain_block(stores, planes, params, ids, d0, valid, is_delta, *, k,
                  bound):
-    levels = list(_plain_levels(stores, planes, params, ids, d0,
+    levels = list(_plain_levels(stores, planes, params, ids, d0, valid,
                                 bound=bound))
     lo, hi = (torch.stack([lv[j] for lv in levels], dim=1) for j in (1, 2))
     alives, taus = alive_chain(lo, hi, valid, k)
@@ -184,7 +201,7 @@ def refine_plain(stores: RefineStores, q_planes: torch.Tensor,
 
 
 def _bounds_block(stores, planes, params, ids, d0, valid, *, bound):
-    levels = list(_plain_levels(stores, planes, params, ids, d0,
+    levels = list(_plain_levels(stores, planes, params, ids, d0, valid,
                                 bound=bound))
     inf = torch.tensor(float("inf"), device=ids.device)
     est = torch.where(valid, levels[-1][0], inf)
@@ -250,6 +267,11 @@ def ternary_refine_fused(stores: RefineStores, q: torch.Tensor,
     (est (Q, C) f32, alive (Q, C) bool, counts (Q, 2L) int32).  CPU
     tensors take the plain version; a CUDA tensor launches the kernel or
     raises.
+
+    Only valid slots are scored, at every level.  An invalid slot takes
+    align and its scalars as 0, so its est is w0·d0 + bias at every
+    level; with d0 = +inf there, as the IVF front gives, that is what the
+    TPU kernel writes.
     """
     _check_bound(bound)
     g = stores.packed[0].shape[1]
@@ -284,7 +306,7 @@ def ternary_refine_fused(stores: RefineStores, q: torch.Tensor,
     global launches
     for lv in range(nl):
         status = fn(build.ptr(stores.packed[lv]), build.ptr(ids),
-                    build.ptr(d0), build.ptr(q_planes),
+                    build.ptr(d0), build.ptr(valid), build.ptr(q_planes),
                     build.ptr(stores.records), build.ptr(stores.levels[lv]),
                     build.ptr(params), build.ptr(valid if lv == 0 else alive),
                     build.ptr(is_delta), build.ptr(est), build.ptr(lo),
@@ -363,7 +385,7 @@ def ternary_refine_batch(packed: torch.Tensor, q_planes: torch.Tensor,
     f32 [est, est_raw, margin].  CPU tensors take the plain version; a
     CUDA tensor launches the kernel or raises."""
     nq, c, g = packed.shape
-    ops.check_smem_budget("ternary_refine_batch", ops.refine_smem_bytes(g))
+    ops.check_smem_budget("ternary_refine_batch", ops.level0_smem_bytes(g))
     if packed.device.type == "cpu":
         return refine_level0_plain(packed, q_planes, scalars, params)
     dev = packed.device
@@ -391,7 +413,7 @@ def ternary_refine(packed: torch.Tensor, q_planes: torch.Tensor,
     plain version; a CUDA tensor launches the kernel (with Q = 1) or
     raises."""
     c, g = packed.shape
-    ops.check_smem_budget("ternary_refine", ops.refine_smem_bytes(g))
+    ops.check_smem_budget("ternary_refine", ops.level0_smem_bytes(g))
     if packed.device.type == "cpu":
         return refine_level0_plain(packed[None], q_planes[None],
                                    scalars[None], params)[0]

@@ -93,6 +93,72 @@ def test_refine_matches_pallas_kernel(levels, bound):
     np.testing.assert_array_equal(counts.numpy(), np.asarray(want[2]))
 
 
+@pytest.mark.parametrize("levels", [1, 3])
+@pytest.mark.parametrize("bound", ["cauchy", "quantile"])
+def test_refine_invalid_slots_take_zero_align_and_scalars(levels, bound):
+    """With finite d0 on invalid slots: est = w0·d0 + bias there at every
+    level; level 0's (lo, hi) is (d0, d0) (Cauchy, from est_raw) or
+    est ∓ z·resid_std (quantile); deeper levels carry est with margin
+    resid_std.  Valid slots, alive and counts stay the TPU kernel's."""
+    codes, qs, ids, valid, is_delta, d0 = _refine_problem(levels * 11,
+                                                          levels)
+    rng = np.random.default_rng(levels)
+    d0 = np.where(valid, d0, rng.random(d0.shape) * 9 + 0.5) \
+        .astype(np.float32)
+    want = _jax_fused(codes, qs, ids, valid, is_delta, d0, k=5, bound=bound)
+    pc = _trq_to_port(codes)
+    stores = tr.RefineStores.from_trq(pc)
+    q, t_ids, t_d0, t_valid = (torch.from_numpy(a)
+                               for a in (qs, ids, d0, valid))
+    est, alive, counts = tr.ternary_refine_fused(
+        stores, q, t_ids, t_d0, t_valid, torch.from_numpy(is_delta),
+        pc.model, k=5, bound=bound, z=3.0)
+    inv = ~valid
+    w0, bias, rs = (np.float32(np.asarray(a).reshape(-1)[0]) for a in
+                    (codes.model.w, codes.model.bias, codes.model.resid_std))
+    e_inv = (w0 * d0 + bias).astype(np.float32)
+    np.testing.assert_array_equal(est.numpy()[inv], e_inv[inv])
+    np.testing.assert_allclose(est.numpy()[valid], np.asarray(want[0])[valid],
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(alive.numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want[2]))
+    params = ops.query_params(q, pc.model.w, pc.model.bias,
+                              pc.model.resid_std, 3.0)
+    per_level = list(tr._plain_levels(
+        stores, ops.make_query_planes(q, stores.packed[0].shape[1]), params,
+        t_ids, t_d0, t_valid, bound=bound))
+    zr = np.float32(3.0) * rs
+    for lv, (e, lo, hi) in enumerate(per_level):
+        np.testing.assert_array_equal(e.numpy()[inv], e_inv[inv])
+        if lv > 0:
+            want_lo, want_hi = e_inv - rs, e_inv + rs
+        elif bound == "cauchy":
+            want_lo = want_hi = d0
+        else:
+            want_lo, want_hi = e_inv - zr, e_inv + zr
+        np.testing.assert_array_equal(lo.numpy()[inv], want_lo[inv])
+        np.testing.assert_array_equal(hi.numpy()[inv], want_hi[inv])
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+def test_level_table_holds_sqrt_nonzero_count(levels):
+    """The level table's 4th float is √max(k, 1) of each code row, k its
+    nonzero trits as the plain version counts them, bit for bit."""
+    codes, *_ = _refine_problem(levels, levels)
+    pc = _trq_to_port(codes)
+    stores = tr.RefineStores.from_trq(pc)
+    for lv, level in enumerate(pc.levels):
+        g = level.packed.shape[1]
+        _, k = tr._dot_count(level.packed[None],
+                             torch.zeros((1, 5, g)))
+        want = torch.sqrt(torch.clamp(k[0].float(), min=1.0))
+        assert torch.equal(stores.levels[lv][:, 3], want)
+        assert torch.equal(stores.levels[lv][:, :3], torch.stack(
+            [level.proj, level.norm, level.rho], dim=1).float())
+    empty = torch.zeros((0, 7), dtype=torch.uint8)
+    assert ops.sqrt_nonzero(empty).shape == (0,)
+
+
 def _jax_bounds(codes, qs, ids, valid, is_delta, d0, *, bound):
     sc, lv = codes.scalars, codes.levels
     j = jnp.asarray
@@ -250,7 +316,8 @@ def test_shared_memory_budget_named_error():
         pq_adc_mod.pq_adc(torch.zeros((4, 256), dtype=torch.uint8),
                           torch.zeros((1, 2), dtype=torch.int32),
                           torch.ones((1, 2), dtype=torch.bool), big_lut)
-    g = 12_000   # (5, G) f32 planes: 240 KB, over the 227 KB a block has
+    g = 12_000   # (37, 12,192) f32 tables: 1.8 MB, over the 227 KB a block
+    #              has (and the level-0 kernel's 240 KB of planes)
     stores = tr.RefineStores(packed=(torch.zeros((2, g), dtype=torch.uint8),),
                              records=torch.zeros((2, 4)),
                              levels=(torch.zeros((2, 4)),), dim=5 * g)
@@ -261,6 +328,31 @@ def test_shared_memory_budget_named_error():
             cal.identity_model(), k=1, bound="cauchy", z=3.0)
     assert ops.check_smem_budget("fits", ops.adc_smem_bytes(96, 256)) == \
         96 * 256 * 4
+
+
+def test_refine_smem_is_the_tables():
+    """The multi-level kernels' shared memory is their (27 + 10, Gp) f32
+    tables, Gp the columns a row's passes of 40 words address, rounded up
+    to 32: 28,416 B up to G = 157.  The largest G that fits is 1,437; the
+    level-0 kernel's planes fit far beyond."""
+    assert ops.table_width(154) == ops.table_width(1) == 192
+    assert ops.table_width(158) == 352
+    assert ops.refine_smem_bytes(154) == 37 * 192 * 4
+    fits = [g for g in (1437, 1438)
+            if ops.refine_smem_bytes(g) <= ops.SMEM_LIMIT_BYTES]
+    assert fits == [1437]
+    g = 1438
+    stores = tr.RefineStores(packed=(torch.zeros((2, g), dtype=torch.uint8),),
+                             records=torch.zeros((2, 4)),
+                             levels=(torch.zeros((2, 4)),), dim=5 * g)
+    args = (stores, torch.zeros((1, 5 * g)),
+            torch.zeros((1, 2), dtype=torch.int32), torch.zeros((1, 2)),
+            torch.ones((1, 2), dtype=torch.bool))
+    with pytest.raises(ops.SharedMemoryBudgetError, match="bounds"):
+        tr.ternary_refine_fused_bounds(*args, cal.identity_model(),
+                                       bound="cauchy", z=3.0)
+    assert ops.check_smem_budget("level0", ops.level0_smem_bytes(g)) == \
+        5 * g * 4 + 243 * 2
 
 
 def test_require_rejects_what_the_kernels_do_not_take():
