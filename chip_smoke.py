@@ -16,9 +16,17 @@ Phases, each of which raises on failure:
    plain versions, and the bounds est against the fused est bit for bit,
    on random code stores at G in {1, 13, 20, 154} and L in {1, 2, 3}, with
    C = 4133 slots (not a multiple of 32 or of a block's tile), one query
-   with no valid slot and one with every slot valid;
+   with no valid slot and one with every slot valid; ``pq_adc`` against its
+   plain version with +inf on exactly the invalid slots, at M in {4, 16,
+   20, 96, 128} and K in {16, 256} on the same slots, both row paths
+   giving the same bits where M % 16 == 0;
    kernel phase: each kernel against its plain PyTorch version on the card
-   at the shapes its path gives it (64 queries x nprobe 16 lists): the
+   at the shapes its path gives it (64 queries x nprobe 16 lists):
+   ``pq_adc`` at the fatrq shape and on shard 0's candidates (its own code
+   store, shard-local ids; each valid slot's d0 bit-identical to the
+   unsharded d0 of the same row), each also timed with every slot valid and
+   on an all-zero code store (no bank conflicts), and one
+   ``embedding_bag`` call over the same lookups as its library time; the
    fused refine kernel also with two TRQ levels, both bounds and delta
    rows; the bounds kernel on one shard's candidates, both bounds, one and
    two levels, its estimates bit-identical to the fused kernel's and its
@@ -184,27 +192,121 @@ def device_breakdown(torch, label: str, fn, top: int = 6):
         print(f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{count:<5d} {name[:90]}")
 
 
-def check_adc(torch, pq_adc_mod, pq_mod, index, cand, q):
-    lut = pq_mod.adc_table(index.codebook, q)
-    args = (index.pq_codes, cand.ids, cand.valid, lut)
+def adc_cost(torch, label: str, ids, valid, m: int, k: int) -> dict:
+    """Bound of one ``pq_adc`` call: each distinct code row among the valid
+    slots read once (M bytes), per slot its valid flag and distance, per
+    valid slot its id, each query's LUT; one add per valid lookup."""
+    nq, c = ids.shape
+    n_valid = int(valid.sum())
+    rows = int(torch.unique(ids[valid]).numel())
+    print(f"{label}: {rows} distinct code rows among {n_valid} valid slots "
+          f"of {nq * c}")
+    nbytes = rows * m + nq * c * (1 + 4) + n_valid * 4 + nq * m * k * 4
+    return dict(zip(("bound_ms", "bound_by"),
+                    bound(label, nbytes, n_valid * m)))
+
+
+def adc_library(torch, codes, ids, lut):
+    """One ``embedding_bag(idx, lut.reshape(-1, 1), mode="sum")`` call over
+    every slot, ``idx`` the int32 indices q·M·K + m·K + code built outside
+    the timer (no +inf mask): its ms and its (Q, C) output."""
+    nq, c = ids.shape
+    m, k = lut.shape[1:]
+    dev = ids.device
+    idx = codes[ids.long()].int()
+    idx += torch.arange(m, device=dev, dtype=torch.int32) * k
+    idx += (torch.arange(nq, device=dev, dtype=torch.int32)
+            * (m * k))[:, None, None]
+    idx = idx.reshape(nq * c, m)
+    weight = lut.reshape(-1, 1)
+    call = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+        idx, weight, mode="sum")
+    return time_ms(call, 5), call().reshape(nq, c)
+
+
+def check_adc(torch, pq_adc_mod, codes, ids, valid, lut, label: str):
+    """``pq_adc`` against its plain version on one input, +inf on exactly
+    the invalid slots; its time, device time per launch, bound, plain
+    time, and its time with every slot valid and on an all-zero code store
+    (each lookup instruction of a warp then reads one address: no bank
+    conflict).  Returns the kernel's output and its row."""
+    args = (codes, ids, valid, lut)
     got = pq_adc_mod.pq_adc(*args)
     want = pq_adc_mod.pq_adc_plain(*args)
     torch.cuda.synchronize()
     ok, err = close(got, want, ADC_ATOL, ADC_RTOL)
     if not ok:
-        fail(f"pq_adc disagrees with its plain version (max err {err})")
-    # bound: each distinct code row read once; per candidate its id, valid
-    # flag and distance; each query's LUT; one add per lookup
-    nq, c = cand.ids.shape
+        fail(f"pq_adc {label} disagrees with its plain version (max err "
+             f"{err})")
+    if not (torch.equal(torch.isinf(got), ~valid)
+            and bool((got[~valid] == float("inf")).all())):
+        fail(f"pq_adc {label}: +inf is not on exactly the invalid slots")
     m, k = lut.shape[1:]
-    rows = int(torch.unique(cand.ids).numel())
-    nbytes = rows * m + nq * c * (4 + 1 + 4) + nq * m * k * 4
-    print(f"pq_adc: {rows} distinct code rows among {nq * c} candidates")
-    b_ms, b_by = bound("pq_adc", nbytes, nq * c * m)
-    return dict(max_abs_err=err, ms=time_ms(lambda: pq_adc_mod.pq_adc(*args),
-                                            20),
-                plain_ms=time_ms(lambda: pq_adc_mod.pq_adc_plain(*args), 3),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    row = dict(max_abs_err=err,
+               ms=time_ms(lambda: pq_adc_mod.pq_adc(*args), 20),
+               plain_ms=time_ms(lambda: pq_adc_mod.pq_adc_plain(*args), 3),
+               **adc_cost(torch, f"pq_adc {label}", ids, valid, m, k))
+    every = torch.ones_like(valid)
+    every_ms = time_ms(lambda: pq_adc_mod.pq_adc(codes, ids, every, lut), 20)
+    zeros = torch.zeros_like(codes)
+    zero_ms = time_ms(lambda: pq_adc_mod.pq_adc(zeros, ids, valid, lut), 20)
+    print_launches(torch, f"pq_adc {label}",
+                   lambda: pq_adc_mod.pq_adc(*args), 20)
+    print(f"pq_adc {label}: {row['ms']:.4f} ms with {int(valid.sum())} valid "
+          f"slots of {valid.numel()} (bound {row['bound_ms']:.4f} ms), "
+          f"{every_ms:.4f} ms with every slot valid, {zero_ms:.4f} ms on an "
+          f"all-zero code store (no bank conflicts), max err {err:.3g}")
+    del every, zeros
+    return got, row
+
+
+# M = 128 rows are longer than the kernel's 96-byte register chunk
+EDGE_ADC_M, EDGE_ADC_K = (4, 16, 20, 96, 128), (16, 256)
+
+
+def edge_adc(torch, pq_adc_mod, gen) -> float:
+    """``pq_adc`` against its plain version on random code stores at each
+    M of ``EDGE_ADC_M`` and K of ``EDGE_ADC_K``, C = 4133 slots (not a
+    multiple of 32 or of the 4096-slot tile); query 0 has no valid slot,
+    query 1 only valid ones, the rest ~30%.  Where M % 16 == 0 the same
+    store is also read at a 4-byte offset (the 4-byte-word row path) and
+    must give the same bits.  Returns the max error."""
+    dev = gen.device
+    valid = torch.rand((EDGE_Q, EDGE_C), generator=gen, device=dev) < 0.3
+    valid[0], valid[1] = False, True
+    ids = torch.randint(0, EDGE_N, (EDGE_Q, EDGE_C), generator=gen,
+                        device=dev, dtype=torch.int32)
+    worst = 0.0
+    for m in EDGE_ADC_M:
+        for k in EDGE_ADC_K:
+            codes = torch.randint(0, k, (EDGE_N, m), generator=gen,
+                                  device=dev, dtype=torch.uint8)
+            lut = torch.rand((EDGE_Q, m, k), generator=gen, device=dev)
+            got = pq_adc_mod.pq_adc(codes, ids, valid, lut)
+            want = pq_adc_mod.pq_adc_plain(codes, ids, valid, lut)
+            torch.cuda.synchronize()
+            ok, err = close(got, want, ADC_ATOL, ADC_RTOL)
+            if not ok:
+                fail(f"pq_adc edge M={m} K={k}: max err {err}")
+            if not (torch.equal(torch.isinf(got), ~valid)
+                    and bool((got[~valid] == float("inf")).all())):
+                fail(f"pq_adc edge M={m} K={k}: +inf is not on exactly the "
+                     f"invalid slots")
+            paths = [pq_adc_mod.row_path(m, codes.data_ptr())]
+            if m % 16 == 0:
+                buf = torch.empty(EDGE_N * m + 16, dtype=torch.uint8,
+                                  device=dev)
+                shifted = buf[4:4 + EDGE_N * m].view(EDGE_N, m)
+                shifted.copy_(codes)
+                paths.append(pq_adc_mod.row_path(m, shifted.data_ptr()))
+                if not torch.equal(
+                        pq_adc_mod.pq_adc(shifted, ids, valid, lut), got):
+                    fail(f"pq_adc edge M={m} K={k}: the {paths[1]} row path "
+                         f"differs from the {paths[0]} path")
+            worst = max(worst, err)
+            print(f"pq_adc edge M={m} K={k}: max err {err:.3g}, row paths "
+                  f"{paths}")
+    return worst
 
 
 def check_refine(torch, tr, ops, stores, model, cand, q, is_delta, *, k,
@@ -492,6 +594,9 @@ def main() -> int:
     edge_err, edge_bounds_err = edge_shapes(
         torch, tr, ops, alive_chain, trq_mod, cal, Candidates,
         torch.Generator(device="cuda").manual_seed(args.seed + 1))
+    edge_adc_err = edge_adc(
+        torch, pq_adc_mod,
+        torch.Generator(device="cuda").manual_seed(args.seed + 2))
 
     # ---- data + index build
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -523,7 +628,19 @@ def main() -> int:
     cand = make_ivf_front(index).candidates(q64)
     print(f"kernel phase shapes: Q={cand.ids.shape[0]} C={cand.ids.shape[1]}"
           f" M={cfg.pq_m} K={cfg.pq_k} G={index.trq.levels[0].packed.shape[1]}")
-    adc = check_adc(torch, pq_adc_mod, pq_mod, index, cand, q64)
+    lut64 = pq_mod.adc_table(index.codebook, q64)
+    adc_d0, adc = check_adc(torch, pq_adc_mod, index.pq_codes, cand.ids,
+                            cand.valid, lut64, "fatrq shape")
+    lib_ms, lib_d = adc_library(torch, index.pq_codes, cand.ids, lut64)
+    ok, lib_err = close(lib_d[cand.valid], adc_d0[cand.valid], ADC_ATOL,
+                        ADC_RTOL)
+    if not ok:
+        fail(f"embedding_bag disagrees with pq_adc on valid slots ({lib_err})")
+    adc["library_ms"] = lib_ms
+    print(f"pq_adc library: embedding_bag {lib_ms:.4f} ms over every slot "
+          f"(int32 indices built outside the timer, no +inf mask), max err "
+          f"on valid slots {lib_err:.3g}")
+    del lib_d
     stores1 = tr.RefineStores.from_trq(index.trq)
     x_c = pq_mod.decode(index.codebook, index.pq_codes)
     trq2 = trq_mod.encode_database(index.x, x_c, num_levels=2)
@@ -548,6 +665,19 @@ def main() -> int:
         **dict(si.front_args))[0]
     sh_cand = Candidates(ids=si.gid[0][sh.ids.long()].int().contiguous(),
                          valid=sh.valid, d0=sh.d0, counters={})
+    # pq_adc on shard 0's own store and shard-local ids; each valid slot's
+    # d0 must be the unsharded d0 of the same global row, bit for bit
+    sh_d0, sh_adc = check_adc(torch, pq_adc_mod, si.pq_codes[0], sh.ids,
+                              sh.valid, lut64, "shard 0")
+    glob_d0 = pq_adc_mod.pq_adc(index.pq_codes, sh_cand.ids, sh.valid, lut64)
+    if not torch.equal(sh_d0[sh.valid], glob_d0[sh.valid]):
+        fail("pq_adc: shard 0's d0 is not bit-identical to the unsharded d0 "
+             "of the same rows")
+    print("pq_adc shard 0: d0 bit-identical to the unsharded d0 of the same "
+          "global rows")
+    adc["max_abs_err"] = max(adc["max_abs_err"], sh_adc["max_abs_err"],
+                             edge_adc_err)
+    del sh_d0, glob_d0, adc_d0
     bounds_err, bounds_ties = 0.0, 0
     for stores, bnd in ((stores1, "cauchy"), (stores1, "quantile"),
                         (stores2, "cauchy"), (stores2, "quantile")):
@@ -730,8 +860,10 @@ def main() -> int:
     print(f"sharded reference backend on {sub.shape[0]} queries: ids and "
           f"ledger equal to the cuda backend's")
 
-    print("library_ms: null for every kernel; no single PyTorch call "
-          "computes any of these functions")
+    print("library_ms: pq_adc's is one embedding_bag call at the fatrq "
+          "shape (int32 indices built outside the timer, no +inf mask; the "
+          "port never calls it); null for the refine kernels, which no "
+          "single PyTorch call computes")
     print("launches: each kernel's own path's run (fatrq for pq_adc and "
           "ternary_refine_fused, sharded for ternary_refine_fused_bounds, "
           "ops for ternary_refine_batch and ternary_refine); "

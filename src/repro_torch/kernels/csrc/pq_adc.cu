@@ -1,17 +1,64 @@
-// PQ asymmetric-distance (ADC) scoring for a query micro-batch.
+// PQ asymmetric-distance (ADC) scoring for a query micro-batch, valid
+// slots only.
 //
 // Replaces src/repro/kernels/pq_adc.py::pq_adc (Pallas; on the TPU the
-// lookup is a one-hot x LUT product because the TPU has no fast gather).
-// Here the gather is native: one block loads one query's (M, K) f32 LUT into
-// shared memory (96 KiB at M=96, K=256, above the 48 KB default, hence the
-// opt-in attribute) and each thread scores candidates, reading its code row
-// BY CANDIDATE ID from the (N, M) code store and summing M shared-memory
-// lookups.  Invalid slots get +inf (this fuses stages.adc_score's mask).
+// lookup is a one-hot x LUT product because the TPU has no fast gather) and
+// the jnp stages.adc_score it stands for: d(c) = sum_m lut[q, m, code[id, m]]
+// for every valid slot c of query q, +inf for every invalid one.
 //
-// Bound: device-memory bytes.  Per candidate it reads a 4 B id, a 1 B valid
-// flag and M code bytes and writes a 4 B distance; the LUT is reused from
-// shared memory.  A block walks a tile of kTile candidates so the LUT load
-// (M*K*4 bytes from L2) is amortised over thousands of candidates.
+// Bound: device-memory bytes.  The function reads each slot's 1 B valid
+// flag and writes its 4 B distance, reads a 4 B id and one M-byte code row
+// per valid slot (each distinct row once at best) and each query's
+// (M, K) f32 LUT once: ~0.025 ms for the main path's 64 x 46,880 slots
+// (~940k valid, ~575k distinct rows) at M = 96, K = 256, against ~90 M
+// float adds, which the float32 rate covers in 1.4 us.  The shared-memory
+// LUT gathers come next: with K = 256 entry (m, code) sits in bank
+// code mod 32, so a warp's 32 lookups of one subspace land in random banks,
+// about 3.5 wavefronts per request, ~0.04 ms at those shapes on 132 SMs at
+// ~1.8 GHz.  A layout that spreads a warp's lookups over the banks needs the
+// lanes of a warp at different subspaces in one instruction, and so a
+// per-lane summation order, which point 3 below forbids.  chip_smoke.py
+// times the kernel on an all-zero code store (every lookup of an
+// instruction at one address: no conflict) to measure what the conflicts
+// cost.  On the H100 they cost little: what sets the pace is the rows, read
+// by id at random, 32 rows per warp load instruction, whose sectors are
+// reused from L1 (a row's 16-byte halves of one sector, and rows that
+// several queries probe).  Hence one block of 512 threads per SM: its
+// ~107 KB of shared memory leaves ~124 KB of L1, where two blocks would
+// leave ~28 KB.
+//
+// Design, grid (ceil(C / kTile), Q), kThreads threads, one block per SM:
+//
+//  1. Valid slots only.  Each warp reads its kWarpSlots of the tile's valid
+//     flags coalesced, 32 per round, ballots them, and writes +inf to the
+//     invalid slots in the same round; those read no id and no code row.
+//     The warps' counts give each warp its base in a block-wide list of the
+//     valid slots' tile offsets (uint16) in shared memory, in slot order.
+//     A block whose tile has no valid slot returns there, before touching
+//     the LUT.
+//  2. Code rows as wide loads, issued together.  Thread t scores list
+//     entries t, t + kThreads, ...; it reads a row as M/16 uint4 loads
+//     where M % 16 == 0 and the store is 16-byte aligned (the wrapper
+//     checks and picks), else as M/4 32-bit words, up to kChunk bytes in
+//     registers at once, all issued before use.  The next candidate's first
+//     chunk is loaded before the current one is scored.
+//  3. One summation order per code row: one accumulator, m = 0, 1, ..., M-1,
+//     whatever the slot, tile, lane or load path, so shard-local and global
+//     scoring of a row give the same bits (--fmad=false has no bearing:
+//     only adds).
+//  4. The LUT copy is overlapped: once the block knows it has work, every
+//     thread starts its part of the (M, K) f32 copy into shared memory with
+//     cp.async (16-byte pieces where M*K % 4 == 0 and the LUT is 16-byte
+//     aligned, else 4-byte ones), then writes the list and issues its first
+//     row's loads, and only then waits for the copy.  The copy is not
+//     started before the flag scan, because a tile with no valid slot must
+//     not load it, and a block walks one tile: walking several serialises
+//     each tile's ramp-up behind the last one's tail.
+//  5. The dynamic shared-memory opt-in is set once per process (the
+//     first call), to the largest a block may have.
+//
+// Shared memory: the LUT (M*K*4 B, 96 KiB at M = 96, K = 256), the list
+// (kTile * 2 B) and the warps' counts: ops.adc_smem_bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -19,38 +66,179 @@
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kTile = 4096;   // candidates per block
+constexpr int kThreads = 512;  // 16 warps, one block per SM
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 4096;    // slots per block
+constexpr int kWarpSlots = kTile / kWarps;  // 256, 8 rounds of 32
+constexpr int kRounds = kWarpSlots / 32;
+constexpr int kChunk = 96;     // row bytes a thread holds in registers
+constexpr int kChunkWords = kChunk / 4;
+constexpr int kSmemOptIn = 232448;  // Hopper's per-block maximum
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void adc_kernel(const uint8_t* __restrict__ codes,    // (N, M)
-                           const int32_t* __restrict__ ids,      // (Q, C)
-                           const uint8_t* __restrict__ valid,    // (Q, C)
-                           const float* __restrict__ lut,        // (Q, M, K)
-                           float* __restrict__ out,              // (Q, C)
-                           int C, int M, int K) {
-  extern __shared__ float s_lut[];
-  const int q = blockIdx.y;
+// Up to kChunk bytes of one code row, as 32-bit words.
+struct Chunk {
+  uint32_t w[kChunkWords];
+};
+
+// Bytes [b0, b0 + nb) of a row (nb a multiple of 4, or of 16 when vec),
+// every load issued before any use.
+__device__ __forceinline__ void load_chunk(Chunk& c, const uint8_t* row,
+                                           int b0, int nb, bool vec) {
+  if (vec) {
+    const uint4* p = reinterpret_cast<const uint4*>(row + b0);
+#pragma unroll
+    for (int j = 0; j < kChunk / 16; ++j) {
+      if (16 * j < nb) {
+        const uint4 v = __ldg(p + j);
+        c.w[4 * j + 0] = v.x;
+        c.w[4 * j + 1] = v.y;
+        c.w[4 * j + 2] = v.z;
+        c.w[4 * j + 3] = v.w;
+      }
+    }
+  } else {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(row + b0);
+#pragma unroll
+    for (int j = 0; j < kChunkWords; ++j)
+      if (4 * j < nb) c.w[j] = __ldg(p + j);
+  }
+}
+
+// Adds the chunk's nb lookups, subspaces m0, m0 + 1, ..., to s in order.
+__device__ __forceinline__ float score_chunk(const Chunk& c, float s,
+                                             const float* s_lut, int m0,
+                                             int nb, int K) {
+  const float* l = s_lut + (size_t)m0 * K;
+#pragma unroll
+  for (int j = 0; j < kChunkWords; ++j) {
+    if (4 * j < nb) {
+      const uint32_t v = c.w[j];
+      s += l[v & 0xffu];
+      s += l[K + ((v >> 8) & 0xffu)];
+      s += l[2 * K + ((v >> 16) & 0xffu)];
+      s += l[3 * K + (v >> 24)];
+      l += 4 * K;
+    }
+  }
+  return s;
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool wide) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (wide)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    adc_kernel(const uint8_t* __restrict__ codes,  // (N, M)
+               const int32_t* __restrict__ ids,    // (Q, C)
+               const uint8_t* __restrict__ valid,  // (Q, C)
+               const float* __restrict__ lut,      // (Q, M, K)
+               float* __restrict__ out,            // (Q, C)
+               int C, int M, int K, int vec) {
+  extern __shared__ float4 s_mem[];
+  float* s_lut = reinterpret_cast<float*>(s_mem);  // (M, K)
+  uint16_t* s_list = reinterpret_cast<uint16_t*>(s_lut + M * K);  // (kTile,)
+  int* s_cnt = reinterpret_cast<int*>(s_list + kTile);            // (kWarps,)
+
+  const int q = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tile0 = blockIdx.x * kTile, n_in = min(C - tile0, kTile);
+  const size_t row = (size_t)q * C + tile0;
+  const int w0 = warp * kWarpSlots;
+
+  // 1. the tile's flags, +inf to its invalid slots
+  unsigned ball[kRounds];
+  int cnt = 0;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int c = w0 + 32 * r + lane;
+    const bool in = c < n_in;
+    const bool v = in && valid[row + c];
+    ball[r] = __ballot_sync(kFull, v);
+    cnt += __popc(ball[r]);
+    if (in && !v) out[row + c] = INFINITY;
+  }
+  if (lane == 0) s_cnt[warp] = cnt;
+  __syncthreads();
+  int base = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int n = s_cnt[w];
+    base += w < warp ? n : 0;
+    total += n;
+  }
+  if (total == 0) return;  // the whole block: no LUT, no rows
+
+  // 4. start the LUT copy
   const float* lq = lut + (size_t)q * M * K;
-  for (int i = threadIdx.x; i < M * K; i += blockDim.x) s_lut[i] = lq[i];
+  const int mk = M * K;
+  if ((mk & 3) == 0 && (reinterpret_cast<uintptr_t>(lq) & 15) == 0) {
+    for (int i = 4 * threadIdx.x; i < mk; i += 4 * kThreads)
+      cp_async(s_lut + i, lq + i, true);
+  } else {
+    for (int i = threadIdx.x; i < mk; i += kThreads)
+      cp_async(s_lut + i, lq + i, false);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // the valid slots' offsets, in slot order
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    if ((ball[r] >> lane) & 1u)
+      s_list[base + __popc(ball[r] & below)] =
+          (uint16_t)(w0 + 32 * r + lane);
+    base += __popc(ball[r]);
+  }
   __syncthreads();
 
-  const int c_end = min(C, (int)(blockIdx.x + 1) * kTile);
-  for (int c = blockIdx.x * kTile + threadIdx.x; c < c_end; c += blockDim.x) {
-    const size_t slot = (size_t)q * C + c;
-    // M % 4 == 0 and a 4-byte aligned store (the wrapper checks both), so
-    // each code row is read as M / 4 words
-    const uint32_t* w =
-        reinterpret_cast<const uint32_t*>(codes + (size_t)ids[slot] * M);
-    float s = 0.f;
-    for (int j = 0; j < M / 4; ++j) {
-      uint32_t v = w[j];
-      const int m = 4 * j;
-      s += s_lut[(m + 0) * K + (v & 0xff)];
-      s += s_lut[(m + 1) * K + ((v >> 8) & 0xff)];
-      s += s_lut[(m + 2) * K + ((v >> 16) & 0xff)];
-      s += s_lut[(m + 3) * K + (v >> 24)];
+  // 2. the first row's loads go out before the wait for the LUT
+  const bool wide = vec != 0;
+  const int first = min(M, kChunk);
+  int i = threadIdx.x;
+  int slot = 0;
+  const uint8_t* row_cur = codes;
+  Chunk cur;
+  if (i < total) {
+    slot = s_list[i];
+    row_cur = codes + (size_t)ids[row + slot] * M;
+    load_chunk(cur, row_cur, 0, first, wide);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (; i < total; i += kThreads) {
+    const int i_next = i + kThreads;
+    int slot_next = 0;
+    const uint8_t* row_next = codes;
+    Chunk next;
+    if (i_next < total) {
+      slot_next = s_list[i_next];
+      row_next = codes + (size_t)ids[row + slot_next] * M;
+      load_chunk(next, row_next, 0, first, wide);
     }
-    out[slot] = valid[slot] ? s : INFINITY;
+    // 3. one accumulator, subspaces in order
+    float s = score_chunk(cur, 0.f, s_lut, 0, first, K);
+    for (int b0 = kChunk; b0 < M; b0 += kChunk) {  // rows beyond kChunk
+      const int nb = min(M - b0, kChunk);
+      Chunk more;
+      load_chunk(more, row_cur, b0, nb, wide);
+      s = score_chunk(more, s, s_lut, b0, nb, K);
+    }
+    out[row + slot] = s;
+    cur = next;
+    slot = slot_next;
+    row_cur = row_next;
   }
 }
 
@@ -58,17 +246,20 @@ __global__ void adc_kernel(const uint8_t* __restrict__ codes,    // (N, M)
 
 extern "C" int fatrq_pq_adc(const void* codes, const void* ids,
                             const void* valid, const void* lut, void* out,
-                            int Q, int C, int M, int K, void* stream) {
-  const size_t smem = (size_t)M * K * sizeof(float);
-  cudaFuncSetAttribute(adc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+                            int Q, int C, int M, int K, int vec,
+                            void* stream) {
+  // 5. once per process: the kernel may take up to the block maximum
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      adc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  if (C == 0 || Q == 0) return (int)cudaGetLastError();
+  const size_t smem = (size_t)M * K * sizeof(float) +
+                      kTile * sizeof(uint16_t) + kWarps * sizeof(int);
   dim3 grid((C + kTile - 1) / kTile, Q);
-  if (C > 0 && Q > 0) {
-    adc_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(ids),
-        static_cast<const uint8_t*>(valid), static_cast<const float*>(lut),
-        static_cast<float*>(out), C, M, K);
-  }
+  adc_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(ids),
+      static_cast<const uint8_t*>(valid), static_cast<const float*>(lut),
+      static_cast<float*>(out), C, M, K, vec);
   return (int)cudaGetLastError();
 }
 

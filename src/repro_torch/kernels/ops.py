@@ -36,9 +36,15 @@ def check_smem_budget(what: str, nbytes: int) -> int:
     return nbytes
 
 
+#: slots per block and warps per block of the ADC kernel (kTile and kWarps
+#: in ``csrc/pq_adc.cu``)
+_ADC_TILE, _ADC_WARPS = 4096, 16
+
+
 def adc_smem_bytes(m: int, k: int) -> int:
-    """The ADC kernel holds one query's (M, K) f32 LUT."""
-    return m * k * 4
+    """The ADC kernel holds one query's (M, K) f32 LUT, its tile's list of
+    valid slot offsets (uint16 each) and one valid count per warp."""
+    return m * k * 4 + _ADC_TILE * 2 + _ADC_WARPS * 4
 
 
 #: 32-bit words a lane group of the multi-level kernels reads per pass

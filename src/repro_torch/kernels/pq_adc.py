@@ -2,10 +2,15 @@
 PyTorch version.
 
 ``pq_adc(pq_codes, ids, valid, lut)`` scores candidate ``ids (Q, C)`` of
-each query against its LUT ``(Q, M, K)``: ``d = Σ_m lut[q, m, code[id, m]]``,
-``+inf`` where ``valid`` is false.  It replaces the TPU kernel
-``repro.kernels.pq_adc.pq_adc`` and the jnp scoring in
+each query against its LUT ``(Q, M, K)``: ``d = Σ_m lut[q, m, code[id, m]]``
+on valid slots, ``+inf`` where ``valid`` is false.  An invalid slot's id is
+never read, so any in-range value there gives the same output.  It replaces the TPU
+kernel ``repro.kernels.pq_adc.pq_adc`` and the jnp scoring in
 ``repro.anns.stages.adc_score``; the kernel source is ``csrc/pq_adc.cu``.
+The kernel scores valid slots only, and reads a code row as M/16 16-byte
+loads where M % 16 == 0 and the code store is 16-byte aligned, else as M/4
+4-byte words; both sum a row's M lookups in the same order, so a row's
+distance does not depend on its slot or on the path.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from repro_torch.quant.pq import adc_distances
 #: launches of the CUDA kernel (the plain version does not count)
 launches = 0
 
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def pq_adc_plain(pq_codes: torch.Tensor, ids: torch.Tensor,
@@ -28,6 +33,20 @@ def pq_adc_plain(pq_codes: torch.Tensor, ids: torch.Tensor,
     """The same function in plain PyTorch (the kernel's oracle)."""
     d = adc_distances(lut, pq_codes[ids.long()])
     return torch.where(valid, d, torch.full_like(d, float("inf")))
+
+
+def row_path(m: int, address: int) -> str:
+    """How the kernel reads a code row of M bytes from a store at
+    ``address``: ``"uint4"`` (M/16 16-byte loads) where M % 16 == 0 and the
+    store is 16-byte aligned, else ``"word"`` (M/4 4-byte loads) where
+    M % 4 == 0 and it is 4-byte aligned; raises where neither applies."""
+    if m % 16 == 0 and address % 16 == 0:
+        return "uint4"
+    if m % 4 == 0 and address % 4 == 0:
+        return "word"
+    raise ValueError(f"pq_adc: the kernel reads code rows as 16-byte or "
+                     f"4-byte words; M={m} must be a multiple of 4 and the "
+                     f"code store 4-byte aligned")
 
 
 def pq_adc(pq_codes: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
@@ -49,14 +68,11 @@ def pq_adc(pq_codes: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
                   device=dev)
     if k > 256:
         raise ValueError(f"pq_adc: K={k} does not fit uint8 codes")
-    if m % 4 or pq_codes.data_ptr() % 4:
-        raise ValueError(f"pq_adc: the kernel reads code rows as 4-byte "
-                         f"words; M={m} must be a multiple of 4 and the "
-                         f"code store 4-byte aligned")
+    vec = row_path(m, pq_codes.data_ptr()) == "uint4"
     out = torch.empty((nq, c), dtype=torch.float32, device=dev)
     fn = build.entry("pq_adc", "fatrq_pq_adc", _ARGS)
     status = fn(build.ptr(pq_codes), build.ptr(ids), build.ptr(valid),
-                build.ptr(lut), build.ptr(out), nq, c, m, k,
+                build.ptr(lut), build.ptr(out), nq, c, m, k, int(vec),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check("pq_adc", status, "pq_adc")
     global launches

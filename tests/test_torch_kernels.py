@@ -274,26 +274,74 @@ def test_query_planes_match():
         np.asarray(want))
 
 
-@pytest.mark.parametrize("c,m,k", [(128, 8, 16), (300, 16, 256),
-                                   (77, 96, 256)])
-def test_pq_adc_matches_pallas_and_jnp(c, m, k):
+@pytest.mark.parametrize("c,m,k,nq", [
+    pytest.param(128, 8, 16, 1, id="128-8-16"),
+    pytest.param(300, 16, 256, 1, id="300-16-256"),
+    pytest.param(77, 96, 256, 1, id="77-96-256"),
+    # Q = 3, each query with its own LUT: query 1 has no valid slot, query 2
+    # only valid ones; M = 4 and 20 take the kernel's 4-byte-word row path
+    pytest.param(150, 4, 16, 3, id="150-4-16-q3"),
+    pytest.param(101, 20, 16, 3, id="101-20-16-q3"),
+    pytest.param(64, 96, 256, 3, id="64-96-256-q3")])
+def test_pq_adc_matches_pallas_and_jnp(c, m, k, nq):
     rng = np.random.default_rng(c)
     codes = rng.integers(0, k, (c, m)).astype(np.uint8)
-    lut = rng.random((m, k)).astype(np.float32)
-    kernel = np.asarray(jops.adc_scores(jnp.asarray(codes), jnp.asarray(lut),
-                                        block_c=64))
-    oracle = np.asarray(jpq.adc_distances(jnp.asarray(lut),
-                                          jnp.asarray(codes)))
-    ids = rng.permutation(c)[None].astype(np.int32)
-    valid = np.ones((1, c), bool)
+    lut = rng.random((nq, m, k)).astype(np.float32)
+    ids = np.stack([rng.permutation(c) for _ in range(nq)]).astype(np.int32)
+    valid = np.ones((nq, c), bool)
     valid[0, ::7] = False
+    if nq > 1:
+        valid[1] = False
     got = pq_adc_mod.pq_adc(torch.from_numpy(codes), torch.from_numpy(ids),
                             torch.from_numpy(valid),
-                            torch.from_numpy(lut)[None]).numpy()[0]
-    want = np.where(valid[0], oracle[ids[0]], np.inf)
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(got[valid[0]], kernel[ids[0]][valid[0]],
-                               rtol=1e-5, atol=1e-5)
+                            torch.from_numpy(lut)).numpy()
+    for qi in range(nq):
+        kernel = np.asarray(jops.adc_scores(
+            jnp.asarray(codes), jnp.asarray(lut[qi]), block_c=64))
+        oracle = np.asarray(jpq.adc_distances(jnp.asarray(lut[qi]),
+                                              jnp.asarray(codes)))
+        v = valid[qi]
+        want = np.where(v, oracle[ids[qi]], np.inf)
+        np.testing.assert_allclose(got[qi], want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got[qi][v], kernel[ids[qi]][v],
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_pq_adc_ignores_ids_on_invalid_slots():
+    """Other in-range rows on the invalid slots change nothing; the valid
+    slots still hold JAX's distances."""
+    rng = np.random.default_rng(5)
+    n, m, k, nq, c = 200, 20, 16, 3, 90
+    codes = torch.from_numpy(rng.integers(0, k, (n, m)).astype(np.uint8))
+    lut = rng.random((nq, m, k)).astype(np.float32)
+    ids = rng.integers(0, n, (nq, c)).astype(np.int32)
+    valid = rng.random((nq, c)) < 0.4
+    other = np.where(valid, ids, rng.integers(0, n, (nq, c))).astype(np.int32)
+    assert (other[~valid] != ids[~valid]).any()
+    got = pq_adc_mod.pq_adc(codes, torch.from_numpy(ids),
+                            torch.from_numpy(valid), torch.from_numpy(lut))
+    moved = pq_adc_mod.pq_adc(codes, torch.from_numpy(other),
+                              torch.from_numpy(valid), torch.from_numpy(lut))
+    assert torch.equal(got, moved)
+    assert bool(torch.isinf(got[torch.from_numpy(~valid)]).all())
+    for qi in range(nq):
+        oracle = np.asarray(jpq.adc_distances(jnp.asarray(lut[qi]),
+                                              jnp.asarray(codes.numpy())))
+        np.testing.assert_allclose(got[qi].numpy()[valid[qi]],
+                                   oracle[ids[qi]][valid[qi]], rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_pq_adc_row_paths():
+    """16-byte loads where M % 16 == 0 and the store is 16-byte aligned,
+    else 4-byte words; a store neither path can read raises."""
+    assert pq_adc_mod.row_path(96, 1 << 20) == "uint4"
+    assert pq_adc_mod.row_path(96, (1 << 20) + 4) == "word"
+    assert pq_adc_mod.row_path(20, 1 << 20) == "word"
+    assert pq_adc_mod.row_path(4, 8) == "word"
+    for m, address in ((6, 1 << 20), (96, (1 << 20) + 2)):
+        with pytest.raises(ValueError, match="pq_adc"):
+            pq_adc_mod.row_path(m, address)
 
 
 def test_adc_table_matches():
@@ -326,8 +374,9 @@ def test_shared_memory_budget_named_error():
             stores, torch.zeros((1, 5 * g)), torch.zeros((1, 2), dtype=torch.int32),
             torch.zeros((1, 2)), torch.ones((1, 2), dtype=torch.bool), None,
             cal.identity_model(), k=1, bound="cauchy", z=3.0)
+    # the LUT, the tile's 4096 uint16 slot offsets, 16 warp counts
     assert ops.check_smem_budget("fits", ops.adc_smem_bytes(96, 256)) == \
-        96 * 256 * 4
+        96 * 256 * 4 + 4096 * 2 + 16 * 4
 
 
 def test_refine_smem_is_the_tables():
