@@ -7,11 +7,12 @@ Phases, each of which raises on failure:
 
 1. print the card (``nvidia-smi``), build every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and
-   print each kernel's registers and shared memory (``cuobjdump
-   -res-usage``);
+   print each kernel's registers, stack and shared memory (``cuobjdump
+   -res-usage``), and the prune kernel's cluster width (CUDA runtime);
 2. make a synthetic 1M x 768 dataset with exact ground truth, build the
-   index (PQ M=96, K=256; IVF nlist=1024; one TRQ level) and partition it
-   into ``--shards`` shards for the sharded layout;
+   index (PQ M=96, K=256; IVF nlist=1024; one TRQ level) twice from one
+   seed, require the two builds' index arrays to be bit-equal, and
+   partition it into ``--shards`` shards for the sharded layout;
 3. edge-shape phase: the fused and bounds refine kernels against their
    plain versions, and the bounds est against the fused est bit for bit,
    on random code stores at G in {1, 13, 20, 154} and L in {1, 2, 3}, with
@@ -19,7 +20,12 @@ Phases, each of which raises on failure:
    with no valid slot and one with every slot valid; ``pq_adc`` against its
    plain version with +inf on exactly the invalid slots, at M in {4, 16,
    20, 96, 128} and K in {16, 256} on the same slots, both row paths
-   giving the same bits where M % 16 == 0;
+   giving the same bits where M % 16 == 0; the prune alone
+   (``ternary_refine_prune``) against ``prune_plain`` exactly (mask,
+   counts, tau) at C in {1, 31, 48, 4133, 46,880, 446,000 (near its
+   capacity)} and k in {1, 10, 64}, three levels with the mask written
+   over the alive buffer it reads, forced ties at tau, queries with every,
+   no and fewer than k alive slots, with and without delta rows;
    kernel phase: each kernel against its plain PyTorch version on the card
    at the shapes its path gives it (64 queries x nprobe 16 lists):
    ``pq_adc`` at the fatrq shape and on shard 0's candidates (its own code
@@ -35,7 +41,10 @@ Phases, each of which raises on failure:
    once through ``ops.refine_scores_batch`` / ``ops.refine_scores`` (the
    ops path); the fused call's score and prune launches timed apart
    (``torch.profiler``), and both multi-level kernels also with every slot
-   scored;
+   scored; the prune alone at the fatrq shape on those candidates' level-0
+   bounds, exactly the fused call's survivors, timed beside its bound, its
+   plain version and one ``torch.topk`` of the masked upper bounds (the
+   select of tau only) as its library time;
 4. search paths: ``Database.query`` with ``mode="fatrq"`` (``cuda``
    backend), ``mode="baseline"`` and ``QueryPlan(shards=S)`` (``cuda``)
    over all queries in 64-query micro-batches, each with every kernel's
@@ -188,8 +197,11 @@ def device_breakdown(torch, label: str, fn, top: int = 6):
         return
     print(f"{label} device time (profiled run): {busy_ms:.3f} ms busy of a "
           f"{span_ms:.3f} ms span, idle share {1 - busy_ms / span_ms:.3f}")
-    for ms, count, name in rows[:top]:
-        print(f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{count:<5d} {name[:90]}")
+    # the top kernels, and every kernel of the port's own below them
+    for i, (ms, count, name) in enumerate(rows):
+        if i < top or name.startswith("(anonymous namespace)::"):
+            print(f"  {ms:9.3f} ms {ms / busy_ms:6.1%} x{count:<5d} "
+                  f"{name[:90]}")
 
 
 def adc_cost(torch, label: str, ids, valid, m: int, k: int) -> dict:
@@ -478,6 +490,122 @@ EDGE_G = (1, 13, 20, 154)      # packed widths of the edge-shape phase
 EDGE_Q, EDGE_C, EDGE_N = 5, 4133, 20_000
 
 
+# C = 446,000 is near the prune's 446,464-slot capacity (ops.prune_smem_bytes);
+# 1, 31 and 4133 take its 1-byte path (C % 16 != 0), the rest 16-byte vectors
+EDGE_PRUNE_C, EDGE_PRUNE_K = (1, 31, 48, 4133, 46_880, 446_000), (1, 10, 64)
+
+
+def edge_prune(torch, tr, gen) -> None:
+    """The prune alone against ``prune_plain`` at each C of ``EDGE_PRUNE_C``
+    and k of ``EDGE_PRUNE_K``, over three levels of random bounds with the
+    mask written over the alive buffer it reads from level 1 on, as the
+    fused kernel runs them.  Query 0 has every slot alive, query 1 none,
+    query 2 hi and lo drawn from five values (ties at tau, lo on it),
+    query 3 k − 1 alive slots.  Masks and counts must be equal, tau equal
+    as floats."""
+    dev, nq, nl = gen.device, 6, 3
+    for c in EDGE_PRUNE_C:
+        lo, hi = [], []
+        for _ in range(nl):
+            h = torch.randn((nq, c), generator=gen, device=dev)
+            h[2] = torch.randint(0, 5, (c,), generator=gen, device=dev) / 4
+            step = torch.rand((nq, c), generator=gen, device=dev)
+            step[2] = torch.randint(0, 3, (c,), generator=gen, device=dev) / 4
+            lo.append(h - step)
+            hi.append(h)
+        for k in EDGE_PRUNE_K:
+            alive = torch.rand((nq, c), generator=gen, device=dev) < 0.5
+            alive[0], alive[1], alive[3] = True, False, False
+            alive[3, torch.randperm(c, generator=gen, device=dev)[:k - 1]] \
+                = True
+            is_delta = torch.rand((nq, c), generator=gen, device=dev) < 0.4
+            for delta in (None, is_delta):
+                counts = torch.full((nq, 2 * nl), -1, dtype=torch.int32,
+                                    device=dev)
+                buf = torch.empty_like(alive)
+                want, cnts = alive, []
+                for lv in range(nl):
+                    tau = tr.ternary_refine_prune(
+                        lo[lv], hi[lv], alive if lv == 0 else buf, delta,
+                        counts, buf, k=k, level=lv)
+                    want, cnt, dcnt, want_tau = tr.prune_plain(
+                        lo[lv], hi[lv], want, delta, k=k)
+                    cnts.append((cnt, dcnt))
+                    torch.cuda.synchronize()
+                    if not (torch.equal(buf, want)
+                            and torch.equal(tau, want_tau)):
+                        fail(f"prune edge C={c} k={k} level {lv} delta="
+                             f"{delta is not None}: mask or tau differs from "
+                             f"prune_plain")
+                want_counts = torch.stack([x[0] for x in cnts]
+                                          + [x[1] for x in cnts], dim=1)
+                if not torch.equal(counts, want_counts):
+                    fail(f"prune edge C={c} k={k} delta={delta is not None}: "
+                         f"counts {counts.tolist()} vs {want_counts.tolist()}")
+        print(f"prune edge C={c}: k {EDGE_PRUNE_K}, {nl} levels in place, "
+              f"delta rows and none: masks, counts and tau equal to "
+              f"prune_plain")
+
+
+def prune_attributes(build) -> str:
+    """The prune kernel's registers, stack, static shared memory and
+    cluster width as the CUDA runtime reports them."""
+    import ctypes
+    fn = build.entry("ternary_refine", "fatrq_prune_attributes",
+                     [ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * 4)()
+    build.check("ternary_refine", fn(out), "fatrq_prune_attributes")
+    return (f"prune_kernel (runtime): {out[0]} registers, {out[1]} B stack, "
+            f"{out[2]} B static shared memory, cluster width {out[3]}")
+
+
+def check_prune(torch, tr, lo, hi, alive, fused, *, k) -> dict:
+    """The prune alone at the fatrq shape: exactly ``prune_plain``'s mask,
+    counts and tau, and the fused call's survivors and counts ``fused``
+    (same level-0 bounds); its ms, device ms per launch, bound, plain ms
+    and one ``torch.topk`` of the masked upper bounds (built outside the
+    timer) as the library time of the select alone."""
+    nq, c = hi.shape
+    out = torch.empty_like(alive)
+    counts = torch.zeros((nq, 2), dtype=torch.int32, device=alive.device)
+    call = lambda: tr.ternary_refine_prune(  # noqa: E731
+        lo, hi, alive, None, counts, out, k=k)
+    tau = call()
+    want, cnt, dcnt, want_tau = tr.prune_plain(lo, hi, alive, None, k=k)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, want) and torch.equal(tau, want_tau)
+            and torch.equal(counts, torch.stack([cnt, dcnt], 1))):
+        fail("prune at the fatrq shape differs from prune_plain")
+    if not (torch.equal(out, fused[1])
+            and torch.equal(counts[:, 0], fused[2][:, 0])):
+        fail("prune at the fatrq shape: not the fused call's survivors")
+    masked = torch.where(alive, hi, float("inf"))
+    select = lambda: torch.topk(masked, k, largest=False)  # noqa: E731
+    if not torch.equal(select().values[:, -1], tau):
+        fail("torch.topk's kth value is not the prune's tau")
+    n_alive = int(alive.sum())
+    print(f"prune bound: 1 B of alive_in and of alive_out per slot, 4 B of "
+          f"hi and of lo per alive slot ({n_alive} of {nq * c}), the counts")
+    row = dict(max_abs_err=0.0, ms=time_ms(call, 20),
+               plain_ms=time_ms(lambda: tr.prune_plain(lo, hi, alive, None,
+                                                       k=k), 3),
+               library_ms=time_ms(select, 20),
+               **dict(zip(("bound_ms", "bound_by"), bound(
+                   "prune", nq * c * 2 + n_alive * 8 + nq * 2 * 4,
+                   2 * n_alive))))
+    split = kernel_ms(torch, call, 20)
+    row["device_ms"] = next((ms for name, ms in split.items()
+                             if "prune_kernel" in name), None)
+    device = "not measured" if row["device_ms"] is None \
+        else f"{row['device_ms']:.4f} ms"
+    print(f"prune at the fatrq shape: {row['ms']:.4f} ms per call, device "
+          f"{device} (bound {row['bound_ms']:.4f} ms), plain "
+          f"{row['plain_ms']:.3f} ms, torch.topk select (tau only) "
+          f"{row['library_ms']:.4f} ms; masks, counts and tau equal to "
+          f"prune_plain and the fused call's")
+    return row
+
+
 def edge_shapes(torch, tr, ops, alive_chain, trq_mod, cal, Candidates,
                 gen) -> tuple[float, float]:
     """The fused and bounds kernels against their plain versions, and the
@@ -537,6 +665,22 @@ def edge_shapes(torch, tr, ops, alive_chain, trq_mod, cal, Candidates,
     return errs[0], errs[1]
 
 
+def check_repeatable(torch, one, two) -> None:
+    """Two builds from one seed must give bit-equal index arrays."""
+    arrays = {"centroids": lambda i: i.ivf.centroids,
+              "codebooks": lambda i: i.codebook.codebooks,
+              "pq_codes": lambda i: i.pq_codes,
+              "lists": lambda i: i.ivf.lists,
+              "list_len": lambda i: i.ivf.list_len,
+              **{f"trq level {lv} codes": lambda i, lv=lv: i.trq.levels[lv]
+                 .packed for lv in range(one.trq.num_levels)}}
+    for name, get in arrays.items():
+        if not torch.equal(get(one), get(two)):
+            fail(f"two builds from one seed differ in {name}")
+    print(f"index build repeatable: two builds from one seed give bit-equal "
+          f"{', '.join(arrays)}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -573,14 +717,15 @@ def main() -> int:
     def reset_launches():
         pq_adc_mod.launches = 0
         tr.launches = tr.bounds_launches = 0
-        tr.batch_launches = tr.single_launches = 0
+        tr.batch_launches = tr.single_launches = tr.prune_launches = 0
 
     def read_launches() -> dict:
         return {"pq_adc": pq_adc_mod.launches,
                 "ternary_refine_fused": tr.launches,
                 "ternary_refine_fused_bounds": tr.bounds_launches,
                 "ternary_refine_batch": tr.batch_launches,
-                "ternary_refine": tr.single_launches}
+                "ternary_refine": tr.single_launches,
+                "ternary_refine_prune": tr.prune_launches}
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -591,6 +736,9 @@ def main() -> int:
     build.build_all()
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
     print_resources(build._target(name) for name in build.SOURCES)
+    print(prune_attributes(build))
+    edge_prune(torch, tr,
+               torch.Generator(device="cuda").manual_seed(args.seed + 3))
     edge_err, edge_bounds_err = edge_shapes(
         torch, tr, ops, alive_chain, trq_mod, cal, Candidates,
         torch.Generator(device="cuda").manual_seed(args.seed + 1))
@@ -609,12 +757,20 @@ def main() -> int:
     cfg = PipelineConfig(dim=768, pq_m=96, pq_k=256, nlist=1024, nprobe=16,
                          trq_levels=1, final_k=10, refine_budget=40,
                          bound="cauchy", micro_batch=64)
-    t = time.perf_counter()
-    db = Database.build(ds.x, cfg, generator=gen)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t
+    dbs, build_s = [], []
+    for _ in range(2):
+        t = time.perf_counter()
+        dbs.append(Database.build(
+            ds.x, cfg,
+            generator=torch.Generator(device="cuda").manual_seed(args.seed)))
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t)
+    db = dbs[0]
     index = db.index
-    print(f"index build: {build_s:.1f} s (IVF cap {index.ivf.cap})")
+    print(f"index build: {build_s[0]:.1f} s, again {build_s[1]:.1f} s (IVF "
+          f"cap {index.ivf.cap})")
+    check_repeatable(torch, index, dbs[1].index)
+    del dbs
     t = time.perf_counter()
     si = make_sharded_executor(index, shards=args.shards).sharded
     torch.cuda.synchronize()
@@ -756,7 +912,15 @@ def main() -> int:
     print(f"ternary_refine_fused: {refine['ms']:.3f} ms with "
           f"{int(cand.valid.sum())} valid slots of {cand.valid.numel()}, "
           f"{no_skip_ms:.3f} ms with every slot scored")
-    del cand, stores1, every
+    # the prune alone on these candidates' level-0 bounds: the bounds
+    # kernel's, which the score launch's equal (the same device code)
+    _, lo_b, hi_b = tr.ternary_refine_fused_bounds(
+        *refine_args[:5], model, bound="cauchy", z=cfg.z)
+    prune_row = check_prune(
+        torch, tr, lo_b[:, 0].contiguous(), hi_b[:, 0].contiguous(),
+        cand.valid, tr.ternary_refine_fused(*refine_args, **refine_kw),
+        k=cfg.final_k)
+    del cand, stores1, every, lo_b, hi_b
 
     # ---- main path
     queries = ds.queries
@@ -867,7 +1031,15 @@ def main() -> int:
     print("launches: each kernel's own path's run (fatrq for pq_adc and "
           "ternary_refine_fused, sharded for ternary_refine_fused_bounds, "
           "ops for ternary_refine_batch and ternary_refine); "
-          "launches_by_path gives every path's own run")
+          "launches_by_path gives every path's own run; the fused call "
+          "launches its prune once per level, so the prune's launches on "
+          "the fatrq path are the fused kernel's (ternary_refine_prune "
+          "counts only the prune launched alone)")
+    print("ternary_refine_fused prune: its own ms, device ms, plain ms and "
+          "bound; library_ms is one torch.topk of the masked upper bounds, "
+          "which computes tau only, not the mask or the counts")
+    prune_row["launches"] = launches["fatrq"]["ternary_refine_fused"]
+    refine["prune"] = prune_row
 
     src = "src/repro_torch/kernels/csrc/ternary_refine.cu"
     rows = [("pq_adc", "src/repro_torch/kernels/csrc/pq_adc.cu",

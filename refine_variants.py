@@ -22,7 +22,15 @@ shapes, 64 queries x 16 lists x 2930 slots at G = 154:
 Each variant's estimates are held against the unchanged source's (within
 3e-5) and its bounds est against its fused est (bit for bit).  It prints
 device ms per call (``torch.profiler``) and each kernel's registers
-(``ptxas -v``).  It exits non-zero when no GPU is present.
+(``ptxas -v``).
+
+The prune launch alone (``ternary_refine_prune``) is timed on the
+fatrq-like input's level-0 bounds as the source has it, and in copies that
+return after staging the keys or after the radix select (each phase's time
+by difference), or that count a warp's equal digits with one atomic
+(``__match_any_sync``) instead of one atomic per key; the source's and the
+last copy's masks must equal ``prune_plain``'s.  It exits non-zero when no
+GPU is present.
 """
 
 from __future__ import annotations
@@ -101,13 +109,47 @@ VARIANTS = {"split, 1024-slot tiles (the source)": [],
             "split, 4096-slot tiles": tile(4096),
             "(G, 243) table": TABLE243 + tile(23_552)}
 
+STAGED = ("  __syncthreads();\n\n"
+          "  // radix select of the kth-smallest key over the cluster\n")
+SELECTED = "  const float tau = fewer ? INFINITY : key_value(prefix);\n"
+PER_KEY = """\
+    for (int i = tid; i < nk; i += kPruneThreads) {
+      const uint32_t key = s_key[i];
+      const bool take = (key & pmask) == prefix;
+      // one shared-memory atomic per key: timed faster on the card than
+      // adding a warp's equal digits first (__match_any_sync or a ballot)
+      if (take) atomicAdd(&hist[(key >> shift) & 0xffu], 1u);
+    }"""
+# a warp-uniform loop, so that every lane takes part in __match_any_sync
+PER_GROUP = """\
+    for (int b = warp * 32; b < nk; b += kPruneThreads) {
+      const int i = b + lane;
+      const uint32_t key = i < nk ? s_key[i] : 0u;
+      const bool take = i < nk && (key & pmask) == prefix;
+      const uint32_t digit = (key >> shift) & 0xffu;
+      const unsigned peers = __match_any_sync(kFull, take ? digit : 256u + lane);
+      if (take && lane == __ffs(peers) - 1)
+        atomicAdd(&hist[digit], (uint32_t)__popc(peers));
+    }"""
+PRUNE_VARIANTS = {
+    "prune (the source)": [],
+    "prune, staging only": [
+        (STAGED, STAGED.replace("\n\n", "\n  if (k > 0) return;\n\n", 1))],
+    "prune, staging and select": [
+        (SELECTED, "  cluster.sync();\n  if (k > 0) return;\n" + SELECTED)],
+    "prune, one atomic per digit group": [(PER_KEY, PER_GROUP)],
+}
+# the copies whose masks are complete
+PRUNE_CHECKED = ("prune (the source)", "prune, one atomic per digit group")
+
 
 def build_variants(build) -> dict:
     """Compile every variant at once; library path and ptxas registers."""
     OUT.mkdir(parents=True, exist_ok=True)
     src = SOURCE.read_text()
     jobs = {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
+    for i, (name, edits) in enumerate({**VARIANTS,
+                                       **PRUNE_VARIANTS}.items()):
         cu = OUT / f"v{i}.cu"
         cu.write_text(patch(src, edits))
         lib = OUT / f"libv{i}.so"
@@ -122,7 +164,8 @@ def build_variants(build) -> dict:
             raise SystemExit(f"refine_variants: {name} failed:\n{log}")
         regs, kernel = {}, None
         for line in log.splitlines():
-            m = re.search(r"entry function '\S*?(score|bounds)_kernel", line)
+            m = re.search(r"entry function '\S*?(score|bounds|prune)_kernel",
+                          line)
             if m:
                 kernel = m.group(1)
             m = re.search(r"Used (\d+) registers", line)
@@ -199,6 +242,8 @@ def main() -> int:
     q = torch.randn((Q, 5 * G - 2), generator=gen, device="cuda")
     want = {}
     for name, (lib, regs) in built.items():
+        if name in PRUNE_VARIANTS:
+            continue
         # the wrappers load csrc/ternary_refine.cu's library through this
         # cache; each variant takes its place in turn
         build._LIBS["ternary_refine"] = ctypes.CDLL(str(lib))
@@ -231,7 +276,43 @@ def main() -> int:
                               for k in ("score", "prune", "bounds"))
             print(f"  {label} ({int(valid.sum())} valid of {valid.numel()}"
                   f"): ms per call {times}")
+    time_prune(torch, tr, build, chip_smoke, built, model, q,
+               problems["fatrq-like"])
     return 0
+
+
+def time_prune(torch, tr, build, chip_smoke, built, model, q, problem):
+    """The prune alone, each copy of ``PRUNE_VARIANTS`` in turn, on the
+    level-0 bounds of one problem (the source's bounds kernel's, which the
+    score launch's equal), k = 10."""
+    stores, ids, d0, valid = problem
+    build._LIBS["ternary_refine"] = ctypes.CDLL(
+        str(built["split, 1024-slot tiles (the source)"][0]))
+    _, lo, hi = tr.ternary_refine_fused_bounds(stores, q, ids, d0, valid,
+                                               model, bound="cauchy", z=3.0)
+    lo, hi = lo[:, 0].contiguous(), hi[:, 0].contiguous()
+    want = tr.prune_plain(lo, hi, valid, None, k=10)[0]
+    out = torch.empty_like(valid)
+    counts = torch.zeros((Q, 2), dtype=torch.int32, device="cuda")
+    print(f"prune on the fatrq-like input's level-0 bounds "
+          f"({int(valid.sum())} alive of {valid.numel()}), k = 10:")
+    for name in PRUNE_VARIANTS:
+        lib, regs = built[name]
+        build._LIBS["ternary_refine"] = ctypes.CDLL(str(lib))
+
+        def prune():
+            return tr.ternary_refine_prune(lo, hi, valid, None, counts, out,
+                                           k=10)
+
+        prune()
+        torch.cuda.synchronize()
+        if name in PRUNE_CHECKED and not torch.equal(out, want):
+            raise SystemExit(f"refine_variants: {name}: mask differs from "
+                             f"prune_plain")
+        ms = [t for kernel, t in chip_smoke.kernel_ms(torch, prune, 50)
+              .items() if "prune_kernel" in kernel]
+        print(f"  {name}: registers {regs.get('prune')}, device ms per call "
+              f"{f'{ms[0]:.4f}' if ms else 'not measured'}")
 
 
 if __name__ == "__main__":

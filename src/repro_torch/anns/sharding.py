@@ -22,12 +22,12 @@ across shards (the IVF half of ``repro.anns.sharding``).
       smallest upper bounds in shard order (the all-gather) and takes the
       kth smallest (``estimator.pooled_k_smallest``), so every survivor
       mask matches the unsharded run;
-    - rerank: the SSD budget is a pooled threshold τ_b the same way, each
-      shard fetches only its own survivors at or below it, and the
-      per-shard (distance, global id) pairs are concatenated in shard
-      order and cut to the top k by a stable sort (exact up to exact-f32
-      estimate ties at the budget boundary, see
-      ``_rerank_survivors_sharded``).
+    - rerank: each shard's best estimates are pooled and the SSD budget
+      taken from the pool by (estimate, unsharded slot), the unsharded
+      candidate order (``Candidates.list_rank``), so exactly the unsharded
+      fetch set; the per-shard (distance, global id) pairs are cut to the
+      top k with ties broken as the unsharded cut breaks them
+      (``_rerank_survivors_sharded``).
 
   Stage counters stay on the device, one per shard; one host transfer at
   the end builds one ``QueryCost`` ledger per shard, folded with
@@ -50,7 +50,6 @@ from repro_torch.anns.executor import (_accumulate, _cat, fold_counts,
 from repro_torch.anns.stages import (Candidates, Counters, _exact_sq,
                                      _smallest, fold_ivf_front_cost,
                                      rank_centroid_lists)
-from repro_torch.core.estimator import pooled_k_smallest
 from repro_torch.core.trq import TRQCodes
 from repro_torch.kernels.pq_adc import pq_adc
 from repro_torch.memory import QueryCost, RecordLayout
@@ -243,32 +242,43 @@ def _ivf_shard_front(queries, rep, fdb, codebook, pq_codes, *,
                      nprobe: int) -> list[Candidates]:
     """The IVF front on every shard of one micro-batch.  The replicated
     centroid ranking and ADC tables are computed once; then per shard the
-    chosen lists it owns are gathered and scored with one ``pq_adc``
-    launch.  The global top-``nprobe`` set has ``nprobe`` lists in all, so
-    ``pl = min(nprobe, lmax)`` slots per shard always suffice."""
+    chosen lists it owns are gathered, in probe order, and scored with one
+    ``pq_adc`` launch.  The global top-``nprobe`` set has ``nprobe`` lists
+    in all, so ``pl = min(nprobe, lmax)`` slots per shard always suffice.
+
+    A shard's slot (j, pos) holds the list of probe rank r =
+    ``list_rank[j]`` at position pos, the unsharded front's slot
+    r·cap + pos: the partitioner keeps each list's rows in order at the
+    same cap, so a shard's slots are the unsharded ones restricted to it,
+    in the same order."""
     (centroids,) = rep
     list_gid, lists = fdb
     nq = queries.shape[0]
     n_shards, lmax, cap = lists.shape
-    d_cent, top_lists = rank_centroid_lists(centroids, queries,
-                                            nprobe=nprobe)
+    dev = queries.device
+    _, top_lists = rank_centroid_lists(centroids, queries, nprobe=nprobe)
     lut = pq_mod.adc_table(codebook, queries)
     pl = min(nprobe, lmax)
-    inf = torch.tensor(float("inf"), device=queries.device)
+    # each list's probe rank; nprobe for a list no query chose
+    rank_of = torch.full((nq, centroids.shape[0]), nprobe, dtype=torch.int64,
+                         device=dev)
+    rank_of.scatter_(1, top_lists, torch.arange(nprobe, device=dev)
+                     .expand(nq, nprobe))
     cands = []
     for s in range(n_shards):
         own = list_gid[s]
-        chosen = (own[None, :, None] == top_lists[:, None, :]).any(-1)
-        d_own = torch.where(chosen & (own >= 0)[None, :],
-                            d_cent[:, own.clamp(min=0).long()], inf)
-        slot = _smallest(d_own, pl)                           # (Q, pl)
-        sel = torch.gather(chosen, 1, slot)
+        r_own = torch.where((own >= 0)[None, :],
+                            rank_of[:, own.clamp(min=0).long()], nprobe)
+        slot = _smallest(r_own, pl)                           # (Q, pl)
+        rank = torch.gather(r_own, 1, slot)
         ids_l = lists[s][slot]                                # (Q, pl, cap)
-        valid = ((ids_l >= 0) & sel[:, :, None]).reshape(nq, pl * cap)
+        valid = ((ids_l >= 0) & (rank < nprobe)[:, :, None]) \
+            .reshape(nq, pl * cap)
         ids = ids_l.clamp(min=0).reshape(nq, pl * cap).contiguous()
         d0 = pq_adc(pq_codes[s], ids, valid, lut)
         cands.append(Candidates(ids=ids, valid=valid, d0=d0,
-                                counters={"front_cand": valid.sum()}))
+                                counters={"front_cand": valid.sum()},
+                                list_rank=rank))
     return cands
 
 
@@ -280,37 +290,51 @@ registry.register_sharded_front("ivf", registry.ShardedFrontHooks(
 # ------------------------------------------------------ per-shard rerank
 
 
-def _rerank_survivors_sharded(x, gid, queries, ids, est, alive, *, k: int,
-                              budget: int):
+def _rerank_survivors_sharded(x, gid, queries, ids, list_rank, est, alive,
+                              *, k: int, budget: int):
     """Shard-local exact rerank under a GLOBAL SSD budget, then the
-    cross-shard top-k merge.  ids/est/alive (S, Q, C_s).
+    cross-shard top-k merge.  ids/est/alive (S, Q, C_s), list_rank
+    (S, Q, pl) the probe rank of each shard slot's list, so slot c is the
+    unsharded slot list_rank[c // cap]·cap + c % cap, cap = C_s / pl.
 
-    Each shard takes its ``min(budget, C_s)`` best estimates; the pooled
-    budget-th smallest estimate among alive candidates (τ_b) decides which
-    of them fetch their full vectors.  Returns (top-k global ids, their
-    exact distances, (S,) fetch counts).
-
-    Tie caveat: the unsharded path cuts EXACTLY ``budget`` slots in index
-    order, while this threshold cut keeps every candidate at τ_b; records
-    with exactly equal f32 estimates straddling the budget boundary (e.g.
-    duplicate rows) can fetch one extra candidate per tie.
+    The fetch set is the unsharded executor's exactly, as the reference's
+    contract states (``repro.anns.sharding._rerank_survivors_sharded``):
+    the unsharded cut takes the ``budget`` smallest estimates, lower slot
+    first on ties.  Each shard takes its ``min(budget, C_s)`` best in slot
+    order, which is unsharded order, so every member of the global cut is
+    among them (the all-gather of the multi-device form); the pooled
+    candidates are ordered by (estimate, unsharded slot), and the alive
+    ones among the first ``budget`` fetch.  The merge of exact distances
+    breaks ties by that fetch order, as the unsharded merge does.  Returns
+    (top-k global ids, their exact distances, (S,) fetch counts).
     """
+    n_shards, nq, _ = est.shape
     bl = min(budget, est.shape[-1])
-    est_m = torch.where(alive, est, torch.full_like(est, float("inf")))
-    tau_b = pooled_k_smallest(est_m, budget, shard_dim=0)    # (Q,)
+    inf = torch.tensor(float("inf"), device=est.device)
+    est_m = torch.where(alive, est, inf)
     order = _smallest(est_m, bl)                              # (S, Q, bl)
-    fetch_alive = torch.gather(alive, 2, order) & \
-        (torch.gather(est_m, 2, order) <= tau_b[None, :, None])
+    cap = est.shape[-1] // list_rank.shape[-1]
+    key = torch.gather(list_rank, 2, order // cap) * cap + order % cap
+    pool = lambda t: t.permute(1, 0, 2).reshape(nq, -1)      # noqa: E731
+    # the pooled (Q, S·bl) candidates by estimate, then by unsharded slot
+    by_slot = _smallest(pool(key), n_shards * bl)
+    fetch_order = torch.gather(by_slot, 1, _smallest(torch.gather(
+        pool(torch.gather(est_m, 2, order)), 1, by_slot), n_shards * bl))
+    first = torch.zeros((nq, n_shards * bl), dtype=torch.bool,
+                        device=est.device)
+    first.scatter_(1, fetch_order[:, :budget], True)
+    fetch_alive = first.reshape(nq, n_shards, bl).transpose(0, 1) & \
+        torch.gather(alive, 2, order)
     fetch_ids = torch.gather(ids, 2, order)
     d_parts, g_parts = [], []
-    for s in range(ids.shape[0]):
+    for s in range(n_shards):
         d = _exact_sq(x[s], queries, fetch_ids[s])
-        d_parts.append(torch.where(fetch_alive[s], d,
-                                   torch.full_like(d, float("inf"))))
+        d_parts.append(torch.where(fetch_alive[s], d, inf))
         g_parts.append(gid[s][fetch_ids[s].long()])
     d_all = torch.cat(d_parts, dim=1)                         # shard order
     g_all = torch.cat(g_parts, dim=1)
-    best = _smallest(d_all, k)
+    best = torch.gather(fetch_order, 1, _smallest(
+        torch.gather(d_all, 1, fetch_order), k))
     return (torch.gather(g_all, 1, best), torch.gather(d_all, 1, best),
             fetch_alive.sum((1, 2)))
 
@@ -365,7 +389,8 @@ class ShardedExecutor:
                 chunk, cands, si.shard_trqs, k=k, bound=cfg.bound, z=cfg.z)
             topk, topk_d, n_ssd = _rerank_survivors_sharded(
                 si.x, si.gid, chunk, torch.stack([c.ids for c in cands]),
-                refined.est, refined.alive, k=k, budget=budget)
+                torch.stack([c.list_rank for c in cands]), refined.est,
+                refined.alive, k=k, budget=budget)
             ids_parts.append(topk)
             dist_parts.append(topk_d)
             _accumulate(counters, {n: torch.stack([c.counters[n]

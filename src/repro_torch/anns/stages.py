@@ -52,6 +52,11 @@ class Candidates(NamedTuple):
     d0: torch.Tensor         # (Q, C) f32 coarse ADC distance, +inf if invalid
     counters: Counters
     is_delta: torch.Tensor | None = None   # (Q, C) bool delta-page rows
+    # (Q, pl) on the sharded IVF layout: each gathered list's probe rank
+    # in the unsharded front (nprobe where no query chose it), so slot
+    # (j, pos) is the unsharded slot list_rank[j]·cap + pos, the order the
+    # unsharded cuts break exact ties by
+    list_rank: torch.Tensor | None = None
 
 
 class Refined(NamedTuple):

@@ -39,11 +39,41 @@
 //    the warp writes its 32 est / lo / hi coalesced.  An invalid slot reads
 //    no code row or scalar: it takes align and its scalars as 0 (est =
 //    w0*d0 + bias; deeper levels carry est with margin resid_std).
-//  * prune_kernel, one block per query: tau = kth-smallest hi among the
-//    alive candidates (each thread keeps its k smallest, then k rounds of a
-//    block-wide arg-min pick the global kth value, which is tie-invariant),
-//    alive &= lo <= tau, and the survivor count plus its delta-page share go
-//    to counts[q, level] and counts[q, L + level].
+//  * prune_kernel: tau = kth-smallest hi among the alive candidates (+inf
+//    when fewer than k are alive), alive &= lo <= tau, and the survivor
+//    count plus its delta-page share to counts[q, level] and
+//    counts[q, L + level].  A thread-block cluster of kPruneCluster = 8
+//    blocks (the portable cluster size) per query, grid (8, Q): 512 blocks
+//    at the main path's Q = 64, every SM busy.  Each block reads its slice
+//    of ceil(C / 8) slots (rounded up to 32) once: alive_in as 16-byte
+//    vectors and hi as float4 only where a vector holds an alive slot
+//    (1-byte loads where C % 16 != 0 or a pointer is not 16-byte aligned),
+//    keeps the slice's alive flags as bits and the alive slots' hi as
+//    order-preserving uint32 keys in shared memory, compacted.  tau is the
+//    kth-smallest key over the cluster, found by a radix select of 4 passes
+//    of 8 bits: each block counts its keys' next digit under the prefix
+//    found so far in shared memory, and after a cluster barrier every block
+//    sums the 8 blocks' counts through distributed shared memory and picks
+//    the digit where the running count reaches the rank still sought.
+//    Every block reaches the same tau from the same counts, with no scratch
+//    or atomics in device memory; a value over the multiset, so ties are
+//    not ordered.  Then each block reads lo as float4 where a vector holds
+//    an alive slot, writes alive_out as 16-byte vectors, and the cluster's
+//    counts meet in block 0's shared memory, which stores them (and tau,
+//    when asked) with plain stores.  At levels >= 1 alive_in and alive_out
+//    are one buffer: a slot's flag is read by the thread that later writes
+//    it, before the first cluster barrier, and written after the last.
+//
+//    Why this design: the first port of this step ran one block per query
+//    (64 of 132 SMs), each thread inserting its slots' hi into a k-long
+//    list on the stack, one dependent load at a time, then k rounds of a
+//    block arg-min: bound by latency at ~4% of its bound.  The alternative, two launches
+//    over (tiles, Q) merging each tile's k smallest through a (Q, tiles, k)
+//    scratch, needs a second launch and a scratch buffer; the cluster does
+//    the merge on chip in one launch.  Bound: bytes, 1 B of alive_in and of
+//    alive_out per slot and 4 B each of hi and lo per alive slot (~13.5 MB
+//    at the main path's shapes, ~0.004 ms at 3.35 TB/s).  The staged slice
+//    caps C at 8 x 55,808 = 446,464 slots per query (ops.prune_smem_bytes).
 //
 // Bound: device-memory bytes.  Level 0 reads per candidate slot a 4 B id,
 // 4 B d0 and 1 B valid (+1 B delta flag), and per distinct record its G
@@ -80,17 +110,23 @@
 // gathered row and its five scalars once, so it is bound by those bytes
 // (~0.17 ms for the main path's 64 x 46,880 slots at G = 154).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <math.h>
 #include <limits.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kScoreThreads = 256;  // 8 warps
 constexpr int kTile = 256;          // candidates per level-0 scoring block
 constexpr int kSlotTile = 1024;     // slots per multi-level scoring block
-constexpr int kPruneThreads = 512;
+constexpr int kPruneCluster = 8;    // blocks per query in the prune
+constexpr int kPruneThreads = 256;
+constexpr int kPruneWarps = kPruneThreads / 32;
+constexpr int kRadixBins = 256;     // 8-bit digits, 4 passes
 constexpr int kMaxK = 64;           // largest top-k the pruning step keeps
 constexpr int kMaxLevels = 8;       // levels the bounds kernel walks
 constexpr int kGroup = 8;           // lanes scoring one candidate
@@ -526,102 +562,250 @@ __global__ void level0_kernel(const uint8_t* __restrict__ packed,  // (Q, C, G)
   }
 }
 
-__global__ void prune_kernel(const float* __restrict__ lo,          // (Q, C)
-                             const float* __restrict__ hi,
-                             const uint8_t* alive_in,              // (Q, C)
-                             uint8_t* alive_out,                   // may alias
-                             const uint8_t* __restrict__ is_delta, // or null
-                             int32_t* __restrict__ counts,         // (Q, 2L)
-                             int C, int k, int level, int L) {
-  __shared__ float s_val[32];
-  __shared__ int s_who[32];
-  __shared__ float s_tau;
-  __shared__ int s_win;
-  __shared__ int s_cnt[32], s_dcnt[32];
-  const int q = blockIdx.x;
-  const size_t base = (size_t)q * C;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
+// order-preserving key of a float: -0 sorts below +0, every NaN above +inf
+__device__ __forceinline__ uint32_t order_key(float v) {
+  const uint32_t b = __float_as_uint(v);
+  if (v != v) return 0xffffffffu;
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
 
-  // this thread's k smallest alive upper bounds, ascending
-  float top[kMaxK];
-  for (int j = 0; j < k; ++j) top[j] = INFINITY;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    if (!alive_in[base + c]) continue;
-    const float v = hi[base + c];
-    if (!(v < top[k - 1])) continue;
-    int j = k - 1;
-    while (j > 0 && top[j - 1] > v) {
-      top[j] = top[j - 1];
-      --j;
-    }
-    top[j] = v;
-  }
+__device__ __forceinline__ float key_value(uint32_t key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
 
-  // k rounds of block-wide arg-min over the threads' list heads
-  int head = 0;
-  float tau = INFINITY;
-  for (int r = 0; r < k; ++r) {
-    float v = head < k ? top[head] : INFINITY;
-    int who = threadIdx.x;
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-      const int ow = __shfl_xor_sync(0xffffffffu, who, off);
-      if (ov < v || (ov == v && ow < who)) {
-        v = ov;
-        who = ow;
-      }
-    }
-    if (lane == 0) {
-      s_val[warp] = v;
-      s_who[warp] = who;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      v = lane < nwarps ? s_val[lane] : INFINITY;
-      who = lane < nwarps ? s_who[lane] : INT_MAX;
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-        const int ow = __shfl_xor_sync(0xffffffffu, who, off);
-        if (ov < v || (ov == v && ow < who)) {
-          v = ov;
-          who = ow;
-        }
-      }
-      if (lane == 0) {
-        s_tau = v;
-        s_win = who;
-      }
-    }
-    __syncthreads();
-    tau = s_tau;
-    if ((int)threadIdx.x == s_win) ++head;
+// bit i set where byte i of v is nonzero
+__device__ __forceinline__ uint32_t nonzero_bits(uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t m = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t nz = __vcmpne4(w[j], 0u);  // 0xff in each nonzero byte
+    m |= ((nz & 1u) | ((nz >> 7) & 2u) | ((nz >> 14) & 4u) |
+          ((nz >> 21) & 8u)) << (4 * j);
   }
+  return m;
+}
 
-  int cnt = 0, dcnt = 0;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const int a = alive_in[base + c] && (lo[base + c] <= tau);
-    alive_out[base + c] = (uint8_t)a;
-    cnt += a;
-    if (is_delta != nullptr) dcnt += a && is_delta[base + c];
+// 4 bits to 4 bytes of 0 or 1
+__device__ __forceinline__ uint32_t bit_bytes(uint32_t m) {
+  return (m & 1u) | ((m & 2u) << 7) | ((m & 4u) << 14) | ((m & 8u) << 21);
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Slots per block of a query's cluster: ceil(C / 8) rounded up to 32, so
+// a block's bit words and 16-slot vectors never straddle two blocks.
+__host__ __device__ __forceinline__ int prune_span(int C) {
+  return ((C + kPruneCluster - 1) / kPruneCluster + 31) / 32 * 32;
+}
+
+// Dynamic shared memory of the prune: the slice's keys and alive bits.
+size_t prune_dynamic_smem(int C) {
+  const size_t span = (size_t)prune_span(C);
+  return span * sizeof(uint32_t) + span / 8;
+}
+
+struct PruneShared {
+  uint32_t hist[2][kRadixBins];  // this block's digit counts, two passes
+  uint32_t wsum[kPruneWarps];    // per-warp totals of the digit scan
+  int wcnt[kPruneWarps], wdcnt[kPruneWarps];
+  int ccnt[kPruneCluster], cdcnt[kPruneCluster];  // block 0: the cluster's
+  int nkeys, total, digit, remain;
+};
+
+// Inclusive sum over a warp.
+__device__ __forceinline__ int warp_scan(int v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(kFull, v, off);
+    if (lane >= off) v += t;
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
-    dcnt += __shfl_xor_sync(0xffffffffu, dcnt, off);
-  }
-  if (lane == 0) {
-    s_cnt[warp] = cnt;
-    s_dcnt[warp] = dcnt;
+  return v;
+}
+
+// A warp's keys (count n each, in lane order) appended to the compacted
+// key list; returns the first index of this lane's keys.
+__device__ __forceinline__ int reserve_keys(PruneShared& sh, int n,
+                                            int lane) {
+  const int incl = warp_scan(n, lane);
+  int first = 0;
+  if (lane == 31) first = atomicAdd(&sh.nkeys, incl);
+  return __shfl_sync(kFull, first, 31) + incl - n;
+}
+
+// (no __launch_bounds__: with it ptxas capped this kernel at 32 registers
+// and spilled one to the stack)
+__global__ void __cluster_dims__(kPruneCluster, 1, 1)
+    prune_kernel(const float* __restrict__ lo,           // (Q, C)
+                 const float* __restrict__ hi,
+                 const uint8_t* alive_in,                // (Q, C)
+                 uint8_t* alive_out,                     // may alias
+                 const uint8_t* __restrict__ is_delta,   // or null
+                 int32_t* __restrict__ counts,           // (Q, 2L)
+                 float* __restrict__ tau_out,            // (Q,) or null
+                 int C, int k, int level, int L, int vec) {
+  extern __shared__ uint32_t s_key[];  // alive keys, then the alive bits
+  __shared__ PruneShared sh;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int span = prune_span(C);
+  const int s0 = rank * span;
+  const int n = max(0, min(C, s0 + span) - s0);  // this block's slots
+  const size_t row = (size_t)blockIdx.y * C + s0;
+  uint32_t* s_bits = s_key + span;
+
+  if (tid == 0) sh.nkeys = 0;
+  for (int i = tid; i < kRadixBins; i += kPruneThreads) sh.hist[0][i] = 0;
+  __syncthreads();
+
+  // stage: alive bits and the alive slots' keys
+  if (vec) {
+    const int units = n / 16;
+    for (int u0 = warp * 32; u0 < units; u0 += kPruneThreads) {
+      const int u = u0 + lane;
+      uint32_t m = 0;
+      float4 h[4];
+      if (u < units) {
+        m = nonzero_bits(
+            *reinterpret_cast<const uint4*>(alive_in + row + 16 * u));
+        const float4* h4 = reinterpret_cast<const float4*>(hi + row + 16 * u);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          h[j] = (m >> (4 * j)) & 0xfu ? __ldg(h4 + j)
+                                       : make_float4(0.f, 0.f, 0.f, 0.f);
+        reinterpret_cast<uint16_t*>(s_bits)[u] = (uint16_t)m;
+      }
+      int at = reserve_keys(sh, __popc(m), lane);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        if ((m >> j) & 1u) s_key[at++] = order_key(lane_of(h[j / 4], j % 4));
+    }
+  } else {
+    for (int b = warp * 32; b < n; b += kPruneThreads) {
+      const int i = b + lane;
+      const bool a = i < n && alive_in[row + i];
+      const float h = a ? hi[row + i] : 0.f;
+      const uint32_t m = __ballot_sync(kFull, a);
+      if (lane == 0) s_bits[b / 32] = m;
+      const int at = reserve_keys(sh, a, lane);
+      if (a) s_key[at] = order_key(h);
+    }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int a = 0, b = 0;
-    for (int w = 0; w < nwarps; ++w) {
-      a += s_cnt[w];
-      b += s_dcnt[w];
+
+  // radix select of the kth-smallest key over the cluster
+  const int nk = sh.nkeys;
+  uint32_t prefix = 0, pmask = 0;
+  int remain = k;
+  bool fewer = false;  // fewer than k alive slots: tau = +inf
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    uint32_t* hist = sh.hist[pass & 1];
+    for (int i = tid; i < nk; i += kPruneThreads) {
+      const uint32_t key = s_key[i];
+      const bool take = (key & pmask) == prefix;
+      // one shared-memory atomic per key: timed faster on the card than
+      // adding a warp's equal digits first (__match_any_sync or a ballot)
+      if (take) atomicAdd(&hist[(key >> shift) & 0xffu], 1u);
     }
-    counts[(size_t)q * 2 * L + level] = a;
-    counts[(size_t)q * 2 * L + L + level] = b;
+    cluster.sync();  // every block's counts of this digit are final
+    int tot = 0, incl = 0;
+    if (tid < kRadixBins) {
+#pragma unroll
+      for (int r = 0; r < kPruneCluster; ++r)
+        tot += (int)cluster.map_shared_rank(hist, r)[tid];
+      // the other buffer: its last remote reads preceded this barrier
+      sh.hist[(pass + 1) & 1][tid] = 0;
+      incl = warp_scan(tot, lane);
+      if (lane == 31) sh.wsum[warp] = (uint32_t)incl;
+    }
+    __syncthreads();
+    if (tid < kRadixBins) {
+      for (int w = 0; w < warp; ++w) incl += (int)sh.wsum[w];
+      if (pass == 0 && tid == kRadixBins - 1) sh.total = incl;
+      if (incl - tot < remain && remain <= incl) {
+        sh.digit = tid;
+        sh.remain = remain - (incl - tot);
+      }
+    }
+    __syncthreads();
+    if (pass == 0 && sh.total < k) {
+      fewer = true;
+      break;
+    }
+    prefix |= (uint32_t)sh.digit << shift;
+    pmask |= 0xffu << shift;
+    remain = sh.remain;
+  }
+  const float tau = fewer ? INFINITY : key_value(prefix);
+
+  // mask: alive_out = alive_in && lo <= tau, with the counts
+  int cnt = 0, dcnt = 0;
+  if (vec) {
+    for (int u = tid; u < n / 16; u += kPruneThreads) {
+      const uint32_t m = reinterpret_cast<const uint16_t*>(s_bits)[u];
+      const float4* l4 = reinterpret_cast<const float4*>(lo + row + 16 * u);
+      uint32_t out = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if ((m >> (4 * j)) & 0xfu) {
+          const float4 l = __ldg(l4 + j);
+          out |= ((uint32_t)(l.x <= tau) | (uint32_t)(l.y <= tau) << 1 |
+                  (uint32_t)(l.z <= tau) << 2 | (uint32_t)(l.w <= tau) << 3)
+                 << (4 * j);
+        }
+      }
+      out &= m;
+      *reinterpret_cast<uint4*>(alive_out + row + 16 * u) =
+          make_uint4(bit_bytes(out & 0xfu), bit_bytes((out >> 4) & 0xfu),
+                     bit_bytes((out >> 8) & 0xfu), bit_bytes(out >> 12));
+      cnt += __popc(out);
+      if (is_delta != nullptr && out)
+        dcnt += __popc(out & nonzero_bits(__ldg(
+                    reinterpret_cast<const uint4*>(is_delta + row + 16 * u))));
+    }
+  } else {
+    for (int i = tid; i < n; i += kPruneThreads) {
+      const bool a = (s_bits[i / 32] >> (i % 32)) & 1u;
+      const bool o = a && lo[row + i] <= tau;
+      alive_out[row + i] = (uint8_t)o;
+      cnt += o;
+      if (is_delta != nullptr && o) dcnt += is_delta[row + i] != 0;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    cnt += __shfl_xor_sync(kFull, cnt, off);
+    dcnt += __shfl_xor_sync(kFull, dcnt, off);
+  }
+  if (lane == 0) {
+    sh.wcnt[warp] = cnt;
+    sh.wdcnt[warp] = dcnt;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int a = 0, d = 0;
+    for (int w = 0; w < kPruneWarps; ++w) {
+      a += sh.wcnt[w];
+      d += sh.wdcnt[w];
+    }
+    cluster.map_shared_rank(sh.ccnt, 0)[rank] = a;
+    cluster.map_shared_rank(sh.cdcnt, 0)[rank] = d;
+  }
+  cluster.sync();  // block 0 holds every block's counts; no remote access
+                   // follows, so every block may exit
+  if (rank == 0 && tid == 0) {
+    int a = 0, d = 0;
+    for (int r = 0; r < kPruneCluster; ++r) {
+      a += sh.ccnt[r];
+      d += sh.cdcnt[r];
+    }
+    counts[(size_t)blockIdx.y * 2 * L + level] = a;
+    counts[(size_t)blockIdx.y * 2 * L + L + level] = d;
+    if (tau_out != nullptr) tau_out[blockIdx.y] = tau;
   }
 }
 
@@ -644,6 +828,28 @@ template <typename Kernel>
 size_t tables_smem(Kernel kernel, int G) {
   return opt_in(kernel,
                 (size_t)(27 + kT9Rows) * table_width(G) * sizeof(float));
+}
+
+// The prune over one level's (lo, hi): k in [1, kMaxK], C within the
+// staged slice's shared memory.
+cudaError_t launch_prune(const void* lo, const void* hi, const void* alive_in,
+                         void* alive_out, const void* is_delta, void* counts,
+                         void* tau, int Q, int C, int k, int level, int L,
+                         cudaStream_t s) {
+  const uintptr_t any = reinterpret_cast<uintptr_t>(lo) |
+                        reinterpret_cast<uintptr_t>(hi) |
+                        reinterpret_cast<uintptr_t>(alive_in) |
+                        reinterpret_cast<uintptr_t>(alive_out) |
+                        reinterpret_cast<uintptr_t>(is_delta);
+  const int vec = C % 16 == 0 && (any & 15) == 0;
+  const size_t smem = opt_in(prune_kernel, prune_dynamic_smem(C));
+  prune_kernel<<<dim3(kPruneCluster, Q), kPruneThreads, smem, s>>>(
+      static_cast<const float*>(lo), static_cast<const float*>(hi),
+      static_cast<const uint8_t*>(alive_in),
+      static_cast<uint8_t*>(alive_out),
+      static_cast<const uint8_t*>(is_delta), static_cast<int32_t*>(counts),
+      static_cast<float*>(tau), C, k, level, L, vec);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -669,13 +875,34 @@ extern "C" int fatrq_refine_level(
       quantile);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  prune_kernel<<<Q, kPruneThreads, 0, s>>>(
-      static_cast<const float*>(lo), static_cast<const float*>(hi),
-      static_cast<const uint8_t*>(alive_in),
-      static_cast<uint8_t*>(alive_out),
-      static_cast<const uint8_t*>(is_delta), static_cast<int32_t*>(counts),
-      C, k, level, L);
-  return (int)cudaGetLastError();
+  return (int)launch_prune(lo, hi, alive_in, alive_out, is_delta, counts,
+                           nullptr, Q, C, k, level, L, s);
+}
+
+// The prune alone on given (lo, hi): tau (Q,) is written where not null.
+extern "C" int fatrq_refine_prune(const void* lo, const void* hi,
+                                  const void* alive_in, void* alive_out,
+                                  const void* is_delta, void* counts,
+                                  void* tau, int Q, int C, int k, int level,
+                                  int L, void* stream) {
+  if (k < 1 || k > kMaxK || level < 0 || level >= L)
+    return (int)cudaErrorInvalidValue;
+  if (Q == 0 || C == 0) return (int)cudaGetLastError();
+  return (int)launch_prune(lo, hi, alive_in, alive_out, is_delta, counts, tau,
+                           Q, C, k, level, L,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The prune kernel's registers, local (stack) bytes, static shared bytes
+// and cluster width, as the runtime reports them.
+extern "C" int fatrq_prune_attributes(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, prune_kernel);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.requiredClusterWidth;
+  return (int)err;
 }
 
 // packed / lvl: host arrays of L device pointers (the per-level stores).

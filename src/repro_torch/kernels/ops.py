@@ -76,6 +76,19 @@ def level0_smem_bytes(g: int) -> int:
     return TRITS_PER_BYTE * g * 4 + 243 * 2
 
 
+#: blocks per query in the prune's cluster, and its static shared memory
+#: (kPruneCluster and sizeof(PruneShared) in the source)
+_PRUNE_CLUSTER, _PRUNE_STATIC = 8, 2224
+
+
+def prune_smem_bytes(c: int) -> int:
+    """The prune holds each block's slice of ceil(C / 8) slots, rounded up
+    to 32, as one uint32 key and one alive bit per slot, beside its digit
+    counts and reduction scratch: C up to 8 × 55,808 = 446,464 fits."""
+    span = (-(-c // _PRUNE_CLUSTER) + 31) // 32 * 32
+    return span * 4 + span // 8 + _PRUNE_STATIC
+
+
 def make_query_planes(q: torch.Tensor, g: int) -> torch.Tensor:
     """q (Q, D) → digit planes (Q, 5, G)."""
     pad = g * TRITS_PER_BYTE - q.shape[-1]

@@ -14,6 +14,11 @@ fused_refine_scores_batch`` returns for the TPU kernel
 same name): the same level stacking with no mask, returning every level's
 (lo, hi) so the caller pools the thresholds across shards.
 
+``ternary_refine_prune`` runs one pruning step alone on given bounds (the
+fused kernel's prune launch, bound on its own for ``chip_smoke.py``);
+``prune_plain`` is its plain version, and the plain fused version prunes
+with it.
+
 ``ternary_refine_batch`` and ``ternary_refine`` score level 0 only, from
 code rows already gathered per candidate, as the TPU kernels of the same
 names do (``kernels.ops.refine_scores_batch`` / ``refine_scores``).
@@ -32,7 +37,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.core.estimator import alive_chain
+from repro_torch.core.estimator import pooled_k_smallest
 from repro_torch.core.packing import POW3, TRITS_PER_BYTE
 from repro_torch.kernels import build, ops
 
@@ -44,8 +49,11 @@ bounds_launches = 0
 #: ``ternary_refine`` (one per call each)
 batch_launches = 0
 single_launches = 0
+#: launches of the prune alone by ``ternary_refine_prune`` (the fused
+#: kernel's own prune launches count in ``launches``)
+prune_launches = 0
 
-#: largest top-k the pruning step keeps per thread (kMaxK in the source)
+#: largest k the pruning step takes (kMaxK in the source)
 MAX_K = 64
 
 #: most TRQ levels the bounds kernel walks (kMaxLevels in the source)
@@ -55,6 +63,7 @@ _ARGS = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 _BOUNDS_ARGS = ([ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p] * 9
                 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _LEVEL0_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_PRUNE_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 #: queries per step of the plain version (bounds its (Q, C, G) temporaries)
 _PLAIN_QUERIES = 8
 
@@ -161,17 +170,34 @@ def _plain_levels(stores, planes, params, ids, d0, valid, *, bound):
         yield est, lo, hi
 
 
+def prune_plain(lo: torch.Tensor, hi: torch.Tensor, alive: torch.Tensor,
+                is_delta: torch.Tensor | None, *, k: int):
+    """One pruning step in plain PyTorch: τ = the kth-smallest ``hi`` among
+    alive slots, a value over the multiset (so ties need no order), +inf
+    when fewer than k slots are alive, then ``alive & (lo ≤ τ)``.  lo/hi
+    (Q, C) f32, alive/is_delta (Q, C) bool (is_delta may be None).
+    Returns (alive_out, survivors (Q,), their delta-page share (Q,), τ
+    (Q,)), the counts int32."""
+    masked = torch.where(alive, hi, torch.full_like(hi, float("inf")))
+    if masked.shape[-1] < k:   # fewer than k slots: τ = +inf
+        masked = torch.nn.functional.pad(masked, (0, k - masked.shape[-1]),
+                                         value=float("inf"))
+    tau = pooled_k_smallest(masked, k)
+    out = alive & (lo <= tau[:, None])
+    dcnt = out & is_delta if is_delta is not None else torch.zeros_like(out)
+    return (out, out.sum(-1, dtype=torch.int32),
+            dcnt.sum(-1, dtype=torch.int32), tau)
+
+
 def _plain_block(stores, planes, params, ids, d0, valid, is_delta, *, k,
                  bound):
-    levels = list(_plain_levels(stores, planes, params, ids, d0, valid,
-                                bound=bound))
-    lo, hi = (torch.stack([lv[j] for lv in levels], dim=1) for j in (1, 2))
-    alives, taus = alive_chain(lo, hi, valid, k)
-    delta = torch.zeros_like(valid) if is_delta is None else is_delta
-    counts = torch.stack([a.sum(-1, dtype=torch.int32) for a in alives]
-                         + [(a & delta).sum(-1, dtype=torch.int32)
-                            for a in alives], dim=1)
-    return levels[-1][0], alives[-1], counts, (lo.unbind(1), taus, alives)
+    steps, alive = [], valid
+    for est, lo, hi in _plain_levels(stores, planes, params, ids, d0, valid,
+                                     bound=bound):
+        alive, cnt, dcnt, tau = prune_plain(lo, hi, alive, is_delta, k=k)
+        steps.append((lo, tau, alive, cnt, dcnt))
+    los, taus, alives, cnts, dcnts = zip(*steps)
+    return est, alive, torch.stack(cnts + dcnts, dim=1), (los, taus, alives)
 
 
 def _by_queries(fn, *args):
@@ -276,6 +302,8 @@ def ternary_refine_fused(stores: RefineStores, q: torch.Tensor,
     _check_bound(bound)
     g = stores.packed[0].shape[1]
     ops.check_smem_budget("ternary_refine_fused", ops.refine_smem_bytes(g))
+    ops.check_smem_budget("ternary_refine_fused (prune)",
+                          ops.prune_smem_bytes(ids.shape[1]))
     q_planes = ops.make_query_planes(q, g)
     params = ops.query_params(q, model.w, model.bias, model.resid_std, z)
     if ids.device.type == "cpu":
@@ -300,7 +328,8 @@ def ternary_refine_fused(stores: RefineStores, q: torch.Tensor,
     lo = torch.empty_like(est)
     hi = torch.empty_like(est)
     alive = torch.empty((nq, c), dtype=torch.bool, device=dev)
-    counts = torch.zeros((nq, 2 * nl), dtype=torch.int32, device=dev)
+    # every entry is stored by one level's prune
+    counts = torch.empty((nq, 2 * nl), dtype=torch.int32, device=dev)
     fn = build.entry("ternary_refine", "fatrq_refine_level", _ARGS)
     stream = torch.cuda.current_stream(dev).cuda_stream
     global launches
@@ -315,6 +344,56 @@ def ternary_refine_fused(stores: RefineStores, q: torch.Tensor,
         build.check("ternary_refine", status, "ternary_refine_fused")
         launches += 1
     return est, alive, counts
+
+
+def ternary_refine_prune(lo: torch.Tensor, hi: torch.Tensor,
+                         alive: torch.Tensor, is_delta: torch.Tensor | None,
+                         counts: torch.Tensor, out: torch.Tensor, *, k: int,
+                         level: int = 0) -> torch.Tensor:
+    """One pruning step on given bounds, as the fused kernel runs it after
+    scoring a level (``prune_plain``'s function): lo/hi (Q, C) f32,
+    alive/is_delta (Q, C) bool (is_delta may be None), 1 ≤ k ≤ ``MAX_K``.
+    Stores the survivor count and its delta-page share in
+    ``counts[:, level]`` and ``counts[:, L + level]`` of ``counts (Q, 2L)``
+    int32 and the survivor mask in ``out`` (Q, C) bool, which may be
+    ``alive`` itself, as at the fused kernel's deeper levels.  Returns τ
+    (Q,).  CPU tensors take the plain version; a CUDA tensor launches the
+    kernel or raises.
+    """
+    nq, c = hi.shape
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"ternary_refine_prune: k={k} outside [1, {MAX_K}]")
+    ops.check_smem_budget("ternary_refine_prune", ops.prune_smem_bytes(c))
+    nl = counts.shape[1] // 2
+    if not 0 <= level < nl:
+        raise ValueError(f"ternary_refine_prune: level {level} outside the "
+                         f"{nl} levels of counts")
+    dev = hi.device
+    if dev.type == "cpu":
+        mask, cnt, dcnt, tau = prune_plain(lo, hi, alive, is_delta, k=k)
+        out.copy_(mask)
+        counts[:, level] = cnt
+        counts[:, nl + level] = dcnt
+        return tau
+    for name, t, dtype in (("lo", lo, torch.float32),
+                           ("hi", hi, torch.float32),
+                           ("alive", alive, torch.bool),
+                           ("is_delta", is_delta, torch.bool),
+                           ("out", out, torch.bool)):
+        if t is not None:
+            build.require(name, t, dtype=dtype, shape=(nq, c), device=dev)
+    build.require("counts", counts, dtype=torch.int32, shape=(nq, 2 * nl),
+                  device=dev)
+    tau = torch.empty((nq,), dtype=torch.float32, device=dev)
+    fn = build.entry("ternary_refine", "fatrq_refine_prune", _PRUNE_ARGS)
+    status = fn(build.ptr(lo), build.ptr(hi), build.ptr(alive),
+                build.ptr(out), build.ptr(is_delta), build.ptr(counts),
+                build.ptr(tau), nq, c, k, level, nl,
+                torch.cuda.current_stream(dev).cuda_stream)
+    build.check("ternary_refine", status, "ternary_refine_prune")
+    global prune_launches
+    prune_launches += 1
+    return tau
 
 
 def ternary_refine_fused_bounds(stores: RefineStores, q: torch.Tensor,

@@ -2,9 +2,11 @@
 
 Assignment is ``argmin_c (||c||² − 2x·c)``, one product per row chunk.  The
 batched form trains B independent problems at once (PQ trains all M
-subspaces together); the centroid update is an ``index_add_`` segment sum,
-never the (N, K) one-hot the JAX package multiplies by.  The initial draw
-is an explicit ``init_idx`` so the same draws reproduce the JAX build.
+subspaces together).  The centroid update sorts the rows by cluster
+(stable) and sums each cluster's run in row order with a segmented reduce,
+so a CUDA build adds in one order every run and is repeatable
+(``index_add_`` adds with float atomics there).  The initial draw is an
+explicit ``init_idx`` so the same draws reproduce the JAX build.
 """
 
 from __future__ import annotations
@@ -44,14 +46,18 @@ def assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
 
 
 def _update(x: torch.Tensor, ids: torch.Tensor, k: int):
-    """Per-problem member means (B, K, D) and counts (B, K)."""
-    b, n, d = x.shape
+    """Per-problem member means (B, K, D) and counts (B, K).  Each
+    cluster's rows, in row order, are summed by one segmented reduce: no
+    float atomics, so the same inputs give the same bits on every run."""
+    b = x.shape[0]
     flat = (ids + k * torch.arange(b, device=x.device)[:, None]).reshape(-1)
-    sums = torch.zeros((b * k, d), dtype=x.dtype, device=x.device)
-    sums.index_add_(0, flat, x.reshape(b * n, d))
-    counts = torch.bincount(flat, minlength=b * k).to(x.dtype)
-    means = sums / torch.clamp(counts, min=1.0)[:, None]
-    return means.reshape(b, k, d), counts.reshape(b, k)
+    counts = torch.bincount(flat, minlength=b * k).reshape(b, k)
+    order = torch.sort(ids, dim=1, stable=True).indices
+    rows = torch.take_along_dim(x, order[:, :, None], dim=1)
+    sums = torch.segment_reduce(rows, "sum", lengths=counts, axis=1,
+                                unsafe=True)
+    counts = counts.to(x.dtype)
+    return sums / torch.clamp(counts, min=1.0)[:, :, None], counts
 
 
 def _worst_fit(x: torch.Tensor, cents: torch.Tensor, ids: torch.Tensor

@@ -137,3 +137,55 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         synthetic.make_dataset(n=100, d=8, n_queries=2, k_gt=3)
+
+
+def _index_add_update(x, ids, k):
+    """The centroid update as an ``index_add_`` segment sum (what
+    ``kmeans._update`` did before it summed in a fixed order)."""
+    b, n, d = x.shape
+    flat = (ids + k * torch.arange(b)[:, None]).reshape(-1)
+    sums = torch.zeros((b * k, d)).index_add_(0, flat, x.reshape(b * n, d))
+    counts = torch.bincount(flat, minlength=b * k).float()
+    return (sums / counts.clamp(min=1.0)[:, None]).reshape(b, k, d), \
+        counts.reshape(b, k)
+
+
+@pytest.mark.parametrize("b,n,d,k", [(1, 1000, 24, 9), (6, 777, 8, 32),
+                                     (1, 5, 3, 40), (3, 4096, 16, 2)])
+def test_update_matches_index_add(b, n, d, k):
+    """The sorted segmented-sum update gives the ``index_add_`` means
+    within f32 rounding of each member sum, the same counts, and 0 for an
+    empty cluster (more clusters than rows; one cluster holding all)."""
+    rng = np.random.default_rng(b * n)
+    x = torch.from_numpy(rng.standard_normal((b, n, d)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, k - 1, (b, n)))  # k−1 stays empty
+    means, counts = kmeans._update(x, ids, k)
+    want_means, want_counts = _index_add_update(x, ids, k)
+    assert torch.equal(counts, want_counts)
+    assert bool((counts[:, -1] == 0).all() and (means[:, -1] == 0).all())
+    abs_sum = torch.zeros((b, k, d))
+    for j in range(b):
+        abs_sum[j].index_add_(0, ids[j], x[j].abs())
+    tol = 4 * n * np.finfo(np.float32).eps * abs_sum / counts.clamp(
+        min=1.0)[..., None]
+    assert bool(((means - want_means).abs() <= tol).all())
+
+
+def test_build_is_repeatable():
+    """Two builds from one seed give equal index arrays: centroids,
+    codebooks, PQ codes, lists and packed TRQ codes."""
+    from repro_torch.anns import PipelineConfig, build
+    x = synthetic.make_dataset(n=3000, d=64, n_queries=2, k_gt=5,
+                               clusters=8,
+                               generator=torch.Generator().manual_seed(0)).x
+    cfg = PipelineConfig(dim=64, pq_m=8, pq_k=32, nlist=16, nprobe=4,
+                         trq_levels=2)
+    one, two = (build(x, cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+                for _ in range(2))
+    for get in (lambda i: i.ivf.centroids, lambda i: i.codebook.codebooks,
+                lambda i: i.pq_codes, lambda i: i.ivf.lists,
+                lambda i: i.ivf.list_len,
+                *(lambda i, lv=lv: i.trq.levels[lv].packed
+                  for lv in range(2))):
+        assert torch.equal(get(one), get(two))

@@ -23,6 +23,8 @@ from repro.memory import Tier as JTier  # noqa: E402
 from repro_torch.anns import (Database, PipelineConfig, PlanError,  # noqa
                               QueryPlan, ShardedIndex, lpt_assign,
                               make_sharded_executor, partition_database)
+from repro_torch.anns import registry  # noqa: E402
+from repro_torch.core.estimator import pooled_k_smallest  # noqa: E402
 from repro_torch.interop import index_from_numpy  # noqa: E402
 from repro_torch.memory import Tier  # noqa: E402
 from test_torch_pipeline import CFG, export_jax_index  # noqa: E402
@@ -159,6 +161,68 @@ def test_single_shard_matches_jax_sharded(data, jindex, pindex, backend,
     assert _ledger(got.cost) == _ledger(want.cost)
     for tier, s in want.cost.breakdown().items():
         assert got.cost.breakdown()[tier] == pytest.approx(s, rel=1e-12)
+
+
+# ---------------------------------------------- exact ties at the cuts
+
+
+@pytest.fixture(scope="module")
+def triplicated():
+    """Every database row three times over: each candidate's estimate and
+    exact distance are tied with its two twins', so the budget of 40
+    (40 = 3·13 + 1) and the top 10 (10 = 3·3 + 1) each cut a group of
+    three in two.  JAX index, the port's copy of it, queries and the JAX
+    unsharded search."""
+    ds = jmake_dataset(jax.random.PRNGKey(5), n=1000, d=64, n_queries=24,
+                       k_gt=20, clusters=8)
+    x = np.concatenate([np.array(ds.x)] * 3)
+    jidx = jbuild(jax.random.PRNGKey(6), jnp.asarray(x), JConfig(**CFG))
+    pidx = index_from_numpy(export_jax_index(jidx), PipelineConfig(**CFG),
+                            device="cpu")
+    qs = np.array(ds.queries)
+    want = JDatabase.wrap(jidx).query(jnp.asarray(qs),
+                                      plan=JPlan(backend="reference"))
+    return pidx, qs, want
+
+
+def test_triplicated_rows_tie_at_the_budget(triplicated):
+    """The fixture's point: at 2 shards, more alive candidates than the
+    budget have an estimate at or below the pooled τ_b, so a threshold cut
+    alone would fetch too many."""
+    pidx, qs, _ = triplicated
+    ex = make_sharded_executor(pidx, shards=2)
+    si, q = ex.sharded, torch.from_numpy(qs)
+    cands = registry.sharded_front("ivf").body(
+        q, si.front_rep, si.front_db, si.codebook, si.pq_codes,
+        **dict(si.front_args))
+    refined = ex.backend.refine_sharded(q, cands, si.shard_trqs, k=10,
+                                        bound="cauchy", z=3.0)
+    est_m = torch.where(refined.alive, refined.est, float("inf"))
+    tau_b = pooled_k_smallest(est_m, CFG["refine_budget"], shard_dim=0)
+    at_or_below = (est_m <= tau_b[None, :, None]).sum((0, 2))
+    assert bool((at_or_below > CFG["refine_budget"]).all())
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_exact_ties_give_the_unsharded_fetches_and_ids(triplicated, shards,
+                                                       backend):
+    """With exact estimate ties at τ_b and exact distance ties at the
+    top-k boundary, S shards fetch exactly the budget per query and return
+    the unsharded ids and per-tier bytes: the port's unsharded path's and
+    the JAX unsharded path's."""
+    pidx, qs, want = triplicated
+    db = Database.wrap(pidx)
+    got = db.query(qs, plan=QueryPlan(shards=shards, backend=backend))
+    flat = db.query(qs, plan=QueryPlan(backend=backend))
+    assert got.cost.ledger["rerank:ssd"].accesses == \
+        CFG["refine_budget"] * len(qs)
+    for ref in (flat, want):
+        np.testing.assert_array_equal(got.ids.numpy(), np.asarray(ref.ids))
+        np.testing.assert_allclose(got.distances.numpy(),
+                                   np.asarray(ref.distances), rtol=1e-5,
+                                   atol=1e-5)
+        assert _tier_bytes(got.cost) == _tier_bytes(ref.cost)
 
 
 # ----------------------------------------------------------- 2 and 4 shards
