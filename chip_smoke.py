@@ -25,7 +25,13 @@ Phases, each of which raises on failure:
    counts, tau) at C in {1, 31, 48, 4133, 46,880, 446,000 (near its
    capacity)} and k in {1, 10, 64}, three levels with the mask written
    over the alive buffer it reads, forced ties at tau, queries with every,
-   no and fewer than k alive slots, with and without delta rows;
+   no and fewer than k alive slots, with and without delta rows; both
+   level-0 forms (``ternary_refine_batch``, ``ternary_refine``) against
+   ``refine_level0_plain`` at each G and at G = 319 (rows of several
+   passes), at Q = 5 and Q = 1 with C = 4133, on
+   code bytes from 0..255 (243..255 decode as y - 243), on fresh tensors
+   and on views whose code rows and scalars start at a base that is not
+   16-byte aligned;
    kernel phase: each kernel against its plain PyTorch version on the card
    at the shapes its path gives it (64 queries x nprobe 16 lists):
    ``pq_adc`` at the fatrq shape and on shard 0's candidates (its own code
@@ -39,7 +45,9 @@ Phases, each of which raises on failure:
    intervals' alive chain giving the fused kernel's survivors; the
    level-0 kernels on the gathered code rows of those 64 queries, driven
    once through ``ops.refine_scores_batch`` / ``ops.refine_scores`` (the
-   ops path); the fused call's score and prune launches timed apart
+   ops path), each also timed on the device (``torch.profiler``), with the
+   kernel's runtime attributes and its SASS instruction counts per code
+   byte; the fused call's score and prune launches timed apart
    (``torch.profiler``), and both multi-level kernels also with every slot
    scored; the prune alone at the fatrq shape on those candidates' level-0
    bounds, exactly the fused call's survivors, timed beside its bound, its
@@ -451,12 +459,16 @@ def level0_cost(label: str, nq: int, c: int, g: int) -> dict:
                     bound(label, nbytes, nq * c * (2 * g + 20))))
 
 
-def check_level0(torch, tr, ops, model, q, packed, cols, counted):
+def check_level0(torch, tr, ops, model, q, packed, cols, counted, edge_err,
+                 attrs):
     """The ops path's level-0 outputs (``counted``: batch, then single
     query) against the plain version on the same gathered rows ``packed``
-    (Q, C, G) and scalars ``cols``; returns the kernels' rows.  Kernel and
-    plain version are timed alike, on the inputs already assembled (the
-    ops entry points' stacking of the scalars is not part of either)."""
+    (Q, C, G) and scalars ``cols``; returns the kernels' rows, with their
+    device ms per call (``kernel_ms``), the edge phase's error folded into
+    max_abs_err (``edge_err``: batch, single) and the kernel's runtime
+    attributes ``attrs``.  Kernel and plain version are timed alike, on the
+    inputs already assembled (the ops entry points' stacking of the scalars
+    is not part of either)."""
     nq, c, g = packed.shape
     print(f"level-0 kernels: {packed.numel() / 1e6:.1f} MB of gathered "
           f"codes ({nq} x {c} x {g})")
@@ -465,12 +477,12 @@ def check_level0(torch, tr, ops, model, q, packed, cols, counted):
     batch = (packed, planes, scalars, params)
     single = tuple(t[:1] for t in batch)
     rows = {}
-    for name, got, args, call in (
+    for name, got, args, call, e_err in (
             ("ternary_refine_batch", counted[0], batch,
-             lambda: tr.ternary_refine_batch(*batch)),
+             lambda: tr.ternary_refine_batch(*batch), edge_err[0]),
             ("ternary_refine", counted[1], single,
              lambda: tr.ternary_refine(packed[0], planes[0], scalars[0],
-                                       params[:1]))):
+                                       params[:1]), edge_err[1])):
         want = tr.refine_level0_plain(*args).reshape(got.shape)
         torch.cuda.synchronize()
         ok, err = close(got, want, LEVEL0_TOL, LEVEL0_TOL)
@@ -479,14 +491,138 @@ def check_level0(torch, tr, ops, model, q, packed, cols, counted):
         print(f"{name}: max err {err:.3g} over {got.shape[-2]} x "
               f"{got.numel() // got.shape[-2] // 3} slots")
         rows[name] = dict(
-            max_abs_err=err, ms=time_ms(call, 20),
+            max_abs_err=max(err, e_err), ms=time_ms(call, 20),
             plain_ms=time_ms(lambda: tr.refine_level0_plain(*args), 3),
             library_ms=None,
-            **level0_cost(name, args[0].shape[0], c, g))
+            **level0_cost(name, args[0].shape[0], c, g), **attrs)
+        rows[name]["device_ms"] = next(
+            (ms for kernel, ms in kernel_ms(torch, call, 20).items()
+             if "level0_kernel" in kernel), None)
+        device = "not measured" if rows[name]["device_ms"] is None \
+            else f"{rows[name]['device_ms']:.4f} ms"
+        print(f"{name}: {rows[name]['ms']:.4f} ms per call, device {device} "
+              f"(bound {rows[name]['bound_ms']:.4f} ms), plain "
+              f"{rows[name]['plain_ms']:.3f} ms")
     return rows
 
 
+def edge_level0(torch, tr, ops, gen) -> tuple[float, float]:
+    """Both level-0 forms against ``refine_level0_plain`` at each G of
+    ``EDGE_L0_G``, at Q = ``EDGE_Q`` with C = ``EDGE_C`` slots (not a multiple
+    of a warp's 32-slot chunk) and at Q = 1, on code bytes drawn from
+    0..255 (every 7th from 243..255, which decode as y - 243): once on
+    fresh tensors and once on views whose code rows start at slot 1 of a
+    buffer (a base that is not 16-byte aligned) and whose scalars start one
+    float in.  Returns the batch and the single-query form's max error."""
+    dev = gen.device
+    errs = [0.0, 0.0]
+    for g in EDGE_L0_G:
+        for nq in (EDGE_Q, 1):
+            c = EDGE_C
+            packed = torch.randint(0, 256, (nq, c, g), generator=gen,
+                                   device=dev, dtype=torch.uint8)
+            packed.view(-1)[::7] = torch.randint(
+                243, 256, packed.view(-1)[::7].shape, generator=gen,
+                device=dev, dtype=torch.uint8)
+            q = torch.randn((nq, 5 * g - (g > 1)), generator=gen, device=dev)
+            cols = [torch.rand((nq, c), generator=gen, device=dev) * 4 + 0.1
+                    for _ in range(5)]
+            cols[2] -= 2.1                               # <x_c, d> of any sign
+            cols[4] = cols[4] / 4.2                      # rho in [0, 1)
+            w = torch.tensor([1.0, 1.1, 0.95, 2.1], device=dev)
+            planes, params, scalars = ops.level0_inputs(
+                q, g, *cols, w, torch.tensor(0.3, device=dev))
+            # the same values at a misaligned base: code rows from slot 1 of
+            # a buffer (byte offset g), scalars one float in
+            p_buf = torch.empty(nq * c * g + g, dtype=torch.uint8, device=dev)
+            s_buf = torch.empty(nq * c * 5 + 1, device=dev)
+            p_off = p_buf[g:].view(nq, c, g)
+            s_off = s_buf[1:].view(nq, c, 5)
+            p_off.copy_(packed)
+            s_off.copy_(scalars)
+            want = tr.refine_level0_plain(packed, planes, scalars, params)
+            for label, pk, sc in (("aligned", packed, scalars),
+                                  ("misaligned", p_off, s_off)):
+                got = (tr.ternary_refine_batch(pk, planes, sc, params),
+                       tr.ternary_refine(pk[0], planes[0], sc[0], params[:1]))
+                torch.cuda.synchronize()
+                for i, (name, out, ref) in enumerate((
+                        ("ternary_refine_batch", got[0], want),
+                        ("ternary_refine", got[1], want[0]))):
+                    ok, err = close(out, ref, LEVEL0_TOL, LEVEL0_TOL)
+                    if not ok:
+                        fail(f"level-0 edge {name} G={g} Q={nq} C={c} "
+                             f"{label} (code base % 16 = "
+                             f"{pk.data_ptr() % 16}): max err {err}")
+                    errs[i] = max(errs[i], err)
+        print(f"level-0 edge G={g}: Q={EDGE_Q} and Q=1, C={EDGE_C}, bytes "
+              f"0..255, aligned and misaligned bases: max err "
+              f"{max(errs):.3g}")
+    return errs[0], errs[1]
+
+
+def level0_attributes(build, g: int) -> dict:
+    """The level-0 kernel's registers, stack, warps per block, dynamic
+    shared memory and resident blocks per SM at width ``g``, as the CUDA
+    runtime reports them."""
+    import ctypes
+    fn = build.entry("ternary_refine", "fatrq_level0_attributes",
+                     [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * 5)()
+    build.check("ternary_refine", fn(g, out), "fatrq_level0_attributes")
+    attrs = dict(zip(("registers", "stack_bytes", "warps_per_block",
+                      "smem_bytes", "blocks_per_sm"), out))
+    print(f"level0_kernel (runtime, G={g}): {attrs['registers']} registers, "
+          f"{attrs['stack_bytes']} B stack, {attrs['warps_per_block']} warps "
+          f"per block, {attrs['smem_bytes']} B dynamic shared memory, "
+          f"{attrs['blocks_per_sm']} block(s) per SM")
+    return attrs
+
+
+def sass_profile(lib, function: str) -> None:
+    """Instruction counts of one kernel in the built library ``lib``
+    (``cuobjdump -sass``): its total, and the straight-line block with the
+    most shared-memory loads (in the level-0 kernel the unrolled scoring of
+    a lane's 20 code bytes of a row), its instructions and loads, and both
+    per byte."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    body = None
+    for part in text.split("Function : ")[1:]:
+        if function in part.split("\n", 1)[0]:
+            body = part
+    if body is None:
+        print(f"sass {function}: not found")
+        return
+    insts, blocks, cur = [], [], []
+    for line in body.splitlines():
+        if line.lstrip().startswith(".L"):           # a label: a new block
+            blocks.append(cur)
+            cur = []
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                     line)
+        if not m:
+            continue
+        op = m.group(1)
+        insts.append(op)
+        cur.append(op)
+        if op.split(".")[0] in ("BRA", "EXIT", "RET", "BSYNC", "WARPSYNC",
+                                "CALL", "BRX", "JMP"):
+            blocks.append(cur)
+            cur = []
+    blocks.append(cur)
+    big = max(blocks, key=lambda b: sum(op.startswith("LDS") for op in b))
+    lds = sum(op.startswith("LDS") for op in big)
+    print(f"sass {function}: {len(insts)} instructions; scoring block "
+          f"{len(big)} instructions, {lds} LDS ({len(big) / 20:.1f} "
+          f"instructions and {lds / 20:.2f} LDS per code byte of a lane's "
+          f"20)")
+
+
 EDGE_G = (1, 13, 20, 154)      # packed widths of the edge-shape phase
+EDGE_L0_G = EDGE_G + (319,)    # and G = 319: rows of 3 passes, at level 0
 EDGE_Q, EDGE_C, EDGE_N = 5, 4133, 20_000
 
 
@@ -737,6 +873,8 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
     print_resources(build._target(name) for name in build.SOURCES)
     print(prune_attributes(build))
+    level0_attrs = level0_attributes(build, 154)
+    sass_profile(build._target("ternary_refine"), "level0_kernelILb1E")
     edge_prune(torch, tr,
                torch.Generator(device="cuda").manual_seed(args.seed + 3))
     edge_err, edge_bounds_err = edge_shapes(
@@ -745,6 +883,9 @@ def main() -> int:
     edge_adc_err = edge_adc(
         torch, pq_adc_mod,
         torch.Generator(device="cuda").manual_seed(args.seed + 2))
+    edge_level0_err = edge_level0(
+        torch, tr, ops,
+        torch.Generator(device="cuda").manual_seed(args.seed + 4))
 
     # ---- data + index build
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -886,7 +1027,7 @@ def main() -> int:
         if launches["ops"][name] == 0:
             fail(f"the ops path never launched {name}")
     level0_rows = check_level0(torch, tr, ops, model, q64, packed64, cols,
-                               counted)
+                               counted, edge_level0_err, level0_attrs)
     del packed64, rec64, cols, counted
     refine_args = (stores1, q64, cand.ids, cand.d0, cand.valid, None, model)
     refine_kw = dict(k=cfg.final_k, bound="cauchy", z=cfg.z)

@@ -29,8 +29,17 @@ fatrq-like input's level-0 bounds as the source has it, and in copies that
 return after staging the keys or after the radix select (each phase's time
 by difference), or that count a warp's equal digits with one atomic
 (``__match_any_sync``) instead of one atomic per key; the source's and the
-last copy's masks must equal ``prune_plain``'s.  It exits non-zero when no
-GPU is present.
+last copy's masks must equal ``prune_plain``'s.
+
+The level-0 kernel (``ternary_refine_batch`` / ``ternary_refine``) is
+timed at the ops path's shapes as the source has it and in copies without
+its minimum of one block per SM in ``__launch_bounds__`` (ptxas then holds
+it to 64 registers), with at most 8 warps per block, with the code for
+rows of several passes (runtime masks and pass offsets) at G = 154 too,
+without adding the
+nonzero-trit counts, without scoring (staging, reductions and outputs
+only), or without copies (scoring whatever the stages hold); each part's
+cost by difference.  It exits non-zero when no GPU is present.
 """
 
 from __future__ import annotations
@@ -61,8 +70,9 @@ def tile(n: int):
              f"constexpr int kSlotTile = {n};")]
 
 
-# the (G, 243) table: rows y = 0..255 of T27[y % 27] + T9[y / 27] (zero
-# from 243), ahead of the split tables it is built from
+# the (G, 243) table: rows y = 0..255 of T27[y % 27] + T9[y / 27] (rows
+# 243..255 equal to rows 0..12), ahead of the split tables it is built
+# from; the level-0 kernel is built but not run in this copy
 TABLE243 = [
     ("constexpr int kScoreThreads = 256;",
      "constexpr int kScoreThreads = 1024;"),
@@ -78,19 +88,18 @@ TABLE243 = [
                                             int G, int gp) {
   float* s_t = s_full + 256 * gp;
   float* t9 = s_t + 27 * gp;"""),
-    ("""      t9[r * gp + col] = in && r < 9 ? v : 0.f;
+    ("""      t9[r * gp + col] = in ? v : 0.f;
     }
   }
   __syncthreads();
 }""",
-     """      t9[r * gp + col] = in && r < 9 ? v : 0.f;
+     """      t9[r * gp + col] = in ? v : 0.f;
     }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < 256 * gp; i += blockDim.x) {
     const int y = i / gp, col = i - y * gp;
-    s_full[i] = y < 243 ? s_t[(y % 27) * gp + col] + t9[(y / 27) * gp + col]
-                        : 0.f;
+    s_full[i] = s_t[(y % 27) * gp + col] + t9[(y / 27) * gp + col];
   }
   __syncthreads();
 }"""),
@@ -142,14 +151,38 @@ PRUNE_VARIANTS = {
 # the copies whose masks are complete
 PRUNE_CHECKED = ("prune (the source)", "prune, one atomic per digit group")
 
+L0_HEAD = ("__global__ void __launch_bounds__(kL0MaxWarps * 32, 1)\n"
+           "    level0_kernel(")
+L0_COUNT = ("        kc += __float_as_int(t27.y) + __float_as_int(t9.y);\n", "")
+L0_VARIANTS = {
+    "level-0 (the source)": [],
+    "level-0, no minimum of 1 block per SM": [
+        (L0_HEAD, L0_HEAD.replace("32, 1)", "32)"))],
+    "level-0, at most 8 warps": [("constexpr int kL0MaxWarps = 16;",
+                                  "constexpr int kL0MaxWarps = 8;")],
+    "level-0, the several-pass code at every G": [
+        ("  return row_passes(G) == 1 ? level0_kernel<true> : "
+         "level0_kernel<false>;", "  return level0_kernel<false>;")],
+    "level-0, no count": [L0_COUNT],
+    "level-0, staging and epilogue only": [
+        ("        if (r < n)\n          level0_row<kOnePass>(",
+         "        if (r < n && G < 0)\n          level0_row<kOnePass>(")],
+    "level-0, no copies (scores whatever the stage holds)": [
+        ("                                           int len, int lane) {\n",
+         "                                           int len, int lane) {\n"
+         "  if (len > 0) return;\n")],
+}
+# the copies whose outputs are complete
+L0_CHECKED = tuple(list(L0_VARIANTS)[:4])
+
 
 def build_variants(build) -> dict:
     """Compile every variant at once; library path and ptxas registers."""
     OUT.mkdir(parents=True, exist_ok=True)
     src = SOURCE.read_text()
     jobs = {}
-    for i, (name, edits) in enumerate({**VARIANTS,
-                                       **PRUNE_VARIANTS}.items()):
+    for i, (name, edits) in enumerate({**VARIANTS, **PRUNE_VARIANTS,
+                                       **L0_VARIANTS}.items()):
         cu = OUT / f"v{i}.cu"
         cu.write_text(patch(src, edits))
         lib = OUT / f"libv{i}.so"
@@ -164,10 +197,10 @@ def build_variants(build) -> dict:
             raise SystemExit(f"refine_variants: {name} failed:\n{log}")
         regs, kernel = {}, None
         for line in log.splitlines():
-            m = re.search(r"entry function '\S*?(score|bounds|prune)_kernel",
-                          line)
+            m = re.search(r"entry function '\S*?(score|bounds|prune|level0)"
+                          r"_kernel(ILb1E)?", line)
             if m:
-                kernel = m.group(1)
+                kernel = m.group(1) + (" one pass" if m.group(2) else "")
             m = re.search(r"Used (\d+) registers", line)
             if m and kernel:
                 regs[kernel], kernel = int(m.group(1)), None
@@ -242,7 +275,7 @@ def main() -> int:
     q = torch.randn((Q, 5 * G - 2), generator=gen, device="cuda")
     want = {}
     for name, (lib, regs) in built.items():
-        if name in PRUNE_VARIANTS:
+        if name in PRUNE_VARIANTS or name in L0_VARIANTS:
             continue
         # the wrappers load csrc/ternary_refine.cu's library through this
         # cache; each variant takes its place in turn
@@ -278,6 +311,7 @@ def main() -> int:
                   f"): ms per call {times}")
     time_prune(torch, tr, build, chip_smoke, built, model, q,
                problems["fatrq-like"])
+    time_level0(torch, ops, tr, build, chip_smoke, built, gen)
     return 0
 
 
@@ -313,6 +347,49 @@ def time_prune(torch, tr, build, chip_smoke, built, model, q, problem):
               .items() if "prune_kernel" in kernel]
         print(f"  {name}: registers {regs.get('prune')}, device ms per call "
               f"{f'{ms[0]:.4f}' if ms else 'not measured'}")
+
+
+def time_level0(torch, ops, tr, build, chip_smoke, built, gen):
+    """The level-0 kernel, each copy of ``L0_VARIANTS`` in turn, at the ops
+    path's shapes: ``ternary_refine_batch`` on 64 x 46,880 gathered rows of
+    G = 154 random bytes (0..242, as real codes) and ``ternary_refine`` on
+    the first query's.  The complete copies' outputs are held against the
+    source's (within 2e-5)."""
+    nq, c = Q, LISTS * CAP
+    packed = torch.randint(0, 243, (nq, c, G), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    q = torch.randn((nq, 5 * G - 2), generator=gen, device="cuda")
+    cols = [torch.rand((nq, c), generator=gen, device="cuda")
+            for _ in range(5)]
+    planes, params, scalars = ops.level0_inputs(
+        q, G, *cols, torch.tensor([1.0, 1.1, 0.95, 2.1], device="cuda"),
+        torch.tensor(0.3, device="cuda"))
+    calls = {
+        "batch": lambda: tr.ternary_refine_batch(packed, planes, scalars,
+                                                 params),
+        "Q = 1": lambda: tr.ternary_refine(packed[0], planes[0], scalars[0],
+                                           params[:1])}
+    print(f"level-0 kernel at {nq} x {c} x {G} (batch) and {c} x {G} "
+          f"(Q = 1):")
+    want = {}
+    for name in L0_VARIANTS:
+        lib, regs = built[name]
+        build._LIBS["ternary_refine"] = ctypes.CDLL(str(lib))
+        times = []
+        for form, call in calls.items():
+            out = call()
+            want.setdefault(form, out)
+            ok, err = chip_smoke.close(out, want[form], 2e-5, 2e-5)
+            if name in L0_CHECKED and not ok:
+                raise SystemExit(f"refine_variants: {name} ({form}): max err "
+                                 f"{err} against the source")
+            ms = [t for kernel, t in chip_smoke.kernel_ms(torch, call, 20)
+                  .items() if "level0_kernel" in kernel]
+            times.append(f"{form} {ms[0]:.4f}" if ms else
+                         f"{form} not measured")
+        used = regs.get("level0 one pass", regs.get("level0"))
+        print(f"  {name}: registers {used}, device ms per call "
+              f"{', '.join(times)}")
 
 
 if __name__ == "__main__":

@@ -105,11 +105,36 @@
 // fatrq_refine_level0 replaces ternary_refine.py::ternary_refine_batch and
 // ternary_refine (Pallas; the second is the first with Q = 1): level-0
 // est / est_raw / margin from code rows already gathered per slot, a
-// (Q, C, G) tensor, and per-slot scalars (Q, C, 5).  It scores one slot per
-// warp (warp_align over the planes in shared memory).  It reads every
-// gathered row and its five scalars once, so it is bound by those bytes
-// (~0.17 ms for the main path's 64 x 46,880 slots at G = 154).
+// (Q, C, G) tensor, and per-slot scalars (Q, C, 5).  Bound: bytes.  It reads
+// every gathered row and its five scalars once and writes three floats
+// per slot (~0.17 ms for the main path's 64 x 46,880 slots at G = 154).
+// The first port scored one slot per warp, decoding a byte at a time and
+// counting trits digit by digit, about 50 lane instructions per code byte:
+// bound by issue at ~12% of the byte bound.  level0_kernel scores a byte
+// with two 8-byte lookups and about 12 lane instructions: T27 and T9 as in
+// chunk_dot (the same columns and partial dots, bit for bit), each entry
+// paired with the nonzero trits of its digits, so the count needs no
+// decode or lookup of its own (load_pair_tables: 56,832 B at G = 154).
+// Each block holds one query's tables at a time and up to 16 warps (as
+// many as shared memory holds: 16 at G = 154, 220,160 B, one block per
+// SM).  The grid is one block per SM, each taking an equal run of the
+// Q x C / 32 chunks of 32 consecutive slots (a run that crosses into the
+// next query rebuilds the tables), so every SM is busy at Q = 64 and at
+// Q = 1.  Each warp walks its own chunks, double-buffered: a chunk's rows
+// are one contiguous span of 32 G bytes, copied to the warp's stage with
+// 16-byte cp.async (bytes before the first 16-byte boundary and after the
+// last with byte loads, so any base or C G works) one chunk ahead of the
+// one it scores.  Lane groups of 8 score the rows four at a time from the
+// stage as aligned words; the bytes of a word outside the row are replaced
+// by 121 (every trit 0), which scores and counts 0.  The 8 rounds' partial
+// sums of a group meet in one reduce-scatter, lane i takes slot i's dot
+// and count and its five scalars (read from device memory while the rows
+// are scored), and the warp writes the chunk's 3 x 32 outputs as three
+// coalesced spans.  What sets its pace is the shared-memory pipe: 85
+// lookup wavefronts per 4 rows of a warp (refine_variants.py).  A byte
+// y >= 243 scores and counts as y - 243, as the TPU kernels decode it.
 
+#include <algorithm>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -121,7 +146,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kScoreThreads = 256;  // 8 warps
-constexpr int kTile = 256;          // candidates per level-0 scoring block
 constexpr int kSlotTile = 1024;     // slots per multi-level scoring block
 constexpr int kPruneCluster = 8;    // blocks per query in the prune
 constexpr int kPruneThreads = 256;
@@ -155,48 +179,6 @@ __device__ __forceinline__ Params load_params(const float* p) {
 
 __device__ __forceinline__ float clamp01(float v) {
   return fminf(fmaxf(v, 0.f), 1.f);
-}
-
-// One query's (5, G) digit planes and the byte -> 5-trit table into shared
-// memory; ends with __syncthreads().
-__device__ __forceinline__ void load_query(float* s_planes, uint16_t* s_tab,
-                                           const float* qplanes, int G) {
-  for (int i = threadIdx.x; i < 5 * G; i += blockDim.x)
-    s_planes[i] = qplanes[i];
-  for (int y = threadIdx.x; y < 243; y += blockDim.x) {
-    int t = y, v = 0;
-    for (int i = 0; i < 5; ++i) {
-      v |= (t % 3) << (2 * i);
-      t /= 3;
-    }
-    s_tab[y] = (uint16_t)v;
-  }
-  __syncthreads();
-}
-
-// sum c.q / sqrt k over one packed code row, reduced across the warp (every
-// lane returns the value)
-__device__ __forceinline__ float warp_align(const uint8_t* row,
-                                            const uint16_t* s_tab,
-                                            const float* s_planes, int G,
-                                            int lane) {
-  float acc = 0.f;
-  int kc = 0;
-  for (int g = lane; g < G; g += 32) {
-    const int t = s_tab[row[g]];
-    float part = 0.f;
-    for (int i = 0; i < 5; ++i) {
-      const int dig = ((t >> (2 * i)) & 3) - 1;
-      part += (float)dig * s_planes[i * G + g];
-      kc += dig * dig;
-    }
-    acc += part;
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    kc += __shfl_xor_sync(0xffffffffu, kc, off);
-  }
-  return acc / sqrtf(fmaxf((float)kc, 1.f));
 }
 
 // Level 0 (the TPU kernels' _score_block): record scalars ||d||^2,
@@ -257,29 +239,42 @@ __host__ __device__ __forceinline__ int table_width(int G) {
 // One query's tables into shared memory, from its (5, G) digit planes in
 // device memory: T27 (27, Gp) at s_t, T9 (kT9Rows, Gp) after it.  Row r of
 // T27 holds, per byte column, d0 p0 + d1 p1 + d2 p2 for the digits
-// d_i = (r / 3^i) % 3 - 1; row r of T9 holds d3 p3 + d4 p4 for r = 0..8 and
-// zeros in row 9 (for bytes 243..255, which only words outside a row can
-// hold).  Ends with __syncthreads().
+// d_i = (r / 3^i) % 3 - 1; row r of T9 holds d3 p3 + d4 p4 for the digits
+// (r % 3, (r / 3) % 3) - 1.  A byte y >= 243 takes row y / 27 = 9, equal
+// to row 0, so it scores as y - 243: the five low trits, as the TPU kernels
+// decode it.  Ends with __syncthreads().
+__device__ __forceinline__ float t27_value(int r, const float* pl) {
+  return (float)(r % 3 - 1) * pl[0] + (float)(r / 3 % 3 - 1) * pl[1] +
+         (float)(r / 9 - 1) * pl[2];
+}
+
+__device__ __forceinline__ float t9_value(int r, const float* pl) {
+  return (float)(r % 3 - 1) * pl[3] + (float)(r / 3 % 3 - 1) * pl[4];
+}
+
+// A byte column's five plane values (0 outside the row).
+__device__ __forceinline__ bool column_planes(float* pl, const float* qplanes,
+                                              int G, int col) {
+  const int g = col - 4;
+  const bool in = g >= 0 && g < G;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) pl[i] = in ? qplanes[i * G + g] : 0.f;
+  return in;
+}
+
 __device__ __forceinline__ void load_tables(float* s_t, const float* qplanes,
                                             int G, int gp) {
   float* t9 = s_t + 27 * gp;
   for (int col = threadIdx.x; col < gp; col += blockDim.x) {
-    const int g = col - 4;
-    const bool in = g >= 0 && g < G;
     float pl[5];
+    const bool in = column_planes(pl, qplanes, G, col);
 #pragma unroll
-    for (int i = 0; i < 5; ++i) pl[i] = in ? qplanes[i * G + g] : 0.f;
-#pragma unroll
-    for (int r = 0; r < 27; ++r) {
-      const float v = (float)(r % 3 - 1) * pl[0] +
-                      (float)(r / 3 % 3 - 1) * pl[1] +
-                      (float)(r / 9 - 1) * pl[2];
-      s_t[r * gp + col] = in ? v : 0.f;
-    }
+    for (int r = 0; r < 27; ++r)
+      s_t[r * gp + col] = in ? t27_value(r, pl) : 0.f;
 #pragma unroll
     for (int r = 0; r < kT9Rows; ++r) {
-      const float v = (float)(r % 3 - 1) * pl[3] + (float)(r / 3 - 1) * pl[4];
-      t9[r * gp + col] = in && r < 9 ? v : 0.f;
+      const float v = t9_value(r, pl);
+      t9[r * gp + col] = in ? v : 0.f;
     }
   }
   __syncthreads();
@@ -532,32 +527,300 @@ __global__ void bounds_kernel(const __grid_constant__ LevelStores st,
   }
 }
 
-__global__ void level0_kernel(const uint8_t* __restrict__ packed,  // (Q, C, G)
-                              const float* __restrict__ qplanes,   // (Q, 5, G)
-                              const float* __restrict__ scal,      // (Q, C, 5)
-                              const float* __restrict__ params,    // (Q, 8)
-                              float* __restrict__ out,             // (Q, C, 3)
-                              int C, int G) {
-  extern __shared__ float s_planes[];  // (5, G)
-  __shared__ uint16_t s_tab[243];
-  const int q = blockIdx.y;
-  load_query(s_planes, s_tab, qplanes + (size_t)q * 5 * G, G);
+// ---- level 0 over gathered rows (fatrq_refine_level0)
 
-  const Params p = load_params(params + (size_t)q * 8);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c_end = min(C, (int)(blockIdx.x + 1) * kTile);
+constexpr int kL0Rows = 32;      // rows of one warp's chunk: one per lane
+constexpr int kL0MaxWarps = 16;  // warps of a level-0 block
+constexpr int kSmemLimit = 232448;  // dynamic shared memory one block may use
+constexpr uint32_t kZeroBytes = 0x79797979u;  // 121: all five trits 0
 
-  for (int c = blockIdx.x * kTile + warp; c < c_end;
-       c += kScoreThreads / 32) {
-    const size_t slot = (size_t)q * C + c;
-    const float align =
-        warp_align(packed + slot * G, s_tab, s_planes, G, lane);
-    if (lane == 0) {
-      const float* s = scal + slot * 5;  // [d0, ||d||^2, <x_c,d>, ||d||, rho]
-      const Level0 r = level0(align, p, s[0], s[1], s[2], s[3], s[4]);
-      out[slot * 3 + 0] = r.est;
-      out[slot * 3 + 1] = r.raw;
-      out[slot * 3 + 2] = r.margin;
+// Bytes of one warp's stage: a chunk's 32 rows at an offset below 16 and
+// room for the words the last row's passes read past the chunk.
+__host__ __device__ __forceinline__ int level0_stage_bytes(int G) {
+  return (kL0Rows * G + 4 * kPassWords * row_passes(G) + 16 + 15) / 16 * 16;
+}
+
+// One query's T27 and T9 tables of (partial dot, nonzero trits) pairs.
+long level0_table_bytes(int G) {
+  return (long)sizeof(float2) * (27 + kT9Rows) * table_width(G);
+}
+
+// The tables and every warp's two stages.
+size_t level0_smem(int G, int warps) {
+  return (size_t)(level0_table_bytes(G) + 2L * warps * level0_stage_bytes(G));
+}
+
+// Warps of a level-0 block: as many as the shared memory holds, up to
+// kL0MaxWarps (< 1: G too wide for one block).
+int level0_warps(int G) {
+  return (int)std::min((long)kL0MaxWarps,
+                       (kSmemLimit - level0_table_bytes(G)) /
+                           (2L * level0_stage_bytes(G)));
+}
+
+// One query's level-0 tables: the T27 and T9 of load_tables, each entry a
+// pair (the same partial dot, bit for bit; the nonzero trits among the
+// row's digits, as an int), so one 8-byte lookup gives a byte's share of
+// both c.q and k.  Ends with __syncthreads().
+__device__ __forceinline__ void load_pair_tables(float2* s_t,
+                                                 const float* qplanes, int G,
+                                                 int gp) {
+  float2* t9 = s_t + 27 * gp;
+  for (int col = threadIdx.x; col < gp; col += blockDim.x) {
+    float pl[5];
+    const bool in = column_planes(pl, qplanes, G, col);
+#pragma unroll
+    for (int r = 0; r < 27; ++r) {
+      const int k = (r % 3 != 1) + (r / 3 % 3 != 1) + (r / 9 != 1);
+      s_t[r * gp + col] =
+          make_float2(in ? t27_value(r, pl) : 0.f, __int_as_float(k));
+    }
+#pragma unroll
+    for (int r = 0; r < kT9Rows; ++r) {
+      const int k = (r % 3 != 1) + (r / 3 % 3 != 1);
+      t9[r * gp + col] =
+          make_float2(in ? t9_value(r, pl) : 0.f, __int_as_float(k));
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float2 lds2(const char* s_b, uint32_t byte_ofs) {
+  return *reinterpret_cast<const float2*>(s_b + byte_ofs);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// Bytes [src, src + len) to shared memory at dst + (src mod 16), dst 16-byte
+// aligned, by the calling warp: the 16-byte-aligned body with cp.async, the
+// head and tail (under 16 bytes each) with byte loads.
+__device__ __forceinline__ void stage_span(uint8_t* dst, const uint8_t* src,
+                                           int len, int lane) {
+  const int a = (int)(reinterpret_cast<uintptr_t>(src) & 15);
+  const int head = min(len, (16 - a) & 15);
+  const int body = (len - head) >> 4;
+  for (int i = lane; i < head; i += 32) dst[a + i] = __ldg(src + i);
+  for (int u = lane; u < body; u += 32)
+    cp_async16(dst + a + head + 16 * u, src + head + 16 * u);
+  for (int i = head + 16 * body + lane; i < len; i += 32)
+    dst[a + i] = __ldg(src + i);
+}
+
+// The bytes of a word to keep when t of them (from byte 0) are in the row.
+__device__ __forceinline__ uint32_t row_keep(int t) {
+  return t >= 4 ? ~0u : t <= 0 ? 0u : ~0u >> (32 - 8 * t);
+}
+
+// A lane's byte selectors and table offsets for rows whose first byte is
+// byte `off` of its word (the words and columns of row_dot), the bytes it
+// keeps of the row's first word and of its first pass's words, and the
+// row bytes from its own first word on (room).
+struct Level0Lane {
+  uint32_t sel[4], c27[4], c9[4];
+  uint32_t lead, tail[kWords];
+  int room;
+};
+
+__device__ __forceinline__ Level0Lane level0_lane(int off, int grp, int sub,
+                                                  int G, uint32_t gp8) {
+  Level0Lane ln;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    // column = b + grp + 2 (sub / 4) (mod 4): an 8-byte lookup is served
+    // per half-warp, and the 16 lanes of groups 2h and 2h + 1 then take 16
+    // columns that differ mod 16, 16 distinct bank pairs
+    const int j = (b + grp + 2 * (sub >> 2) + off) & 3;
+    const int col = 4 * sub + 4 - off + j;
+    ln.sel[b] = 0x4440u | (uint32_t)j;
+    ln.c27[b] = 8u * (uint32_t)col;
+    ln.c9[b] = ln.c27[b] + 27u * gp8;
+  }
+  ln.lead = sub == 0 ? ~0u << (8 * off) : ~0u;
+  ln.room = G + off - 4 * sub;
+#pragma unroll
+  for (int s = 0; s < kWords; ++s)
+    ln.tail[s] = row_keep(ln.room - 4 * kGroup * s);
+  return ln;
+}
+
+// Bytes outside the row (outside `keep`) become 121, which scores 0 and
+// counts 0 in every column.
+__device__ __forceinline__ uint32_t keep_bytes(uint32_t v, uint32_t keep) {
+  return (v & keep) | (kZeroBytes & ~keep);
+}
+
+// (c.q, nonzero trits) over one staged row on lane sub of its group: the
+// same words and columns as row_dot, two 8-byte lookups per byte; the
+// caller reduces the group's partial sums.
+template <bool kOnePass>
+__device__ __forceinline__ void level0_row(const uint32_t* words,
+                                           const Level0Lane& ln,
+                                           const char* s_b, uint32_t gp8,
+                                           int passes, int sub, float* dot,
+                                           int* cnt) {
+  float acc = 0.f;
+  int kc = 0;
+  const int np = kOnePass ? 1 : passes;
+  for (int ps = 0; ps < np; ++ps) {
+    uint32_t v[kWords];
+#pragma unroll
+    for (int s = 0; s < kWords; ++s)
+      v[s] = words[kPassWords * ps + sub + kGroup * s];
+    if (ps == 0) v[0] = keep_bytes(v[0], ln.lead);
+#pragma unroll
+    for (int s = 0; s < kWords; ++s)
+      v[s] = keep_bytes(v[s], kOnePass ? ln.tail[s]
+                                       : row_keep(ln.room - 4 * kPassWords * ps -
+                                                  4 * kGroup * s));
+    const uint32_t pass = kOnePass ? 0u : 32u * kPassWords * (uint32_t)ps;
+#pragma unroll
+    for (int s = 0; s < kWords; ++s) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const uint32_t y = __byte_perm(v[s], 0u, ln.sel[b]);
+        const uint32_t top = __umulhi(y, 159072863u);  // y / 27, y < 256
+        const uint32_t col = pass + 32u * kGroup * s;
+        const float2 t27 =
+            lds2(s_b, y * gp8 - top * (27u * gp8) + ln.c27[b] + col);
+        const float2 t9 = lds2(s_b, top * gp8 + ln.c9[b] + col);
+        acc += t27.x + t9.x;
+        kc += __float_as_int(t27.y) + __float_as_int(t9.y);
+      }
+    }
+  }
+  *dot = acc;
+  *cnt = kc;
+}
+
+// Sums of a lane group's partials v[0..7] (one per round of rows):
+// halving across lanes sub ^ 4, ^ 2, ^ 1, lane sub keeps round sub's sum.
+template <typename T>
+__device__ __forceinline__ T group_reduce_scatter(T (&v)[8], int sub) {
+#pragma unroll
+  for (int h = 4; h >= 1; h >>= 1) {
+    const bool up = sub & h;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const T send = up ? v[i] : v[i + h];
+      const T keep = up ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(kFull, send, h);
+    }
+  }
+  return v[0];
+}
+
+// (minimum 1 block per SM: without it ptxas held the kernel to 64
+// registers, which serialised its table lookups)
+template <bool kOnePass>
+__global__ void __launch_bounds__(kL0MaxWarps * 32, 1)
+    level0_kernel(const uint8_t* __restrict__ packed,  // (Q, C, G)
+                  const float* __restrict__ qplanes,   // (Q, 5, G)
+                  const float* __restrict__ scal,      // (Q, C, 5)
+                  const float* __restrict__ params,    // (Q, 8)
+                  float* __restrict__ out,             // (Q, C, 3)
+                  int Q, int C, int G) {
+  // the pair tables T27 and T9, then two stages per warp
+  extern __shared__ __align__(16) float2 s_t2[];
+  const int gp = table_width(G), passes = row_passes(G);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane / kGroup, sub = lane % kGroup;
+  const int warps = blockDim.x >> 5;
+  const uint32_t gp8 = 8u * gp;
+  const int stage = level0_stage_bytes(G);
+  uint8_t* s_stage = reinterpret_cast<uint8_t*>(s_t2) +
+                     (27 + kT9Rows) * gp8 + (size_t)warp * 2 * stage;
+  const char* s_b = reinterpret_cast<const char*>(s_t2);
+  const int nchunks = (C + kL0Rows - 1) / kL0Rows;
+  // output float f = lane + 32 j of a chunk is component f % 3 of row f / 3
+  int osrc[3], ocomp[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    osrc[j] = (lane + 32 * j) / 3;
+    ocomp[j] = lane + 32 * j - 3 * osrc[j];
+  }
+  // this block's share of the Q x nchunks chunks, in order: a run of one
+  // query's chunks, or the end of one query's and the start of the next
+  const long total = (long)Q * nchunks;
+  const long end = total * (blockIdx.x + 1) / gridDim.x;
+  for (long seg = total * blockIdx.x / gridDim.x; seg < end;) {
+    const int q = (int)(seg / nchunks);
+    const long left = end - (long)q * nchunks;  // chunks of q onward
+    const int c_hi = left < nchunks ? (int)left : nchunks;
+    int k = (int)(seg - (long)q * nchunks) + warp;  // this warp's first
+    seg = (long)q * nchunks + c_hi;
+    const size_t qrow = (size_t)q * C;
+    // a warp's chunks k, k + warps, ...: each staged one chunk ahead
+    auto issue = [&](int chunk, uint8_t* buf) {
+      const int c0 = chunk * kL0Rows;
+      stage_span(buf, packed + (qrow + c0) * G, min(kL0Rows, C - c0) * G,
+                 lane);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    __syncthreads();  // no warp still reads the last query's tables
+    if (k < c_hi) issue(k, s_stage);
+    load_pair_tables(s_t2, qplanes + (size_t)q * 5 * G, G, gp);
+    const Params p = load_params(params + (size_t)q * 8);
+
+    for (int it = 0; k < c_hi; k += warps, ++it) {
+      const uint8_t* cur = s_stage + (it & 1) * stage;
+      if (k + warps < c_hi) {
+        issue(k + warps, s_stage + ((it + 1) & 1) * stage);
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      __syncwarp();  // every lane's copies of this chunk have landed
+
+      const int c0 = k * kL0Rows, n = min(kL0Rows, C - c0);
+      // slot c0 + lane's [d0, ||d||^2, <x_c,d>, ||d||, rho], read while
+      // the rows are scored
+      float sv[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+      if (lane < n) {
+#pragma unroll
+        for (int i = 0; i < 5; ++i)
+          sv[i] = __ldg(scal + (qrow + c0 + lane) * 5 + i);
+      }
+      const int a =
+          (int)(reinterpret_cast<uintptr_t>(packed + (qrow + c0) * G) & 15);
+      // row r = 4 rd + grp starts at byte a + r G of the stage, so its
+      // offset in its word is the same in every round
+      const Level0Lane ln = level0_lane((a + grp * G) & 3, grp, sub, G, gp8);
+      float acc[kL0Rows / 4];
+      int cnt[kL0Rows / 4];
+#pragma unroll
+      for (int rd = 0; rd < kL0Rows / 4; ++rd) {
+        const int r = 4 * rd + grp;
+        acc[rd] = 0.f;
+        cnt[rd] = 0;
+        if (r < n)
+          level0_row<kOnePass>(
+              reinterpret_cast<const uint32_t*>(cur + ((a + r * G) & ~3)),
+              ln, s_b, gp8, passes, sub, &acc[rd], &cnt[rd]);
+      }
+      __syncwarp();  // the stage is read; the next issue may overwrite it
+      // lane (grp, sub) sums row 4 sub + grp; lane i takes row i
+      const int holder = (lane & 3) * kGroup + (lane >> 2);
+      const float dot =
+          __shfl_sync(kFull, group_reduce_scatter(acc, sub), holder);
+      const int kc =
+          __shfl_sync(kFull, group_reduce_scatter(cnt, sub), holder);
+      const float align = dot / sqrtf(fmaxf((float)kc, 1.f));
+      const Level0 r0 = level0(align, p, sv[0], sv[1], sv[2], sv[3], sv[4]);
+      // the chunk's 3n outputs as three coalesced 128-byte spans
+      float* o = out + (qrow + c0) * 3;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float e = __shfl_sync(kFull, r0.est, osrc[j]);
+        const float w = __shfl_sync(kFull, r0.raw, osrc[j]);
+        const float m = __shfl_sync(kFull, r0.margin, osrc[j]);
+        if (lane + 32 * j < 3 * n)
+          o[lane + 32 * j] = ocomp[j] == 0 ? e : ocomp[j] == 1 ? w : m;
+      }
     }
   }
 }
@@ -817,12 +1080,6 @@ size_t opt_in(Kernel kernel, size_t smem) {
   return smem;
 }
 
-// The level-0 kernel's (5, G) planes.
-template <typename Kernel>
-size_t planes_smem(Kernel kernel, int G) {
-  return opt_in(kernel, (size_t)5 * G * sizeof(float));
-}
-
 // The multi-level kernels' T27 and T9 tables.
 template <typename Kernel>
 size_t tables_smem(Kernel kernel, int G) {
@@ -930,19 +1187,57 @@ extern "C" int fatrq_refine_bounds(
   return (int)cudaGetLastError();
 }
 
+// The level-0 kernel for width G: one pass over a row's words or several.
+using Level0Kernel = void (*)(const uint8_t*, const float*, const float*,
+                              const float*, float*, int, int, int);
+
+Level0Kernel level0_for(int G) {
+  return row_passes(G) == 1 ? level0_kernel<true> : level0_kernel<false>;
+}
+
 extern "C" int fatrq_refine_level0(const void* packed, const void* qplanes,
                                    const void* scal, const void* params,
                                    void* out, int Q, int C, int G,
                                    void* stream) {
   if (Q == 0 || C == 0) return (int)cudaGetLastError();
-  const size_t smem = planes_smem(level0_kernel, G);
-  dim3 grid((C + kTile - 1) / kTile, Q);
-  level0_kernel<<<grid, kScoreThreads, smem,
-                  static_cast<cudaStream_t>(stream)>>>(
+  const int warps = level0_warps(G);
+  if (G < 1 || warps < 1) return (int)cudaErrorInvalidValue;
+  const Level0Kernel kernel = level0_for(G);
+  const size_t smem = opt_in(kernel, level0_smem(G, warps));
+  // every resident block busy, each with a share of the Q x C / 32 chunks
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * warps,
+                                                smem);
+  const long chunks = (long)Q * ((C + kL0Rows - 1) / kL0Rows);
+  const int blocks = (int)std::max(1L, std::min((long)sms * per_sm, chunks));
+  kernel<<<blocks, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(packed),
       static_cast<const float*>(qplanes), static_cast<const float*>(scal),
-      static_cast<const float*>(params), static_cast<float*>(out), C, G);
+      static_cast<const float*>(params), static_cast<float*>(out), Q, C, G);
   return (int)cudaGetLastError();
+}
+
+// The level-0 kernel for width G: its registers, local (stack) bytes, warps
+// per block, dynamic shared memory and resident blocks per SM.
+extern "C" int fatrq_level0_attributes(int G, int* out) {
+  const int warps = level0_warps(G);
+  if (G < 1 || warps < 1) return (int)cudaErrorInvalidValue;
+  const Level0Kernel kernel = level0_for(G);
+  const size_t smem = opt_in(kernel, level0_smem(G, warps));
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        32 * warps, smem);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = warps;
+  out[3] = (int)smem;
+  out[4] = per_sm;
+  return (int)err;
 }
 
 extern "C" const char* fatrq_error_string(int status) {

@@ -4,8 +4,8 @@ level-0 scoring entry points.
 The refine kernels read a query as 5 digit planes of (G,) floats (byte g's
 digit i holds dim 5g+i), one parameter row per query, and per-record
 scalars gathered by candidate id from (N, 4) tables built once per index.
-The multi-level kernels turn the planes into per-query tables of partial
-dot products in shared memory (``refine_smem_bytes``).
+They turn the planes into per-query tables of partial dot products in
+shared memory (``refine_smem_bytes``, ``level0_smem_bytes``).
 ``refine_scores_batch`` / ``refine_scores`` keep the JAX package's
 signatures (``repro.kernels.ops``): they assemble those inputs from
 per-candidate arrays and run the level-0 kernel.
@@ -52,28 +52,61 @@ def adc_smem_bytes(m: int, k: int) -> int:
 _PASS_WORDS = 40
 
 
+def row_passes(g: int) -> int:
+    """Passes of ``_PASS_WORDS`` words that cover a row of g bytes at any
+    byte alignment (row_passes in the source)."""
+    return -(-((g + 6) // 4) // _PASS_WORDS)
+
+
 def table_width(g: int) -> int:
-    """Columns of the multi-level kernels' partial-dot tables: byte g sits
-    in column g + 4, after 4 zero columns for the lead bytes of a row's
-    first aligned word and before zero columns up to the last column the
-    row's passes address (4 per word + 4), rounded up to 32 banks."""
-    passes = -(-((g + 6) // 4) // _PASS_WORDS)
-    return -(-(4 * _PASS_WORDS * passes + 4) // 32) * 32
+    """Columns of the refine kernels' partial-dot tables: byte g sits in
+    column g + 4, after 4 zero columns for the lead bytes of a row's first
+    aligned word and before zero columns up to the last column the row's
+    passes address (4 per word + 4), rounded up to 32 banks."""
+    return -(-(4 * _PASS_WORDS * row_passes(g) + 4) // 32) * 32
 
 
 def refine_smem_bytes(g: int) -> int:
-    """The multi-level refine kernels (fused and bounds) hold one query's
-    f32 tables T27 (27 rows: digits 0-2 of a byte) and T9 (10 rows: digits
-    3-4, and a zero row for byte values 243-255 outside a row), each
-    ``table_width`` wide; the planes are read from device memory while
-    building them."""
+    """The refine kernels (fused, bounds and level 0) hold one query's f32
+    tables T27 (27 rows: digits 0-2 of a byte) and T9 (10 rows: digits 3-4
+    of y / 27, row 9 for byte values 243-255), each ``table_width`` wide;
+    the planes are read from device memory while building them."""
     return (27 + 10) * table_width(g) * 4
 
 
+#: slots of a level-0 warp's chunk and most warps of a level-0 block
+#: (kL0Rows and kL0MaxWarps in the source)
+_L0_ROWS, _L0_MAX_WARPS = 32, 16
+
+
+def level0_table_bytes(g: int) -> int:
+    """The level-0 kernel's T27 and T9 tables: ``refine_smem_bytes``'s, each
+    entry a pair (partial dot f32, nonzero trits int32)."""
+    return 2 * refine_smem_bytes(g)
+
+
+def level0_stage_bytes(g: int) -> int:
+    """One level-0 warp's stage: its chunk's 32 code rows at an offset
+    below 16 with room for the words the last row's passes read past them,
+    rounded up to 16."""
+    return (_L0_ROWS * g + 4 * _PASS_WORDS * row_passes(g) + 16 + 15) \
+        // 16 * 16
+
+
+def level0_warps(g: int) -> int:
+    """Warps of a level-0 block: as many double-buffered stages as fit
+    beside the tables, at most 16 (below 1: g is too wide)."""
+    room = SMEM_LIMIT_BYTES - level0_table_bytes(g)
+    return min(_L0_MAX_WARPS, room // (2 * level0_stage_bytes(g)))
+
+
 def level0_smem_bytes(g: int) -> int:
-    """The level-0 kernel holds the (5, G) f32 digit planes plus the
-    243-entry byte → trits table (uint16 each)."""
-    return TRITS_PER_BYTE * g * 4 + 243 * 2
+    """The level-0 kernel holds one query's pair tables
+    (``level0_table_bytes``) and two stages per warp (``level0_warps``, at
+    least one): 220,160 B with 16 warps at G = 154.  Past G = 503 even one
+    warp does not fit."""
+    return (level0_table_bytes(g)
+            + 2 * max(1, level0_warps(g)) * level0_stage_bytes(g))
 
 
 #: blocks per query in the prune's cluster, and its static shared memory
@@ -113,8 +146,9 @@ def record_table(scalars) -> torch.Tensor:
                         scalars.rho], dim=1).float().contiguous()
 
 
-#: nonzero trits of each packed byte value 0..242
-_NONZERO = tuple(sum((y // p) % 3 != 1 for p in POW3) for y in range(243))
+#: nonzero trits of each byte value 0..255, the five low trits as the TPU
+#: kernels decode them (a byte y >= 243 counts as y - 243)
+_NONZERO = tuple(sum((y // p) % 3 != 1 for p in POW3) for y in range(256))
 #: code rows per step of ``sqrt_nonzero`` (bounds its int64 index copy)
 _COUNT_ROWS = 1 << 16
 
