@@ -12,17 +12,22 @@ Phases, each of which raises on failure:
 2. make a synthetic 1M x 768 dataset with exact ground truth, build the
    index (PQ M=96, K=256; IVF nlist=1024; one TRQ level) twice from one
    seed, require the two builds' index arrays to be bit-equal, and
-   partition it into ``--shards`` shards for the sharded layout;
+   partition it into ``--shards`` shards for the sharded layout; build the
+   index's kNN graph (degree 16, timed), build the graph of the first
+   100,000 rows twice and require the two adjacencies to be equal, and
+   partition the graph into ``--shards`` range + halo shards (timed);
 3. edge-shape phase: the fused and bounds refine kernels against their
    plain versions, and the bounds est against the fused est bit for bit,
    on random code stores at G in {1, 13, 20, 154} and L in {1, 2, 3}, with
-   C = 4133 slots (not a multiple of 32 or of a block's tile), one query
-   with no valid slot and one with every slot valid; ``pq_adc`` against its
+   C = 4133 slots (not a multiple of 32 or of a block's tile) and C = 64
+   (the graph beam, every odd slot repeating the id and d0 of the slot
+   before it), one query with no valid slot and one with every slot
+   valid; ``pq_adc`` against its
    plain version with +inf on exactly the invalid slots, at M in {4, 16,
    20, 96, 128} and K in {16, 256} on the same slots, both row paths
    giving the same bits where M % 16 == 0; the prune alone
    (``ternary_refine_prune``) against ``prune_plain`` exactly (mask,
-   counts, tau) at C in {1, 31, 48, 4133, 46,880, 446,000 (near its
+   counts, tau) at C in {1, 31, 48, 64, 4133, 46,880, 446,000 (near its
    capacity)} and k in {1, 10, 64}, three levels with the mask written
    over the alive buffer it reads, forced ties at tau, queries with every,
    no and fewer than k alive slots, with and without delta rows; both
@@ -52,20 +57,29 @@ Phases, each of which raises on failure:
    scored; the prune alone at the fatrq shape on those candidates' level-0
    bounds, exactly the fused call's survivors, timed beside its bound, its
    plain version and one ``torch.topk`` of the masked upper bounds (the
-   select of tau only) as its library time;
+   select of tau only) as its library time; then at the graph front's
+   shapes (the final 64-slot beams of 64 queries): ``pq_adc``, the fused
+   refine kernel (both bounds, one and two levels, delta rows) and the
+   prune alone on those beams, the bounds kernel on graph shard 0's beam
+   slots (the shard's beams and d0 bit-identical to the unsharded ones on
+   the slots it owns), each against its plain version and timed beside
+   its bound;
 4. search paths: ``Database.query`` with ``mode="fatrq"`` (``cuda``
-   backend), ``mode="baseline"`` and ``QueryPlan(shards=S)`` (``cuda``)
-   over all queries in 64-query micro-batches, each with every kernel's
-   launch count reset just before its run and read just after; the
-   sharded ids and per-tier bytes must equal fatrq's; then queries/s
-   (median of 5 runs, the modes in turns) and, from one more profiled run
-   of each mode, its device time by kernel and idle share
-   (``torch.profiler`` and CUDA events);
+   backend), ``mode="baseline"`` and ``QueryPlan(shards=S)`` (``cuda``),
+   and the same three on the graph front (``front="graph"``), over all
+   queries in 64-query micro-batches, each with every kernel's launch
+   count reset just before its run and read just after; the sharded ids
+   and per-tier bytes must equal fatrq's, front by front; recall@10 must
+   reach 0.5 on the IVF paths and 0.1 (a broken traversal's floor) on the
+   graph paths; then queries/s (median of 5 runs, the paths in turns)
+   and, from one more profiled run of each path, its device time by
+   kernel and idle share (``torch.profiler`` and CUDA events);
 5. the plain ``reference`` backend on the card over a subset of queries
    must give the same ids and ledger as the ``cuda`` backend, unsharded
-   and sharded;
-6. print one ``kernels`` JSON line, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+   and sharded, on both fronts;
+6. print one ``kernels`` JSON line (the three kernels of the graph paths
+   with a ``graph`` entry: their numbers at the graph shapes), then the
+   result line ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero with no result when no GPU is present, or when the
 ``src/repro_torch`` package is not beside it.
@@ -74,6 +88,7 @@ It exits non-zero with no result when no GPU is present, or when the
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -624,11 +639,14 @@ def sass_profile(lib, function: str) -> None:
 EDGE_G = (1, 13, 20, 154)      # packed widths of the edge-shape phase
 EDGE_L0_G = EDGE_G + (319,)    # and G = 319: rows of 3 passes, at level 0
 EDGE_Q, EDGE_C, EDGE_N = 5, 4133, 20_000
+GRAPH_C = 64                   # the graph front's beam: its candidate slots
 
 
 # C = 446,000 is near the prune's 446,464-slot capacity (ops.prune_smem_bytes);
-# 1, 31 and 4133 take its 1-byte path (C % 16 != 0), the rest 16-byte vectors
-EDGE_PRUNE_C, EDGE_PRUNE_K = (1, 31, 48, 4133, 46_880, 446_000), (1, 10, 64)
+# 1, 31 and 4133 take its 1-byte path (C % 16 != 0), the rest 16-byte
+# vectors; 64 is the graph beam
+EDGE_PRUNE_C, EDGE_PRUNE_K = (1, 31, 48, GRAPH_C, 4133, 46_880, 446_000), \
+    (1, 10, 64)
 
 
 def edge_prune(torch, tr, gen) -> None:
@@ -695,8 +713,9 @@ def prune_attributes(build) -> str:
             f"{out[2]} B static shared memory, cluster width {out[3]}")
 
 
-def check_prune(torch, tr, lo, hi, alive, fused, *, k) -> dict:
-    """The prune alone at the fatrq shape: exactly ``prune_plain``'s mask,
+def check_prune(torch, tr, lo, hi, alive, fused, *, k,
+                label: str = "the fatrq shape") -> dict:
+    """The prune alone at ``label``'s shape: exactly ``prune_plain``'s mask,
     counts and tau, and the fused call's survivors and counts ``fused``
     (same level-0 bounds); its ms, device ms per launch, bound, plain ms
     and one ``torch.topk`` of the masked upper bounds (built outside the
@@ -711,10 +730,10 @@ def check_prune(torch, tr, lo, hi, alive, fused, *, k) -> dict:
     torch.cuda.synchronize()
     if not (torch.equal(out, want) and torch.equal(tau, want_tau)
             and torch.equal(counts, torch.stack([cnt, dcnt], 1))):
-        fail("prune at the fatrq shape differs from prune_plain")
+        fail(f"prune at {label} differs from prune_plain")
     if not (torch.equal(out, fused[1])
             and torch.equal(counts[:, 0], fused[2][:, 0])):
-        fail("prune at the fatrq shape: not the fused call's survivors")
+        fail(f"prune at {label}: not the fused call's survivors")
     masked = torch.where(alive, hi, float("inf"))
     select = lambda: torch.topk(masked, k, largest=False)  # noqa: E731
     if not torch.equal(select().values[:, -1], tau):
@@ -734,7 +753,7 @@ def check_prune(torch, tr, lo, hi, alive, fused, *, k) -> dict:
                              if "prune_kernel" in name), None)
     device = "not measured" if row["device_ms"] is None \
         else f"{row['device_ms']:.4f} ms"
-    print(f"prune at the fatrq shape: {row['ms']:.4f} ms per call, device "
+    print(f"prune at {label}: {row['ms']:.4f} ms per call, device "
           f"{device} (bound {row['bound_ms']:.4f} ms), plain "
           f"{row['plain_ms']:.3f} ms, torch.topk select (tau only) "
           f"{row['library_ms']:.4f} ms; masks, counts and tau equal to "
@@ -747,11 +766,13 @@ def edge_shapes(torch, tr, ops, alive_chain, trq_mod, cal, Candidates,
     """The fused and bounds kernels against their plain versions, and the
     bounds est against the fused est, on random code stores: each G of
     ``EDGE_G`` (rows at every byte alignment G allows) and L = 1, 2, 3,
-    both bounds.  C = 4133 is not a multiple of 32 or of the 1024-slot
-    tile; query 0 has no valid slot, query 1 only valid ones, the rest
-    ~30%.  Invalid slots carry d0 = +inf (as the front gives), or a finite
-    d0 at L = 2 so that the kernels' invalid-slot values are compared too.
-    Returns the fused and the bounds kernel's max error."""
+    both bounds, at C = 4133 (not a multiple of 32 or of the 1024-slot
+    tile) and at C = 64, the graph beam, where every odd slot repeats the
+    id and d0 of the slot before it (a beam's repeated ids: exact ties in
+    est, lo and hi).  Query 0 has no valid slot, query 1 only valid ones,
+    the rest ~30%.  Invalid slots carry d0 = +inf (as the front gives), or
+    a finite d0 at L = 2 so that the kernels' invalid-slot values are
+    compared too.  Returns the fused and the bounds kernel's max error."""
     dev = gen.device
 
     def rand(*shape):
@@ -761,44 +782,161 @@ def edge_shapes(torch, tr, ops, alive_chain, trq_mod, cal, Candidates,
         w=torch.tensor([1.0, 1.1, 0.95, 2.1], device=dev),
         bias=torch.tensor(0.3, device=dev),
         resid_std=torch.tensor(0.05, device=dev))
-    valid = rand(EDGE_Q, EDGE_C) < 0.3
-    valid[0], valid[1] = False, True
-    ids = torch.randint(0, EDGE_N, (EDGE_Q, EDGE_C), generator=gen,
-                        device=dev, dtype=torch.int32)
-    is_delta = rand(EDGE_Q, EDGE_C) < 0.3
     errs, ties = [0.0, 0.0], 0
-    for g in EDGE_G:
-        q = torch.randn((EDGE_Q, 5 * g - (g > 1)), generator=gen,
-                        device=dev)
-        for nl in (1, 2, 3):
-            levels = tuple(trq_mod.TRQLevel(
-                packed=torch.randint(0, 243, (EDGE_N, g), generator=gen,
-                                     device=dev, dtype=torch.uint8),
-                proj=rand(EDGE_N) - 0.5, norm=rand(EDGE_N), rho=rand(EDGE_N))
-                for _ in range(nl))
-            stores = tr.RefineStores(
-                packed=tuple(lv.packed for lv in levels),
-                records=torch.stack([rand(EDGE_N) * 2, rand(EDGE_N) - 0.5,
-                                     rand(EDGE_N), rand(EDGE_N)], 1)
-                .contiguous(),
-                levels=tuple(ops.level_table(lv) for lv in levels),
-                dim=q.shape[1])
-            d0 = rand(EDGE_Q, EDGE_C) * 4 + 0.1
-            d0 = torch.where(valid | (nl == 2), d0, float("inf"))
-            cand = Candidates(ids=ids, valid=valid, d0=d0, counters={})
-            for bnd in ("cauchy", "quantile"):
-                label = f"edge G={g} {bnd} L={nl}"
-                err, n = check_refine(torch, tr, ops, stores, model, cand, q,
-                                      is_delta, k=10, bound_name=bnd, z=3.0,
-                                      label=label)
-                b_err, b_n = check_bounds(torch, tr, ops, alive_chain, stores,
-                                          model, cand, q, k=10,
-                                          bound_name=bnd, z=3.0, label=label)
-                errs = [max(errs[0], err), max(errs[1], b_err)]
-                ties += n + b_n
-    print(f"edge-shape phase: {len(EDGE_G) * 6} configurations, max err "
+    for c in (EDGE_C, GRAPH_C):
+        valid = rand(EDGE_Q, c) < 0.3
+        valid[0], valid[1] = False, True
+        ids = torch.randint(0, EDGE_N, (EDGE_Q, c), generator=gen,
+                            device=dev, dtype=torch.int32)
+        if c == GRAPH_C:
+            ids[:, 1::2] = ids[:, ::2]
+        is_delta = rand(EDGE_Q, c) < 0.3
+        for g in EDGE_G:
+            q = torch.randn((EDGE_Q, 5 * g - (g > 1)), generator=gen,
+                            device=dev)
+            for nl in (1, 2, 3):
+                levels = tuple(trq_mod.TRQLevel(
+                    packed=torch.randint(0, 243, (EDGE_N, g), generator=gen,
+                                         device=dev, dtype=torch.uint8),
+                    proj=rand(EDGE_N) - 0.5, norm=rand(EDGE_N),
+                    rho=rand(EDGE_N))
+                    for _ in range(nl))
+                stores = tr.RefineStores(
+                    packed=tuple(lv.packed for lv in levels),
+                    records=torch.stack([rand(EDGE_N) * 2,
+                                         rand(EDGE_N) - 0.5, rand(EDGE_N),
+                                         rand(EDGE_N)], 1).contiguous(),
+                    levels=tuple(ops.level_table(lv) for lv in levels),
+                    dim=q.shape[1])
+                d0 = rand(EDGE_Q, c) * 4 + 0.1
+                if c == GRAPH_C:
+                    d0[:, 1::2] = d0[:, ::2]
+                d0 = torch.where(valid | (nl == 2), d0, float("inf"))
+                cand = Candidates(ids=ids, valid=valid, d0=d0, counters={})
+                for bnd in ("cauchy", "quantile"):
+                    label = f"edge C={c} G={g} {bnd} L={nl}"
+                    err, n = check_refine(torch, tr, ops, stores, model, cand,
+                                          q, is_delta, k=10, bound_name=bnd,
+                                          z=3.0, label=label)
+                    b_err, b_n = check_bounds(torch, tr, ops, alive_chain,
+                                              stores, model, cand, q, k=10,
+                                              bound_name=bnd, z=3.0,
+                                              label=label)
+                    errs = [max(errs[0], err), max(errs[1], b_err)]
+                    ties += n + b_n
+    print(f"edge-shape phase: {2 * len(EDGE_G) * 6} configurations, max err "
           f"{max(errs):.3g}, alive mismatches at near-ties {ties}")
     return errs[0], errs[1]
+
+
+def graph_kernels(torch, tr, ops, alive_chain, pq_adc_mod, Candidates,
+                  gcand, gsh, gsh_gid, q64, lut64, index, all_stores, model,
+                  cfg, gen) -> tuple[dict, dict, dict]:
+    """The kernel phase at the graph front's shapes: ``gcand``, the final
+    64-slot beams of the 64 queries ``q64``, and ``gsh``, graph shard 0's
+    candidates over the same beams (its owned slots valid, shard-local
+    ids; ``gsh_gid`` maps them to global rows).  Shard 0's beams must be
+    the unsharded beams and its d0 the unsharded d0, bit for bit, on the
+    slots it owns.  ``pq_adc``, the fused kernel (``all_stores``: one- and
+    two-level stores, both bounds, delta rows) and the prune alone on the
+    beams, the bounds kernel on shard 0's slots, each against its plain
+    version; returns the rows of ``pq_adc``, the fused kernel (its prune
+    under ``"prune"``) and the bounds kernel at these shapes."""
+    valid = gcand.valid
+    per_q = [int(r.unique().numel()) for r in gcand.ids]
+    print(f"graph kernel shapes: Q={gcand.ids.shape[0]} C="
+          f"{gcand.ids.shape[1]} (the beam), {sum(per_q)} distinct ids of "
+          f"{gcand.ids.numel()} slots ({gcand.ids.numel() - sum(per_q)} "
+          f"repeats); shard 0 owns {int(gsh.valid.sum())} slots")
+    d0, adc = check_adc(torch, pq_adc_mod, index.pq_codes, gcand.ids, valid,
+                        lut64, "graph beam")
+    lib_ms, lib_d = adc_library(torch, index.pq_codes, gcand.ids, lut64)
+    ok, lib_err = close(lib_d, d0, ADC_ATOL, ADC_RTOL)
+    if not ok:
+        fail(f"embedding_bag disagrees with pq_adc on the graph beam "
+             f"({lib_err})")
+    adc["library_ms"] = lib_ms
+    own = gsh.valid
+    if not torch.equal(gsh_gid[own], gcand.ids[own].long()):
+        fail("graph shard 0's beams differ from the unsharded beams")
+    if not torch.equal(gsh.d0[own], d0[own]):
+        fail("pq_adc: graph shard 0's d0 is not bit-identical to the "
+             "unsharded beam's d0")
+    print("graph shard 0: beams and d0 bit-identical to the unsharded ones "
+          "on the slots it owns")
+
+    delta = torch.rand(gcand.ids.shape, generator=gen,
+                       device=gen.device) < 0.3
+    err, ties = 0.0, 0
+    for stores, bnd, is_delta in ((all_stores[0], "cauchy", None),
+                                  (all_stores[0], "quantile", None),
+                                  (all_stores[1], "cauchy", delta),
+                                  (all_stores[1], "quantile", delta)):
+        e, n = check_refine(torch, tr, ops, stores, model, gcand, q64,
+                            is_delta, k=cfg.final_k, bound_name=bnd, z=cfg.z,
+                            label=f"graph beam {bnd} "
+                                  f"L={stores.num_levels}")
+        err, ties = max(err, e), ties + n
+    stores1 = all_stores[0]
+    args = (stores1, q64, gcand.ids, gcand.d0, valid, None, model)
+    kw = dict(k=cfg.final_k, bound="cauchy", z=cfg.z)
+    planes = ops.make_query_planes(q64, stores1.packed[0].shape[1])
+    params = ops.query_params(q64, model.w, model.bias, model.resid_std,
+                              cfg.z)
+    refine = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: tr.ternary_refine_fused(*args, **kw), 20),
+        plain_ms=time_ms(lambda: tr.refine_plain(
+            stores1, planes, params, gcand.ids, gcand.d0, valid, None,
+            k=cfg.final_k, bound="cauchy"), 3),
+        library_ms=None, **refine_cost(torch, stores1, gcand, q64))
+    split = kernel_ms(torch, lambda: tr.ternary_refine_fused(*args, **kw),
+                      20)
+    for part in ("score_kernel", "prune_kernel"):
+        refine[f"{part}_device_ms"] = next(
+            (ms for name, ms in split.items() if part in name), None)
+    print(f"ternary_refine_fused graph beam: {refine['ms']:.4f} ms per call "
+          f"(bound {refine['bound_ms']:.4f} ms), device score "
+          f"{refine['score_kernel_device_ms']} + prune "
+          f"{refine['prune_kernel_device_ms']} ms, plain "
+          f"{refine['plain_ms']:.3f} ms, alive mismatches at near-ties "
+          f"{ties}")
+    _, lo, hi = tr.ternary_refine_fused_bounds(*args[:5], model,
+                                               bound="cauchy", z=cfg.z)
+    refine["prune"] = check_prune(
+        torch, tr, lo[:, 0].contiguous(), hi[:, 0].contiguous(), valid,
+        tr.ternary_refine_fused(*args, **kw), k=cfg.final_k,
+        label="the graph beam")
+
+    sh_cand = Candidates(ids=gsh_gid.int().contiguous(), valid=own,
+                         d0=gsh.d0, counters={})
+    b_err = 0.0
+    for stores, bnd in ((all_stores[0], "cauchy"),
+                        (all_stores[0], "quantile"),
+                        (all_stores[1], "cauchy"),
+                        (all_stores[1], "quantile")):
+        e, _ = check_bounds(torch, tr, ops, alive_chain, stores, model,
+                            sh_cand, q64, k=cfg.final_k, bound_name=bnd,
+                            z=cfg.z, label=f"graph shard 0 {bnd} "
+                                           f"L={stores.num_levels}")
+        b_err = max(b_err, e)
+    b_args = (stores1, q64, sh_cand.ids, sh_cand.d0, own)
+    bounds = dict(
+        max_abs_err=b_err,
+        ms=time_ms(lambda: tr.ternary_refine_fused_bounds(
+            *b_args, model, bound="cauchy", z=cfg.z), 20),
+        plain_ms=time_ms(lambda: tr.refine_bounds_plain(
+            stores1, planes, params, *b_args[2:], bound="cauchy"), 3),
+        library_ms=None, **bounds_cost(torch, stores1, sh_cand, q64))
+    bounds["device_ms"] = next(
+        (ms for name, ms in kernel_ms(torch, lambda: (
+            tr.ternary_refine_fused_bounds(*b_args, model, bound="cauchy",
+                                           z=cfg.z)), 20).items()
+         if "bounds_kernel" in name), None)
+    print(f"ternary_refine_fused_bounds graph shard 0: {bounds['ms']:.4f} ms "
+          f"per call, device {bounds['device_ms']} ms (bound "
+          f"{bounds['bound_ms']:.4f} ms), plain {bounds['plain_ms']:.3f} ms")
+    return adc, refine, bounds
 
 
 def check_repeatable(torch, one, two) -> None:
@@ -840,11 +978,13 @@ def main() -> int:
     from repro_torch.anns import Database, PipelineConfig, QueryPlan, \
         make_sharded_executor, recall_at_k
     from repro_torch.anns import registry
-    from repro_torch.anns.stages import Candidates, make_ivf_front
+    from repro_torch.anns.stages import Candidates, graph_for, \
+        make_graph_front, make_ivf_front
     from repro_torch.core import calibration as cal
     from repro_torch.core import trq as trq_mod
     from repro_torch.core.estimator import alive_chain
     from repro_torch.data import make_dataset
+    from repro_torch.index import graph as graph_mod
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import pq_adc as pq_adc_mod
     from repro_torch.kernels import ternary_refine as tr
@@ -919,6 +1059,39 @@ def main() -> int:
           f"{time.perf_counter() - t:.2f} s (rows per shard "
           f"{si.shard_rows.tolist()}, up to {si.list_gid.shape[1]} lists "
           f"each)")
+    # the graph front's kNN graph, then its repeatability on 100,000 rows
+    # (no float atomics on the build path), then its range + halo shards
+    t = time.perf_counter()
+    graph = graph_for(index)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t
+    print(f"graph build ({args.n} x 768, degree {graph.degree}): "
+          f"{graph_s:.1f} s")
+    n_rep = min(100_000, args.n)
+    twice = []
+    for _ in range(2):
+        t = time.perf_counter()
+        twice.append(graph_mod.build(
+            ds.x[:n_rep], generator=torch.Generator(device="cuda")
+            .manual_seed(args.seed)))
+        torch.cuda.synchronize()
+        twice.append(time.perf_counter() - t)
+    if not (torch.equal(twice[0].neighbors, twice[2].neighbors)
+            and torch.equal(twice[0].start, twice[2].start)):
+        fail(f"two graph builds of the first {n_rep} rows differ")
+    print(f"graph build repeatable: two builds of the first {n_rep} rows "
+          f"({twice[1]:.1f} s, {twice[3]:.1f} s) give equal adjacency and "
+          f"start nodes")
+    del twice
+    t = time.perf_counter()
+    gsi = make_sharded_executor(index, shards=args.shards,
+                                front="graph").sharded
+    torch.cuda.synchronize()
+    xs_loc = gsi.front_db[0]
+    print(f"graph partition into {args.shards} shards: "
+          f"{time.perf_counter() - t:.2f} s (rows per shard "
+          f"{gsi.shard_rows.tolist()}; halo vectors xs_loc "
+          f"{tuple(xs_loc.shape)}, {xs_loc.numel() * 4 / 1e9:.2f} GB)")
 
     # ---- kernel phase, at the main path's shapes
     q64 = ds.queries[:64].contiguous()
@@ -945,7 +1118,8 @@ def main() -> int:
     stores2 = tr.RefineStores.from_trq(trq2)
     del trq2
     model = index.trq.model
-    delta = torch.rand(cand.ids.shape, generator=gen, device="cuda") < 0.3
+    delta = torch.rand(cand.ids.shape, generator=gen,
+                       device=gen.device) < 0.3
     refine_err, near_ties = 0.0, 0
     for stores, bnd, is_delta in ((stores1, "cauchy", None),
                                   (stores1, "quantile", None),
@@ -983,7 +1157,17 @@ def main() -> int:
                               z=cfg.z,
                               label=f"{bnd} L={stores.num_levels}")
         bounds_err, bounds_ties = max(bounds_err, err), bounds_ties + n
-    del stores2
+    # the same kernels at the graph front's shapes
+    gcand = make_graph_front(index).candidates(q64)
+    gsh = registry.sharded_front("graph").body(
+        q64, gsi.front_rep, gsi.front_db, gsi.codebook, gsi.pq_codes,
+        **dict(gsi.front_args))[0]
+    g_adc, g_refine, g_bounds = graph_kernels(
+        torch, tr, ops, alive_chain, pq_adc_mod, Candidates, gcand, gsh,
+        gsi.gid[0][gsh.ids.long()].long(), q64, lut64, index,
+        (stores1, stores2), model, cfg,
+        torch.Generator(device="cuda").manual_seed(args.seed + 5))
+    del stores2, gcand, gsh
     b_args = (stores1, q64, sh_cand.ids, sh_cand.d0, sh_cand.valid)
     b_planes = ops.make_query_planes(q64, stores1.packed[0].shape[1])
     b_params = ops.query_params(q64, model.w, model.bias, model.resid_std,
@@ -1067,16 +1251,23 @@ def main() -> int:
     queries = ds.queries
     plans = {"fatrq": QueryPlan(backend="cuda"),
              "baseline": QueryPlan(mode="baseline"),
-             "sharded": QueryPlan(shards=args.shards, backend="cuda")}
+             "sharded": QueryPlan(shards=args.shards, backend="cuda"),
+             "graph": QueryPlan(front="graph", backend="cuda"),
+             "graph_baseline": QueryPlan(front="graph", mode="baseline"),
+             "graph_sharded": QueryPlan(front="graph", shards=args.shards,
+                                        backend="cuda")}
     for plan in plans.values():                 # warm-up: load, allocate
         db.query(q64, plan=plan)
     torch.cuda.synchronize()
     # each path runs with every count set to 0 just before it and read just
-    # after; pq_adc must launch in all three, the fused refine kernel in
-    # fatrq, the bounds kernel (and not the fused one) in sharded
+    # after; pq_adc must launch in all six, the fused refine kernel in the
+    # two fatrq paths, the bounds kernel (and not the fused one) in the two
+    # sharded ones
     needs = {"fatrq": ("pq_adc", "ternary_refine_fused"),
              "baseline": ("pq_adc",),
              "sharded": ("pq_adc", "ternary_refine_fused_bounds")}
+    needs.update(graph=needs["fatrq"], graph_baseline=needs["baseline"],
+                 graph_sharded=needs["sharded"])
     results = {}
     for mode, plan in plans.items():
         reset_launches()
@@ -1095,12 +1286,13 @@ def main() -> int:
                          ("sharded", ("ternary_refine_fused",
                                       "ternary_refine_batch",
                                       "ternary_refine"))):
-        for name in others:
-            if launches[mode][name]:
-                fail(f"the {mode} path launched {name}")
+        for path in (mode, "graph" if mode == "fatrq" else "graph_sharded"):
+            for name in others:
+                if launches[path][name]:
+                    fail(f"the {path} path launched {name}")
 
     # queries/s: host clock around whole searches ended by a synchronize,
-    # the two modes in turns, median of 5
+    # the paths in turns, median of 5
     runs = {mode: [] for mode in plans}
     for _ in range(5):
         for mode, plan in plans.items():
@@ -1124,46 +1316,46 @@ def main() -> int:
         print(f"{label}: recall@10 {recall:.4f}, {nq / secs:.1f} queries/s "
               f"(median of {[round(s, 6) for s in runs[label]]} s for {nq}),"
               f" SSD fetches/query {ssd:.1f}")
-        if recall < 0.5:
-            fail(f"{label}: recall@10 {recall:.4f} below 0.5")
+        # the graph paths' floor only catches a broken traversal
+        floor = 0.1 if label.startswith("graph") else 0.5
+        if recall < floor:
+            fail(f"{label}: recall@10 {recall:.4f} below {floor}")
         device_breakdown(torch, label, lambda: db.query(
             queries, plan=plans[label]))
     tier_bytes = lambda c: {t.value: v.bytes                  # noqa: E731
                             for t, v in c.by_tier().items()}
-    if not torch.equal(results["sharded"].ids, results["fatrq"].ids):
-        n_rows = int((results["sharded"].ids != results["fatrq"].ids)
-                     .any(1).sum())
-        fail(f"sharded ids differ from the unsharded fatrq ids in {n_rows} "
-             f"queries")
-    if tier_bytes(results["sharded"].cost) != tier_bytes(
-            results["fatrq"].cost):
-        fail(f"sharded per-tier bytes {tier_bytes(results['sharded'].cost)}"
-             f" differ from fatrq's {tier_bytes(results['fatrq'].cost)}")
-    print(f"sharded ({args.shards} shards): ids and per-tier bytes equal to "
-          f"the unsharded fatrq path's")
+    for flat, sharded in (("fatrq", "sharded"), ("graph", "graph_sharded")):
+        if not torch.equal(results[sharded].ids, results[flat].ids):
+            n_rows = int((results[sharded].ids != results[flat].ids)
+                         .any(1).sum())
+            fail(f"{sharded} ids differ from the unsharded {flat} ids in "
+                 f"{n_rows} queries")
+        if tier_bytes(results[sharded].cost) != tier_bytes(
+                results[flat].cost):
+            fail(f"{sharded} per-tier bytes "
+                 f"{tier_bytes(results[sharded].cost)} differ from {flat}'s "
+                 f"{tier_bytes(results[flat].cost)}")
+        print(f"{sharded} ({args.shards} shards): ids and per-tier bytes "
+              f"equal to the unsharded {flat} path's")
 
     # ---- the plain reference backend on the card, over a subset
     sub = queries[:64]
-    ref = db.query(sub, plan=QueryPlan(backend="reference", micro_batch=8))
-    cud = db.query(sub, plan=QueryPlan(backend="cuda"))
-    if not torch.equal(ref.ids, cud.ids):
-        fail("reference and cuda backends return different ids")
     ledger = lambda c: {k: (v.accesses, v.bytes)              # noqa: E731
                         for k, v in c.ledger.items()}
-    if ledger(ref.cost) != ledger(cud.cost):
-        fail(f"ledgers differ: {ledger(ref.cost)} vs {ledger(cud.cost)}")
-    print(f"reference backend on {sub.shape[0]} queries: ids and ledger "
-          f"equal to the cuda backend's")
-    sp = QueryPlan(shards=args.shards, backend="reference", micro_batch=8)
-    ref = db.query(sub, plan=sp)
-    cud = db.query(sub, plan=plans["sharded"])
-    if not torch.equal(ref.ids, cud.ids):
-        fail("sharded: reference and cuda backends return different ids")
-    if ledger(ref.cost) != ledger(cud.cost):
-        fail(f"sharded ledgers differ: {ledger(ref.cost)} vs "
-             f"{ledger(cud.cost)}")
-    print(f"sharded reference backend on {sub.shape[0]} queries: ids and "
-          f"ledger equal to the cuda backend's")
+    for label in ("fatrq", "sharded", "graph", "graph_sharded"):
+        ref = db.query(sub, plan=dataclasses.replace(
+            plans[label], backend="reference", micro_batch=8))
+        cud = db.query(sub, plan=plans[label])
+        if not torch.equal(ref.ids, cud.ids):
+            fail(f"{label}: reference and cuda backends return different "
+                 f"ids")
+        if ledger(ref.cost) != ledger(cud.cost):
+            fail(f"{label}: ledgers differ: {ledger(ref.cost)} vs "
+                 f"{ledger(cud.cost)}")
+        print(f"{label}: the reference backend on {sub.shape[0]} queries "
+              f"gives the cuda backend's ids and ledger")
+    print(f"peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
 
     print("library_ms: pq_adc's is one embedding_bag call at the fatrq "
           "shape (int32 indices built outside the timer, no +inf mask; the "
@@ -1172,7 +1364,10 @@ def main() -> int:
     print("launches: each kernel's own path's run (fatrq for pq_adc and "
           "ternary_refine_fused, sharded for ternary_refine_fused_bounds, "
           "ops for ternary_refine_batch and ternary_refine); "
-          "launches_by_path gives every path's own run; the fused call "
+          "launches_by_path gives every path's own run; each row's graph "
+          "entry holds the kernel at the graph path's shapes (the graph "
+          "path's launches; graph_sharded's for the bounds kernel); the "
+          "fused call "
           "launches its prune once per level, so the prune's launches on "
           "the fatrq path are the fused kernel's (ternary_refine_prune "
           "counts only the prune launched alone)")
@@ -1181,6 +1376,13 @@ def main() -> int:
           "which computes tau only, not the mask or the counts")
     prune_row["launches"] = launches["fatrq"]["ternary_refine_fused"]
     refine["prune"] = prune_row
+    g_adc["launches"] = launches["graph"]["pq_adc"]
+    g_refine["launches"] = g_refine["prune"]["launches"] = \
+        launches["graph"]["ternary_refine_fused"]
+    g_bounds["launches"] = launches["graph_sharded"][
+        "ternary_refine_fused_bounds"]
+    adc["graph"], refine["graph"], bounds_row["graph"] = \
+        g_adc, g_refine, g_bounds
 
     src = "src/repro_torch/kernels/csrc/ternary_refine.cu"
     rows = [("pq_adc", "src/repro_torch/kernels/csrc/pq_adc.cu",

@@ -6,13 +6,14 @@ subpackage names so each module's counterpart is easy to find:
 * ``memory`` — Table-I tier model and record layout (pure Python).
 * ``core`` — base-3 packing, optimal ternary codes, the decomposition
   scalars, calibration, the progressive estimator and the TRQ encoder.
-* ``quant`` / ``index`` — k-means, product quantization and the IVF index.
+* ``quant`` / ``index`` — k-means, product quantization, the IVF index and
+  the kNN graph.
 * ``kernels`` — the CUDA kernels (PQ-ADC scoring, the fused multi-level
   refinement, its bounds-emitting form for the sharded layout and the
   level-0 scoring of gathered rows), each beside its plain PyTorch
   version, plus the nvcc/ctypes loader.
 * ``anns`` — stages, executor, pipeline build, the sharded layout and the
-  ``Database`` API (static and sharded layouts, IVF front).
+  ``Database`` API (static and sharded layouts, IVF and graph fronts).
 * ``data`` — synthetic clustered embeddings with exact ground truth.
 * ``interop`` — loads an index built by the JAX package from numpy arrays.
 

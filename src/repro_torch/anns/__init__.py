@@ -1,9 +1,9 @@
-"""Staged FaTRQ search with the IVF front, on the static and sharded
-layouts.
+"""Staged FaTRQ search with the IVF and graph fronts, on the static and
+sharded layouts.
 
-``stages`` (IVF front with the PQ-ADC kernel, ``reference`` and ``cuda``
-refine backends, exact rerank) → ``executor`` (micro-batches, one ledger
-fold per search) → ``api`` (``Database`` / ``QueryPlan`` /
+``stages`` (IVF and graph fronts with the PQ-ADC kernel, ``reference`` and
+``cuda`` refine backends, exact rerank) → ``executor`` (micro-batches, one
+ledger fold per search) → ``api`` (``Database`` / ``QueryPlan`` /
 ``SearchResult``); ``sharding`` partitions the database into shards and
 searches them with pooled thresholds; ``pipeline`` holds the build.
 """

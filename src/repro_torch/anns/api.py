@@ -7,6 +7,13 @@ config, validates it once against the capability registry (``PlanError``
 for anything not ported yet), fetches or builds the executor and returns a
 ``SearchResult``.  A plan with ``shards`` on a static index runs the
 sharded layout (``anns.sharding``) over a partition kept on the index.
+
+Both fronts run on both layouts: ``QueryPlan(front="graph")`` searches the
+index's kNN graph (built on first use and kept on the index,
+``stages.graph_for``) and ``QueryPlan(front="graph", shards=S)`` its
+range + halo partition.  ``mode="baseline"`` runs on the static layout
+only, and a wrapped ``ShardedIndex`` answers only the front it was
+partitioned for.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ __all__ = ["Database", "QueryPlan", "SearchResult", "PlanError"]
 class QueryPlan:
     """How to run a search; ``None`` fields resolve from the index."""
 
-    front: str | None = None          # "ivf"
+    front: str | None = None          # "ivf" | "graph"
     backend: str | None = None        # "reference" | "cuda"
     shards: int | None = None         # None = unsharded; S ≥ 1 shards
     k: int | None = None

@@ -14,6 +14,7 @@ import torch
 from repro_torch.anns import registry
 from repro_torch.anns import stages as stages_mod
 from repro_torch.anns.stages import Counters
+from repro_torch.index.graph import GraphIndex
 from repro_torch.memory import QueryCost, Tier
 
 # modeled scale of ADC + ternary adds per candidate (the JAX package's)
@@ -66,8 +67,14 @@ class SearchExecutor:
     @classmethod
     def from_index(cls, index, *, front: str = "ivf",
                    backend: str = "reference", micro_batch: int | None = None,
-                   refine_budget: int | None = None, layout: str = "static",
+                   refine_budget: int | None = None,
+                   graph_index: GraphIndex | None = None,
+                   layout: str = "static",
                    **front_opts) -> "SearchExecutor":
+        """``graph_index`` hands the graph front a graph of the caller's
+        (else ``stages.graph_for`` builds and caches one)."""
+        if graph_index is not None:
+            front_opts["graph_index"] = graph_index
         return cls(index=index,
                    front=registry.make_front(front, layout, index,
                                              **front_opts),

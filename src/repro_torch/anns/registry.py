@@ -5,7 +5,7 @@ so, never a mid-search error.
 
 A front declares its layouts and a stage factory per layout; the sharded
 layout builds no stage object, its front registers ``ShardedFrontHooks``
-(``anns.sharding`` registers the IVF front's).
+(``anns.sharding`` registers the IVF and graph fronts').
 """
 
 from __future__ import annotations

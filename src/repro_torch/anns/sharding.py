@@ -1,10 +1,19 @@
 """Sharded search: the database partitioned into S shards, searched front →
 refine → rerank shard by shard with every data-dependent decision pooled
-across shards (the IVF half of ``repro.anns.sharding``).
+across shards (the port of ``repro.anns.sharding``).
 
-* ``partition_database(index, S)`` assigns WHOLE inverted lists to shards,
-  balanced by list length with an LPT greedy (``lpt_assign``), so a
-  candidate's codes, scalars and full vector co-reside with its list.
+* ``partition_database(index, S, front=...)`` dispatches to the front's
+  partitioner:
+
+  - **IVF** assigns WHOLE inverted lists to shards, balanced by list
+    length with an LPT greedy (``lpt_assign``), so a candidate's codes,
+    scalars and full vector co-reside with its list.
+  - **graph** splits the VECTORS into contiguous row ranges and gives each
+    shard its subgraph plus HALO state: the adjacency of its owned rows
+    (global ids and local slots) and the PQ reconstructions of its owned
+    rows followed by every off-shard neighbor of them, so a shard expands
+    any node it owns from its own memory.
+
   Per-shard record arrays are gathered on the device into shard-local row
   order and stacked on a leading shard axis (zero-padded to the largest
   shard); ``gid`` maps local rows back to global database ids.
@@ -12,12 +21,20 @@ across shards (the IVF half of ``repro.anns.sharding``).
 * ``ShardedExecutor`` runs the stages per shard.  The JAX package runs the
   body under ``shard_map`` across devices; here the shards sit on one
   device, the body is a loop over shards (one launch per kernel per shard,
-  what a per-device body is) and the three collectives are tensor ops over
-  the stacked per-shard results:
+  what a per-device body is) and the collectives are tensor ops over the
+  stacked per-shard results:
 
-    - front: each shard ranks the replicated centroid table (computed once
-      per micro-batch) and keeps the global top-``nprobe`` lists it owns,
-      so the union across shards is exactly the unsharded probe set;
+    - IVF front: each shard ranks the replicated centroid table (computed
+      once per micro-batch) and keeps the global top-``nprobe`` lists it
+      owns, so the union across shards is exactly the unsharded probe set;
+    - graph front: the beam state (global ids, distances, expanded flags)
+      is replicated and advances in lockstep; each hop the owner of every
+      picked node contributes its adjacency row and the neighbor distances
+      from its halo copy, every other shard zeros, and a sum over the
+      shard axis (the ``psum``) rebuilds the exact neighbor list of the
+      unsharded search, so the shared ``graph.beam_merge`` keeps the
+      unsharded beam bit for bit; each shard then scores the beam slots
+      it owns;
     - refine: each level's pruning threshold pools every shard's k
       smallest upper bounds in shard order (the all-gather) and takes the
       kth smallest (``estimator.pooled_k_smallest``), so every survivor
@@ -48,9 +65,11 @@ from repro_torch.anns import registry
 from repro_torch.anns.executor import (_accumulate, _cat, fold_counts,
                                        iter_chunks, search_budget)
 from repro_torch.anns.stages import (Candidates, Counters, _exact_sq,
-                                     _smallest, fold_ivf_front_cost,
+                                     _smallest, fold_graph_front_cost,
+                                     fold_ivf_front_cost, graph_for,
                                      rank_centroid_lists)
 from repro_torch.core.trq import TRQCodes
+from repro_torch.index import graph as graph_mod
 from repro_torch.kernels.pq_adc import pq_adc
 from repro_torch.memory import QueryCost, RecordLayout
 from repro_torch.quant import pq as pq_mod
@@ -70,11 +89,13 @@ class ShardedIndex:
     """A FaTRQIndex partitioned into S shards, stacked on a leading axis.
 
     Replicated: ``codebook`` (PQ), the calibration model inside ``trq`` and
-    ``front_rep`` (IVF: the coarse centroid table).  Stacked on the shard
-    axis: ``front_db`` (IVF: each shard's list ids and its lists with LOCAL
-    row ids), per-record ``pq_codes``/``trq``/``x`` and ``gid`` (local row
-    → global id, -1 on padding).  ``front_args`` holds the static
-    traversal parameters captured at partition time.
+    ``front_rep`` (IVF: the coarse centroid table; graph: the search's
+    start nodes).  Stacked on the shard axis: ``front_db`` (IVF: each
+    shard's list ids and its lists with LOCAL row ids; graph: halo
+    vectors, adjacency as global ids and as local slots, and the
+    global → owned-local row map), per-record ``pq_codes``/``trq``/``x``
+    and ``gid`` (local row → global id, -1 on padding).  ``front_args``
+    holds the static traversal parameters captured at partition time.
     """
 
     config: "PipelineConfig"         # noqa: F821 - import cycle via pipeline
@@ -194,6 +215,59 @@ def _partition_ivf_front(index, n_shards: int):
                                               index.config.nprobe),)
 
 
+def _partition_graph_front(index, n_shards: int):
+    """Graph partitioner: contiguous vector ranges → shards, each with its
+    subgraph + halo.
+
+    Per shard: the adjacency of its owned rows as GLOBAL ids (what the
+    frontier exchange publishes) and as LOCAL slots into ``xs_loc``, the
+    shard's copy of the PQ reconstructions of its owned rows FOLLOWED BY
+    every off-shard neighbor of them (the halo).  ``loc_of`` maps a global
+    row to its owned local row (-1 off-shard): it decides the exchange's
+    ownership and maps the final beam onto the shard's record store.
+    ``xs_loc`` is gathered on the device from one global decode, so halo
+    copies are bit-identical to the owner's rows."""
+    n = int(index.x.shape[0])
+    if not 1 <= n_shards <= n:
+        raise ValueError(f"n_shards={n_shards} must be in [1, n={n}] — "
+                         f"vectors are the partitioning unit")
+    graph = graph_for(index)
+    g = graph.neighbors.cpu().numpy()
+    degree = g.shape[1]
+    rows_per = [r.astype(np.int32)
+                for r in np.array_split(np.arange(n), n_shards)]
+    ns_max = max(r.size for r in rows_per)
+
+    loc_of = np.full((n_shards, n), -1, np.int32)
+    halos: list[np.ndarray] = []
+    for s, rows in enumerate(rows_per):
+        loc_of[s, rows] = np.arange(rows.size, dtype=np.int32)
+        nbr = g[rows]
+        halos.append(np.unique(nbr[loc_of[s, nbr] < 0]))
+    nloc_max = max(1, max(r.size + h.size for r, h in zip(rows_per, halos)))
+
+    dev = index.device
+    x_score = pq_mod.decode(index.codebook, index.pq_codes)
+    xs_loc = torch.zeros((n_shards, nloc_max, x_score.shape[1]),
+                         dtype=x_score.dtype, device=dev)
+    adj_gid = np.zeros((n_shards, ns_max, degree), np.int32)
+    adj_loc = np.zeros((n_shards, ns_max, degree), np.int32)
+    for s, (rows, halo) in enumerate(zip(rows_per, halos)):
+        local = torch.from_numpy(np.concatenate([rows, halo])).to(dev)
+        xs_loc[s, :local.numel()] = x_score[local.long()]
+        full_loc = loc_of[s].copy()
+        full_loc[halo] = rows.size + np.arange(halo.size, dtype=np.int32)
+        adj_gid[s, :rows.size] = g[rows]
+        adj_loc[s, :rows.size] = full_loc[g[rows]]
+    del x_score
+    fdb = (xs_loc, torch.from_numpy(adj_gid).to(dev),
+           torch.from_numpy(adj_loc).to(dev), torch.from_numpy(loc_of).to(dev))
+    # static traversal args: GraphFrontStage's defaults, the unsharded
+    # search the sharded one must reproduce
+    args = (("beam", 64), ("iters", 32), ("expand", 4), ("degree", degree))
+    return rows_per, (graph.start,), fdb, args
+
+
 def partition_database(index, n_shards: int,
                        front: str = "ivf") -> ShardedIndex:
     """Partition ``index`` for ``front``'s sharded datapath.
@@ -235,7 +309,7 @@ def partition_database(index, n_shards: int,
         x=stack(index.x), gid=gid, shard_rows=shard_rows)
 
 
-# ------------------------------------------------------- per-shard front
+# ------------------------------------------------------- per-shard fronts
 
 
 def _ivf_shard_front(queries, rep, fdb, codebook, pq_codes, *,
@@ -282,9 +356,92 @@ def _ivf_shard_front(queries, rep, fdb, codebook, pq_codes, *,
     return cands
 
 
+def _graph_shard_front(queries, rep, fdb, codebook, pq_codes, *, beam: int,
+                       iters: int, expand: int,
+                       degree: int) -> list[Candidates]:
+    """The graph front on every shard of one micro-batch: one replicated
+    beam, a frontier exchange per hop over the halo-partitioned subgraphs.
+
+    The beam state (global ids, distances, expanded flags) is computed once
+    and advances in lockstep, as it does identically on every shard of the
+    JAX body.  Each hop the shared ``graph.pick_frontier`` picks; the OWNER
+    of each picked node contributes its adjacency row (global ids) and the
+    neighbor distances from its ``xs_loc`` copy, every other shard zeros,
+    and a sum over the shard axis rebuilds the flattened neighbor list of
+    the unsharded search exactly (x + 0 is exact, and each node has one
+    owner).  Each shard's distances come from ``graph.sq_dist`` on the
+    (Q, E·degree, D) shape ``graph.search`` gives it, so they are the
+    unsharded values to the bit.  The shared ``graph.beam_merge`` then
+    keeps the unsharded beam; each shard claims the slots it owns and
+    ADC-scores them with one ``pq_adc`` launch on its record store.  A
+    shard's slot c is the unsharded beam slot c (``list_rank`` zeros)."""
+    (start,) = rep
+    xs_loc, adj_gid, adj_loc, loc_of = fdb
+    n_shards = loc_of.shape[0]
+    nq = queries.shape[0]
+    dev = queries.device
+
+    def owned(s: int, gids: torch.Tensor):
+        """Shard s's (owned mask, clamped local rows) of global ids."""
+        lrow = loc_of[s][gids.long()]
+        return lrow >= 0, lrow.clamp(min=0).long()
+
+    def exchange(parts: list[torch.Tensor]) -> torch.Tensor:
+        """The psum: the owner-masked per-shard values summed over shards
+        (in the dtype they came in)."""
+        return torch.stack(parts).sum(0, dtype=parts[0].dtype)
+
+    ids = start.expand(nq, beam)
+    parts = []
+    for s in range(n_shards):
+        own, lrow = owned(s, ids)
+        d = graph_mod.sq_dist(xs_loc[s][lrow], queries)
+        parts.append(torch.where(own, d, 0.0))
+    ds = exchange(parts)
+    expanded = torch.zeros((nq, beam), dtype=torch.bool, device=dev)
+    hops = [torch.zeros((), dtype=torch.int64, device=dev)
+            for _ in range(n_shards)]
+    for _ in range(iters):
+        picks, expanded = graph_mod.pick_frontier(ds, expanded, expand=expand)
+        pg = torch.gather(ids, 1, picks)                      # (Q, E)
+        neigh, nd = [], []
+        for s in range(n_shards):
+            own, pl = owned(s, pg)
+            own_e = own[:, :, None].expand(nq, expand, degree) \
+                .reshape(nq, -1)                              # (Q, E·degree)
+            neigh.append(torch.where(own_e, adj_gid[s][pl].reshape(nq, -1),
+                                     0))
+            # neighbor distances from the owner's adjacency-LOCAL slots
+            # (its xs_loc covers owned rows + halo, so every edge resolves)
+            rows = xs_loc[s][adj_loc[s][pl].reshape(nq, -1).long()]
+            nd.append(torch.where(own_e, graph_mod.sq_dist(rows, queries),
+                                  0.0))
+            hops[s] = hops[s] + own.sum()
+        ids, ds, expanded = graph_mod.beam_merge(
+            ids, ds, expanded, exchange(neigh), exchange(nd), beam=beam)
+    order = torch.sort(ds, dim=1, stable=True).indices
+    beam_ids = torch.gather(ids, 1, order)                    # (Q, beam)
+
+    lut = pq_mod.adc_table(codebook, queries)
+    rank = torch.zeros((nq, 1), dtype=torch.int64, device=dev)
+    cands = []
+    for s in range(n_shards):
+        valid, lfin = owned(s, beam_ids)                      # owned slots
+        ids_local = lfin.int().contiguous()
+        d0 = pq_adc(pq_codes[s], ids_local, valid, lut)
+        cands.append(Candidates(ids=ids_local, valid=valid, d0=d0,
+                                counters={"front_cand": valid.sum(),
+                                          "front_hops": hops[s] * degree},
+                                list_rank=rank))
+    return cands
+
+
 registry.register_sharded_front("ivf", registry.ShardedFrontHooks(
     partition=_partition_ivf_front, body=_ivf_shard_front,
     fold=fold_ivf_front_cost))
+registry.register_sharded_front("graph", registry.ShardedFrontHooks(
+    partition=_partition_graph_front, body=_graph_shard_front,
+    fold=fold_graph_front_cost))
 
 
 # ------------------------------------------------------ per-shard rerank

@@ -1,6 +1,9 @@
 """Search stages of the executor (paper Fig. 5), over query micro-batches.
 
-  front   : IVF probe + PQ-ADC coarse scoring (the ``pq_adc`` kernel).
+  front   : candidate generation + PQ-ADC coarse scoring (the ``pq_adc``
+            kernel): ``IVFFrontStage`` (inverted lists, the paper's primary
+            front) or ``GraphFrontStage`` (CAGRA-style beam search over PQ
+            reconstructions, then the final beam ADC-scored).
   refine  : FaTRQ progressive estimation over every TRQ level.  Two
             backends with the same semantics: ``reference`` (plain PyTorch
             ``trq.progressive_search``) and ``cuda`` (the fused
@@ -31,6 +34,7 @@ from repro_torch.anns import registry
 from repro_torch.core import trq as trq_mod
 from repro_torch.core.estimator import alive_chain
 from repro_torch.core.trq import TRQCodes
+from repro_torch.index import graph as graph_mod
 from repro_torch.index import ivf as ivf_mod
 from repro_torch.kernels.pq_adc import pq_adc
 from repro_torch.kernels.ternary_refine import RefineStores, \
@@ -52,10 +56,11 @@ class Candidates(NamedTuple):
     d0: torch.Tensor         # (Q, C) f32 coarse ADC distance, +inf if invalid
     counters: Counters
     is_delta: torch.Tensor | None = None   # (Q, C) bool delta-page rows
-    # (Q, pl) on the sharded IVF layout: each gathered list's probe rank
-    # in the unsharded front (nprobe where no query chose it), so slot
+    # (Q, pl) on the sharded layout: each gathered list's probe rank in
+    # the unsharded front (nprobe where no query chose it), so slot
     # (j, pos) is the unsharded slot list_rank[j]·cap + pos, the order the
-    # unsharded cuts break exact ties by
+    # unsharded cuts break exact ties by; the graph front's zeros (Q, 1)
+    # say that a shard's slot c is the unsharded beam slot c
     list_rank: torch.Tensor | None = None
 
 
@@ -121,6 +126,55 @@ class IVFFrontStage:
     def fold_cost(self, cost: QueryCost, counts: dict[str, int],
                   layout: RecordLayout) -> None:
         fold_ivf_front_cost(cost, counts, layout)
+
+
+def fold_graph_front_cost(cost: QueryCost, counts: dict[str, int],
+                          layout: RecordLayout) -> None:
+    """Graph front traffic: the traversal decodes the PQ codes of the
+    visited neighborhoods (``front_hops``), then the final beam is
+    ADC-scored (``front_cand``), all in fast memory.  Shared with the
+    per-shard fold of ``anns.sharding``."""
+    cost.record("front", Tier.HBM, counts["front_hops"], layout.fast_bytes)
+    cost.record("coarse", Tier.HBM, counts["front_cand"], layout.fast_bytes)
+
+
+@dataclass
+class GraphFrontStage:
+    """CAGRA-style beam search scored on PQ reconstructions.
+
+    Traversal distances use the fast-memory PQ decode ``x_score``, held on
+    the device (no SSD touches); the final beam is ADC-scored with the
+    ``pq_adc`` kernel and handed to refinement like an IVF candidate list.
+    ``front_hops`` counts the adjacency PQ fetches of the traversal."""
+
+    graph: graph_mod.GraphIndex
+    codebook: pq_mod.PQCodebook
+    pq_codes: torch.Tensor
+    beam: int = 64
+    iters: int = 32
+    expand: int = 4
+    name: str = field(default="graph", init=False)
+    x_score: torch.Tensor = field(init=False)
+
+    def __post_init__(self):
+        self.x_score = pq_mod.decode(self.codebook, self.pq_codes)
+
+    def candidates(self, queries: torch.Tensor) -> Candidates:
+        ids = graph_mod.search(self.graph, self.x_score, queries,
+                               iters=self.iters, beam=self.beam,
+                               expand=self.expand)            # (Q, beam)
+        valid = torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
+        d0 = adc_score(self.codebook, self.pq_codes, ids, queries, valid)
+        # the traversal's work is the same for every query
+        hops = queries.shape[0] * self.iters * self.expand * self.graph.degree
+        return Candidates(ids=ids, valid=valid, d0=d0,
+                          counters={"front_cand": valid.sum(),
+                                    "front_hops": torch.full(
+                                        (), hops, device=ids.device)})
+
+    def fold_cost(self, cost: QueryCost, counts: dict[str, int],
+                  layout: RecordLayout) -> None:
+        fold_graph_front_cost(cost, counts, layout)
 
 
 # ---------------------------------------------------------- refine backends
@@ -285,6 +339,25 @@ def _rerank_all(x, queries, ids, valid, *, k: int):
 # ----------------------------------------------------------------- registry
 
 
+def keep_graph(index, graph: graph_mod.GraphIndex) -> None:
+    """Keep ``graph`` on the index as its graph of that degree (how
+    ``interop.index_from_numpy`` hands over a JAX-built graph)."""
+    index.__dict__.setdefault("_graph_cache", {})[graph.degree] = graph
+
+
+def graph_for(index, *, degree: int = 16) -> graph_mod.GraphIndex:
+    """The kNN graph of an index's database, built once per degree (start
+    nodes from a seed-0 generator on the index's device) and kept on the
+    index, so its lifetime is the index's."""
+    g = index.__dict__.get("_graph_cache", {}).get(degree)
+    if g is None:
+        g = graph_mod.build(
+            index.x, degree=degree,
+            generator=torch.Generator(device=index.device).manual_seed(0))
+        keep_graph(index, g)
+    return g
+
+
 def make_ivf_front(index, **opts) -> IVFFrontStage:
     nprobe = opts.pop("nprobe", index.config.nprobe)
     if opts:
@@ -293,7 +366,17 @@ def make_ivf_front(index, **opts) -> IVFFrontStage:
                          pq_codes=index.pq_codes, nprobe=nprobe)
 
 
+def make_graph_front(index, *, graph_index: graph_mod.GraphIndex | None = None,
+                     degree: int = 16, **opts) -> GraphFrontStage:
+    g = graph_index if graph_index is not None \
+        else graph_for(index, degree=degree)
+    return GraphFrontStage(graph=g, codebook=index.codebook,
+                           pq_codes=index.pq_codes, **opts)
+
+
 registry.register_front("ivf", layouts=("static", "sharded"),
                         make={"static": make_ivf_front})
+registry.register_front("graph", layouts=("static", "sharded"),
+                        make={"static": make_graph_front})
 registry.register_backend("reference", make=ReferenceRefineBackend)
 registry.register_backend("cuda", make=CudaRefineBackend)

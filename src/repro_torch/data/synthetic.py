@@ -16,6 +16,9 @@ from repro_torch.device import resolve_device
 
 #: queries per brute-force step (bounds the (q, N) distance block)
 _GT_QUERIES = 64
+#: entries ``smallest_k`` selects beyond the k it returns, so that a tie
+#: with the kth rarely reaches the selection's edge
+_SELECT_MARGIN = 16
 
 
 class Dataset(NamedTuple):
@@ -40,15 +43,40 @@ def make_embeddings(generator: torch.Generator, n: int, d: int, *,
     return x.div_(torch.linalg.vector_norm(x, dim=-1, keepdim=True))
 
 
+def smallest_k(d: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions of the k smallest entries of each row of ``d``, in the
+    order a full stable sort gives them (lower position first on ties, as
+    ``jax.lax.top_k``), without sorting whole rows: ``torch.topk`` selects
+    k + ``_SELECT_MARGIN`` entries, which are ordered by (value,
+    position).  Where the last selected value equals the kth, entries tied
+    with the kth may lie outside the selection, so those rows take the
+    full stable sort."""
+    if k + _SELECT_MARGIN >= d.shape[-1]:
+        return torch.sort(d, dim=-1, stable=True).indices[..., :k]
+    vals, pos = torch.topk(d, k + _SELECT_MARGIN, dim=-1, largest=False,
+                           sorted=False)
+    pos, by_pos = torch.sort(pos, dim=-1)
+    vals = torch.gather(vals, -1, by_pos)
+    vals, by_val = torch.sort(vals, dim=-1, stable=True)
+    out = torch.gather(pos, -1, by_val[..., :k])
+    tied = vals[..., -1] == vals[..., k - 1]
+    if bool(tied.any()):
+        out[tied] = torch.sort(d[tied], dim=-1, stable=True).indices[..., :k]
+    return out
+
+
 def brute_force_topk(x: torch.Tensor, queries: torch.Tensor, k: int, *,
                      block: int = _GT_QUERIES) -> torch.Tensor:
-    """Exact top-k ids under L2, blocked over queries; a stable sort puts
-    the lower id first on ties, as ``jax.lax.top_k`` does."""
+    """Exact top-k ids under L2, blocked over queries, lower id first on
+    ties as ``jax.lax.top_k`` (``smallest_k``).  Each block's distances are
+    ||x||² − 2·q·x in float32, as the JAX package computes them (the
+    product scaled in place: −2·p + ||x||² is x_sq − 2·p to the bit)."""
     x_sq = (x * x).sum(-1)
     out = []
     for i in range(0, queries.shape[0], block):
-        d = x_sq[None, :] - 2.0 * (queries[i:i + block] @ x.T)
-        out.append(torch.sort(d, dim=-1, stable=True).indices[:, :k])
+        d = queries[i:i + block] @ x.T
+        d.mul_(-2.0).add_(x_sq)
+        out.append(smallest_k(d, k))
     return torch.cat(out, dim=0)
 
 

@@ -1,1 +1,1 @@
-"""The IVF index."""
+"""The IVF index and the kNN graph."""

@@ -4,7 +4,11 @@ Keys are the JAX ``FaTRQIndex`` field paths: ``codebook.codebooks``,
 ``pq_codes``, ``ivf.centroids``, ``ivf.lists``, ``ivf.list_len``,
 ``trq.levels.{i}.packed`` / ``.proj`` / ``.norm`` / ``.rho``,
 ``trq.scalars.delta_sq`` / ``.cross`` / ``.rho`` / ``.norm``,
-``trq.model.w`` / ``.bias`` / ``.resid_std`` and ``x``.
+``trq.model.w`` / ``.bias`` / ``.resid_std`` and ``x``; optionally
+``graph.neighbors`` (the JAX ``stages.graph_for(index).neighbors``) and
+``graph.start`` (the JAX search's start draw,
+``jax.random.randint(PRNGKey(0), (beam,), 0, n)``), which go into the
+port's graph cache so that both packages traverse one graph.
 """
 
 from __future__ import annotations
@@ -13,10 +17,12 @@ import numpy as np
 import torch
 
 from repro_torch.anns.pipeline import FaTRQIndex, PipelineConfig
+from repro_torch.anns.stages import keep_graph
 from repro_torch.core.calibration import CalibrationModel
 from repro_torch.core.decomposition import RecordScalars
 from repro_torch.core.trq import TRQCodes, TRQLevel
 from repro_torch.device import resolve_device
+from repro_torch.index.graph import GraphIndex, draw_start
 from repro_torch.index.ivf import IVFIndex
 from repro_torch.quant.pq import PQCodebook
 
@@ -41,8 +47,14 @@ def index_from_numpy(arrays: dict[str, np.ndarray], config: PipelineConfig,
                                           "norm"))),
         model=CalibrationModel(*(t(f"trq.model.{f}")
                                  for f in ("w", "bias", "resid_std"))))
-    return FaTRQIndex(
+    index = FaTRQIndex(
         config=config, codebook=PQCodebook(t("codebook.codebooks")),
         pq_codes=t("pq_codes"),
         ivf=IVFIndex(t("ivf.centroids"), t("ivf.lists"), t("ivf.list_len")),
         trq=trq, x=x)
+    if "graph.neighbors" in arrays:
+        neighbors = t("graph.neighbors").int()
+        start = t("graph.start").int() if "graph.start" in arrays else \
+            draw_start(x.shape[0], torch.Generator(device=dev).manual_seed(0))
+        keep_graph(index, GraphIndex(neighbors=neighbors, start=start))
+    return index

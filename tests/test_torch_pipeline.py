@@ -114,7 +114,7 @@ def test_micro_batches_and_buckets_change_nothing(data, pindex, mode):
 
 def test_default_backend_follows_the_device(pindex):
     from repro_torch.anns import registry
-    assert registry.front_names() == ("ivf",)
+    assert registry.front_names() == ("ivf", "graph")
     assert registry.backend_names() == ("reference", "cuda")
     assert Database.wrap(pindex).validate().backend == "reference"
     assert QueryPlan(backend="cuda").resolve(pindex).backend == "cuda"
@@ -158,9 +158,9 @@ def test_port_build_recall_matches_jax(data, jindex, levels):
 def test_unported_plans_raise_plan_error(data, pindex):
     db = Database.wrap(pindex)
     with pytest.raises(PlanError, match="not ported"):
-        db.query(data[1], plan=QueryPlan(front="graph"))
+        db.query(data[1], plan=QueryPlan(front="lsh"))
     with pytest.raises(PlanError, match="not ported"):
-        db.query(data[1], plan=QueryPlan(front="graph", shards=2))
+        db.query(data[1], plan=QueryPlan(front="lsh", shards=2))
     with pytest.raises(PlanError, match="not ported"):
         db.query(data[1], plan=QueryPlan(backend="pallas"))
     with pytest.raises(PlanError, match="mode"):

@@ -286,7 +286,7 @@ def test_sharded_plan_errors(data, pindex):
     with pytest.raises(PlanError, match="baseline"):
         db.query(data[1], plan=QueryPlan(mode="baseline", shards=2))
     with pytest.raises(PlanError, match="not ported"):
-        db.query(data[1], plan=QueryPlan(front="graph", shards=2))
+        db.query(data[1], plan=QueryPlan(backend="pallas", shards=2))
     sdb = Database.wrap(partition_database(pindex, 2))
     with pytest.raises(PlanError, match="partitioned 2 ways"):
         sdb.query(data[1], plan=QueryPlan(shards=4))
