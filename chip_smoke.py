@@ -77,9 +77,35 @@ Phases, each of which raises on failure:
 5. the plain ``reference`` backend on the card over a subset of queries
    must give the same ids and ledger as the ``cuda`` backend, unsharded
    and sharded, on both fronts;
-6. print one ``kernels`` JSON line (the three kernels of the graph paths
-   with a ``graph`` entry: their numbers at the graph shapes), then the
-   result line ``{"ok": true, "device": {...}}`` last.
+6. the streaming layout: the static paths' partitions and executors are
+   freed, the 1M index is wrapped in a ``StreamingIndex`` (its graph taken over, so
+   ``insert_nodes`` runs in every round) and driven through three rounds
+   of churn, each inserting 20,000 perturbed copies of database rows and
+   deleting 20,000 random live ids (round 1 also rebalances over
+   ``--shards`` shards), each insert, delete, rebalance, rebuild and
+   compaction timed (encode, ``insert_nodes``, ``compact_graph``, the
+   host copies and the cycle collection of a dropped snapshot apart).  Mid-churn, ``Database.query`` on the IVF front
+   (``cuda``) must give the ids and per-tier bytes of the same plan over
+   ``rebuild_static()`` mapped through its global ids, bill
+   ``delta:cxl`` while delta rows remain, return no dead id and reach
+   recall@10 0.5 against exact ground truth over the live rows; the graph
+   front must return no dead id and reach 0.1; the ``reference`` backend
+   must give ``cuda``'s ids and ledger on 64 queries, both fronts.  In
+   round 0: ``pq_adc`` and the fused kernel (with the candidates' real
+   delta flags) against their plain versions at the streaming IVF shape,
+   queries/s of both fronts (median of 5, in turns) and one profiled IVF
+   run.  In the last round, ``shards=--shards``: IVF equal to the
+   unsharded streaming answer, graph equal to the unsharded graph query
+   over the snapshot.  After each ``compact()``: the graph front equal to
+   a static search of the snapshot over the maintained adjacency with
+   ``start(n_live)``, and IVF equal to its rebuild.  The launches of
+   ``pq_adc`` and the fused kernel on both streaming fronts and of the
+   bounds kernel on the sharded ones must be non-zero.  Then the peak
+   device memory, which must stay under 70 GB;
+7. print one ``kernels`` JSON line (the three kernels of the graph paths
+   with a ``graph`` entry: their numbers at the graph shapes; ``pq_adc``
+   and the fused kernel with a ``streaming`` entry at the streaming IVF
+   shape), then the result line ``{"ok": true, "device": {...}}`` last.
 
 It exits non-zero with no result when no GPU is present, or when the
 ``src/repro_torch`` package is not beside it.
@@ -89,6 +115,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -378,7 +405,7 @@ def check_refine(torch, tr, ops, stores, model, cand, q, is_delta, *, k,
     return err, n_mism
 
 
-def refine_cost(torch, stores, cand, q) -> dict:
+def refine_cost(torch, stores, cand, q, *, delta: bool = False) -> dict:
     """Bound of one level-0 refine call: each distinct valid code row and
     its 16 B of record scalars read once; per valid slot its id; per slot
     its d0, valid flag, est and alive; per query its digit planes,
@@ -386,13 +413,14 @@ def refine_cost(torch, stores, cand, q) -> dict:
     not what this kernel does: a per-query (G, 243) table of partial dot
     products scores each code byte in one lookup and add, a 243-entry table
     gives its nonzero count in another add, so 2·G adds per valid slot,
-    plus ~20 per slot for its estimate, bounds and pruning test."""
+    plus ~20 per slot for its estimate, bounds and pruning test.  With
+    ``delta`` the per-slot delta flags are read too."""
     nq, c = cand.ids.shape
     g = stores.packed[0].shape[1]
     n_valid = int(cand.valid.sum())
     rows = int(torch.unique(cand.ids[cand.valid]).numel())
     nbytes = (rows * (g + 16) + n_valid * 4 + nq * c * (4 + 1 + 4 + 1)
-              + nq * (5 * g + 8 + 2) * 4)
+              + nq * (5 * g + 8 + 2) * 4 + (nq * c if delta else 0))
     return dict(zip(("bound_ms", "bound_by"),
                     bound("ternary_refine_fused", nbytes,
                           n_valid * 2 * g + nq * c * 20)))
@@ -955,6 +983,333 @@ def check_repeatable(torch, one, two) -> None:
           f"{', '.join(arrays)}")
 
 
+# the streaming phase: rounds of churn, rows inserted and deleted per round
+STREAM_ROUNDS, STREAM_BATCH = 3, 20_000
+PEAK_GB = 70.0                 # device memory the whole run may peak at
+
+
+class Timers:
+    """Seconds spent inside functions of the port, by label: each patched
+    function is bracketed by synchronizes, so its time covers the device's
+    work too.  A nested function's time is also its caller's."""
+
+    def __init__(self, torch):
+        self.torch, self.s = torch, {}
+
+    def patch(self, module, name: str, label: str) -> None:
+        fn = getattr(module, name)
+
+        def timed(*a, **kw):
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.torch.cuda.synchronize()
+                self.s[label] = self.s.get(label, 0.0) + \
+                    time.perf_counter() - t
+        setattr(module, name, timed)
+
+    def take(self) -> str:
+        out, self.s = self.s, {}
+        return ", ".join(f"{k} {v:.3f} s" for k, v in out.items())
+
+
+def timed(torch, fn):
+    """(fn(), seconds), the device synchronized before and after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def same_answer(torch, label: str, ids, cost, want_ids, want_cost) -> None:
+    """Equal ids and equal bytes per tier (a delta entry folds into cxl),
+    else fail naming how many queries differ."""
+    if not torch.equal(ids, want_ids):
+        n_rows = int((ids != want_ids).any(1).sum())
+        fail(f"{label}: ids differ in {n_rows} queries")
+    tb = [{t.value: v.bytes for t, v in c.by_tier().items()}
+          for c in (cost, want_cost)]
+    if tb[0] != tb[1]:
+        fail(f"{label}: per-tier bytes {tb[0]} differ from {tb[1]}")
+
+
+def list_members(st, snap, gid) -> str:
+    """How many live rows sit in another list in the streaming index than
+    in its static rebuild (a diagnosis printed beside a failed
+    equality)."""
+    import numpy as np
+    lists = np.concatenate([st.base_lists, st.delta_lists], axis=1)
+    where = np.full(st.n_rows, -1)
+    for li, row in enumerate(lists):
+        where[row[row >= 0]] = li
+    snap_lists = snap.ivf.lists.cpu().numpy()
+    want = np.full(gid.size, -1)
+    for li, row in enumerate(snap_lists):
+        want[row[row >= 0]] = li
+    got = where[np.nonzero(st.alive[:st.n_rows])[0]]
+    return f"{int((got != want).sum())} live rows in other lists"
+
+
+def streaming_kernels(torch, st, cfg, q64, lut64) -> tuple[dict, dict]:
+    """``pq_adc`` and the fused refine kernel at the streaming IVF shape
+    (64 queries over base lists ∪ delta pages, dead rows invalid), the
+    fused kernel with the candidates' real delta flags, each against its
+    plain version and timed beside its bound; returns their rows."""
+    from repro_torch.anns import registry
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pq_adc as pq_adc_mod
+    from repro_torch.kernels import ternary_refine as tr
+    cand = registry.make_front("ivf", "streaming", st).candidates(q64)
+    n_delta = int((cand.valid & cand.is_delta).sum())
+    print(f"streaming kernel shapes: Q={cand.ids.shape[0]} C="
+          f"{cand.ids.shape[1]}, {int(cand.valid.sum())} valid slots, "
+          f"{n_delta} of them delta rows")
+    d0, adc = check_adc(torch, pq_adc_mod, st.pq_codes, cand.ids,
+                        cand.valid, lut64, "streaming")
+    if not torch.equal(d0, cand.d0):
+        fail("pq_adc streaming: the front's d0 differs from a second call's")
+    lib_ms, lib_d = adc_library(torch, st.pq_codes, cand.ids, lut64)
+    ok, lib_err = close(lib_d[cand.valid], d0[cand.valid], ADC_ATOL,
+                        ADC_RTOL)
+    if not ok:
+        fail(f"embedding_bag disagrees with pq_adc at the streaming shape "
+             f"({lib_err})")
+    adc["library_ms"] = lib_ms
+    del lib_d
+    stores = tr.RefineStores.from_trq(st.trq)
+    model = st.trq.model
+    err, n_mism = check_refine(torch, tr, ops, stores, model, cand, q64,
+                               cand.is_delta, k=cfg.final_k,
+                               bound_name="cauchy", z=cfg.z,
+                               label="streaming (real delta flags)")
+    args = (stores, q64, cand.ids, cand.d0, cand.valid, cand.is_delta, model)
+    kw = dict(k=cfg.final_k, bound="cauchy", z=cfg.z)
+    counts = tr.ternary_refine_fused(*args, **kw)[2]
+    planes = ops.make_query_planes(q64, stores.packed[0].shape[1])
+    params = ops.query_params(q64, model.w, model.bias, model.resid_std,
+                              cfg.z)
+    refine = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: tr.ternary_refine_fused(*args, **kw), 20),
+        plain_ms=time_ms(lambda: tr.refine_plain(
+            stores, planes, params, *args[2:6], k=cfg.final_k,
+            bound="cauchy"), 3),
+        library_ms=None,
+        **refine_cost(torch, stores, cand, q64, delta=True))
+    nl = stores.num_levels
+    print(f"ternary_refine_fused streaming: {refine['ms']:.4f} ms per call "
+          f"(bound {refine['bound_ms']:.4f} ms), plain "
+          f"{refine['plain_ms']:.3f} ms, survivors "
+          f"{int(counts[:, nl - 1].sum())} of which delta rows "
+          f"{int(counts[:, 2 * nl - 1].sum())}, alive mismatches at "
+          f"near-ties {n_mism}")
+    print_launches(torch, "ternary_refine_fused streaming",
+                   lambda: tr.ternary_refine_fused(*args, **kw), 20)
+    return adc, refine
+
+
+def streaming_phase(torch, args, cfg, index, ds, q64, lut64, launches,
+                    reset_launches, read_launches) -> tuple[dict, dict]:
+    """Wrap the built index in a ``StreamingIndex`` and drive rounds of
+    churn through ``Database.query`` (see the module docstring); returns
+    the ``pq_adc`` and fused-kernel rows at the streaming IVF shape."""
+    import numpy as np
+    from repro_torch.anns import (Database, QueryPlan, StreamingConfig,
+                                  StreamingIndex, recall_at_k)
+    from repro_torch.anns import streaming as streaming_mod
+    from repro_torch.anns.executor import SearchExecutor
+    from repro_torch.core import trq as trq_mod
+    from repro_torch.data.synthetic import brute_force_topk
+    from repro_torch.index import graph as graph_mod
+    from repro_torch.quant import pq as pq_mod
+
+    timers = Timers(torch)
+    for module, name, label in ((streaming_mod, "assign", "assign"),
+                                (pq_mod, "encode", "PQ encode"),
+                                (trq_mod, "encode_rows", "TRQ encode"),
+                                (graph_mod, "insert_nodes", "insert_nodes"),
+                                (graph_mod, "compact_graph", "compact_graph"),
+                                (graph_mod, "HostRows", "host copy"),
+                                (gc, "collect", "cycle collection")):
+        timers.patch(module, name, label)
+    dev = index.device
+    queries = ds.queries
+    nq, d = queries.shape
+    k = cfg.final_k
+    st, wrap_s = timed(torch, lambda: StreamingIndex(
+        index, StreamingConfig(auto_compact=False)))
+    sdb = Database.wrap(st)
+    # the streaming graph adopts the static graph (no mutation yet), so
+    # insert_nodes runs in every round
+    _, graph_s = timed(torch, st.graph_index)
+    print(f"streaming wrap: {wrap_s:.3f} s (row store of {st.cap_rows} rows"
+          f"), graph materialized in {graph_s:.3f} s")
+    plan_ivf = QueryPlan(backend="cuda")
+    plan_graph = QueryPlan(front="graph", backend="cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    rng = np.random.default_rng(args.seed + 6)
+    ledger = lambda c: {key: (v.accesses, v.bytes)          # noqa: E731
+                        for key, v in c.ledger.items()}
+    rows = {}
+
+    def counted(label: str, plan, needs):
+        reset_launches()
+        res = sdb.query(queries, plan=plan)
+        torch.cuda.synchronize()
+        got = read_launches()
+        for name in needs:
+            if got[name] == 0:
+                fail(f"the {label} path never launched {name}")
+        launches.setdefault(label, got)
+        return res
+
+    def no_dead(label: str, ids) -> None:
+        live = torch.zeros(st.next_gid, dtype=torch.bool, device=dev)
+        live[torch.from_numpy(st.live_gids()).to(dev)] = True
+        if not bool(live[ids.long()].all()):
+            fail(f"{label}: a dead or unknown global id was returned")
+
+    for rnd in range(STREAM_ROUNDS):
+        pick = torch.randint(0, ds.x.shape[0], (STREAM_BATCH,),
+                             generator=gen, device=dev)
+        noise = torch.randn((STREAM_BATCH, d), generator=gen, device=dev)
+        new = ds.x[pick] + 0.25 * noise / d ** 0.5
+        new = new / torch.linalg.vector_norm(new, dim=-1, keepdim=True)
+        timers.take()
+        _, ins_s = timed(torch, lambda: st.insert(new))
+        print(f"streaming round {rnd}: insert {STREAM_BATCH} rows "
+              f"{ins_s:.3f} s ({STREAM_BATCH / ins_s:.0f} rows/s; "
+              f"{timers.take()})")
+        dead = rng.choice(st.live_gids(), size=STREAM_BATCH, replace=False)
+        _, del_s = timed(torch, lambda: st.delete(dead))
+        print(f"streaming round {rnd}: delete {STREAM_BATCH} ids {del_s:.3f} "
+              f"s")
+        if rnd == 1:
+            stats, reb_s = timed(torch, lambda: st.rebalance(args.shards))
+            print(f"streaming round {rnd}: rebalance({args.shards}) "
+                  f"{reb_s:.3f} s ({timers.take()}), moved "
+                  f"{stats['moved_rows']} rows, shard loads "
+                  f"{stats['shard_loads']}")
+        dcap, cap = st.delta_lists.shape[1], st.base_lists.shape[1]
+        print(f"streaming round {rnd}: delta pages {dcap} slots wide, base "
+              f"lists {cap}, C = {cfg.nprobe * (cap + dcap)} slots per "
+              f"query; {st.n_delta_rows} delta rows, {st.n_tombstones} "
+              f"tombstones, {st.n_live} live rows")
+
+        # mid-churn: IVF against the static rebuild
+        res = counted("streaming", plan_ivf,
+                      ("pq_adc", "ternary_refine_fused"))
+        (snap, gid), reb_s = timed(torch, st.rebuild_static)
+        timers.take()
+        gid_t = torch.from_numpy(gid).to(dev)
+        ref = Database.wrap(snap).query(queries, plan=plan_ivf)
+        if not torch.equal(res.ids, gid_t[ref.ids.long()]):
+            print(f"diagnosis: {list_members(st, snap, gid)}")
+        same_answer(torch, f"streaming round {rnd} (IVF) against its static "
+                    f"rebuild", res.ids, res.cost, gid_t[ref.ids.long()],
+                    ref.cost)
+        delta = res.cost.ledger.get("delta:cxl")
+        if st.n_delta_rows and not (delta and delta.accesses > 0):
+            fail(f"streaming round {rnd}: no delta:cxl traffic with "
+                 f"{st.n_delta_rows} delta rows")
+        no_dead(f"streaming round {rnd} (IVF)", res.ids)
+        gt = gid_t[brute_force_topk(snap.x, queries, k)]
+        recall = recall_at_k(res.ids, gt, k)
+        if recall < 0.5:
+            fail(f"streaming round {rnd} (IVF): recall@10 {recall:.4f}")
+        gres = counted("streaming_graph", plan_graph,
+                       ("pq_adc", "ternary_refine_fused"))
+        no_dead(f"streaming round {rnd} (graph)", gres.ids)
+        g_recall = recall_at_k(gres.ids, gt, k)
+        if g_recall < 0.1:
+            fail(f"streaming round {rnd} (graph): recall@10 {g_recall:.4f}")
+        print(f"streaming round {rnd} mid-churn: IVF ids and per-tier bytes "
+              f"equal to the static rebuild's (rebuild {reb_s:.3f} s), "
+              f"delta:cxl accesses {delta.accesses if delta else 0}, "
+              f"recall@10 IVF {recall:.4f}, graph {g_recall:.4f}, SSD "
+              f"fetches/query {res.cost.ledger['rerank:ssd'].accesses / nq}"
+              f" and {gres.cost.ledger['rerank:ssd'].accesses / nq}, no dead "
+              f"id returned")
+        for label, plan in (("IVF", plan_ivf), ("graph", plan_graph)):
+            a = sdb.query(q64, plan=dataclasses.replace(
+                plan, backend="reference", micro_batch=8))
+            b = sdb.query(q64, plan=plan)
+            if not torch.equal(a.ids, b.ids) or ledger(a.cost) != \
+                    ledger(b.cost):
+                fail(f"streaming round {rnd} ({label}): the reference "
+                     f"backend differs from cuda (ids or ledger)")
+        print(f"streaming round {rnd}: the reference backend on 64 queries "
+              f"gives the cuda backend's ids and ledger, both fronts")
+        if rnd == 0:
+            rows["adc"], rows["refine"] = streaming_kernels(
+                torch, st, cfg, q64, lut64)
+            runs = {"streaming": [], "streaming_graph": []}
+            for _ in range(5):
+                for label, plan in (("streaming", plan_ivf),
+                                    ("streaming_graph", plan_graph)):
+                    runs[label].append(timed(
+                        torch, lambda: sdb.query(queries, plan=plan))[1])
+            for label, r in runs.items():
+                secs = sorted(r)[len(r) // 2]
+                print(f"{label} (mid-churn): {nq / secs:.1f} queries/s "
+                      f"(median of {[round(x, 6) for x in r]} s for {nq})")
+            device_breakdown(torch, "streaming", lambda: sdb.query(
+                queries, plan=plan_ivf))
+        if rnd == STREAM_ROUNDS - 1:
+            # shards over the snapshot: IVF equals the unsharded streaming
+            # answer; graph partitions the snapshot's own fresh graph, so
+            # it equals the unsharded graph query over the snapshot
+            sres = counted("streaming_sharded",
+                           QueryPlan(shards=args.shards, backend="cuda"),
+                           ("pq_adc", "ternary_refine_fused_bounds"))
+            same_answer(torch, f"streaming shards={args.shards} (IVF)",
+                        sres.ids, sres.cost, res.ids, res.cost)
+            ug, ug_s = timed(torch, lambda: Database.wrap(snap).query(
+                queries, plan=plan_graph))
+            sg = counted("streaming_graph_sharded",
+                         QueryPlan(front="graph", shards=args.shards,
+                                   backend="cuda"),
+                         ("pq_adc", "ternary_refine_fused_bounds"))
+            same_answer(torch, f"streaming shards={args.shards} (graph)",
+                        sg.ids, sg.cost, gid_t[ug.ids.long()], ug.cost)
+            print(f"streaming shards={args.shards}: IVF equal to the "
+                  f"unsharded streaming answer; graph equal to the unsharded "
+                  f"graph query over the snapshot (its graph built in "
+                  f"{ug_s:.1f} s), ids and per-tier bytes")
+        del snap, ref, gt
+
+        stats, comp_s = timed(torch, st.compact)
+        print(f"streaming round {rnd}: compact {comp_s:.3f} s "
+              f"({timers.take()}), folded {stats['folded_delta_rows']} delta"
+              f" rows, dropped {stats['dropped_tombstones']} tombstones")
+        (snap, gid), reb_s = timed(torch, st.rebuild_static)
+        gid_t = torch.from_numpy(gid).to(dev)
+        gres = sdb.query(queries, plan=plan_graph)
+        ex = SearchExecutor.from_index(snap, front="graph", backend="cuda",
+                                       micro_batch=cfg.micro_batch,
+                                       graph_index=st.graph_index())
+        g_rows, _, g_cost = ex.execute(queries, k=k)
+        same_answer(torch, f"streaming round {rnd} (graph, compacted) "
+                    f"against the static search of its adjacency", gres.ids,
+                    gres.cost, gid_t[g_rows.long()], g_cost)
+        del ex
+        res = sdb.query(queries, plan=plan_ivf)
+        ref = Database.wrap(snap).query(queries, plan=plan_ivf)
+        same_answer(torch, f"streaming round {rnd} (IVF, compacted) against "
+                    f"its static rebuild", res.ids, res.cost,
+                    gid_t[ref.ids.long()], ref.cost)
+        print(f"streaming round {rnd} compacted: graph equal to the static "
+              f"search over the maintained adjacency, IVF equal to the static"
+              f" rebuild ({reb_s:.3f} s), ids and per-tier bytes")
+        del snap, ref
+    rows["adc"]["launches"] = launches["streaming"]["pq_adc"]
+    rows["refine"]["launches"] = launches["streaming"]["ternary_refine_fused"]
+    return rows["adc"], rows["refine"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -965,6 +1320,7 @@ def main() -> int:
                     help="shards of the sharded path (on one card)")
     args = ap.parse_args()
 
+    t_run = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1354,8 +1710,25 @@ def main() -> int:
                  f"{ledger(cud.cost)}")
         print(f"{label}: the reference backend on {sub.shape[0]} queries "
               f"gives the cuda backend's ids and ledger")
-    print(f"peak device memory: "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+
+    # ---- the streaming layout over the same index; the static paths are
+    # done, so their partitions (the graph's 11.9 GB) and executors (each
+    # graph front's 3.1 GB PQ decode) are freed first
+    peak_static = torch.cuda.max_memory_allocated() / 1e9
+    index.__dict__.pop("_sharded_cache")
+    index.__dict__.pop("_executor_cache")
+    del gsi, xs_loc, si
+    torch.cuda.reset_peak_memory_stats()
+    s_adc, s_refine = streaming_phase(torch, args, cfg, index, ds, q64,
+                                      lut64, launches, reset_launches,
+                                      read_launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"peak device memory: {max(peak_static, peak):.1f} GB "
+          f"({peak_static:.1f} GB before the streaming phase, {peak:.1f} GB "
+          f"in it)")
+    if max(peak_static, peak) >= PEAK_GB:
+        fail(f"peak device memory {max(peak_static, peak):.1f} GB reaches "
+             f"{PEAK_GB} GB")
 
     print("library_ms: pq_adc's is one embedding_bag call at the fatrq "
           "shape (int32 indices built outside the timer, no +inf mask; the "
@@ -1367,7 +1740,9 @@ def main() -> int:
           "launches_by_path gives every path's own run; each row's graph "
           "entry holds the kernel at the graph path's shapes (the graph "
           "path's launches; graph_sharded's for the bounds kernel); the "
-          "fused call "
+          "streaming entries of pq_adc and ternary_refine_fused hold them "
+          "at the streaming IVF shape (round 0, mid-churn) with the "
+          "streaming path's launches; the fused call "
           "launches its prune once per level, so the prune's launches on "
           "the fatrq path are the fused kernel's (ternary_refine_prune "
           "counts only the prune launched alone)")
@@ -1383,7 +1758,9 @@ def main() -> int:
         "ternary_refine_fused_bounds"]
     adc["graph"], refine["graph"], bounds_row["graph"] = \
         g_adc, g_refine, g_bounds
+    adc["streaming"], refine["streaming"] = s_adc, s_refine
 
+    print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all")
     src = "src/repro_torch/kernels/csrc/ternary_refine.cu"
     rows = [("pq_adc", "src/repro_torch/kernels/csrc/pq_adc.cu",
              "src/repro/kernels/pq_adc.py:36", "fatrq", adc),

@@ -7,13 +7,14 @@ subpackage names so each module's counterpart is easy to find:
 * ``core`` — base-3 packing, optimal ternary codes, the decomposition
   scalars, calibration, the progressive estimator and the TRQ encoder.
 * ``quant`` / ``index`` — k-means, product quantization, the IVF index and
-  the kNN graph.
+  the kNN graph with its online maintenance.
 * ``kernels`` — the CUDA kernels (PQ-ADC scoring, the fused multi-level
   refinement, its bounds-emitting form for the sharded layout and the
   level-0 scoring of gathered rows), each beside its plain PyTorch
   version, plus the nvcc/ctypes loader.
-* ``anns`` — stages, executor, pipeline build, the sharded layout and the
-  ``Database`` API (static and sharded layouts, IVF and graph fronts).
+* ``anns`` — stages, executor, pipeline build, the sharded and streaming
+  layouts and the ``Database`` API (static, sharded and streaming
+  layouts, IVF and graph fronts).
 * ``data`` — synthetic clustered embeddings with exact ground truth.
 * ``interop`` — loads an index built by the JAX package from numpy arrays.
 

@@ -1,11 +1,13 @@
-"""Staged FaTRQ search with the IVF and graph fronts, on the static and
-sharded layouts.
+"""Staged FaTRQ search with the IVF and graph fronts, on the static,
+sharded and streaming layouts.
 
 ``stages`` (IVF and graph fronts with the PQ-ADC kernel, ``reference`` and
 ``cuda`` refine backends, exact rerank) → ``executor`` (micro-batches, one
 ledger fold per search) → ``api`` (``Database`` / ``QueryPlan`` /
 ``SearchResult``); ``sharding`` partitions the database into shards and
-searches them with pooled thresholds; ``pipeline`` holds the build.
+searches them with pooled thresholds; ``streaming`` makes an index
+mutable (inserts, tombstones, compaction, rebalancing); ``pipeline`` holds
+the build.
 """
 
 from repro_torch.anns.api import Database, PlanError, QueryPlan, \
@@ -15,8 +17,10 @@ from repro_torch.anns.pipeline import (FaTRQIndex, PipelineConfig, build,
 from repro_torch.anns.sharding import (ShardedExecutor, ShardedIndex,
                                        lpt_assign, make_sharded_executor,
                                        partition_database)
+from repro_torch.anns.streaming import StreamingConfig, StreamingIndex
 
 __all__ = ["Database", "PlanError", "QueryPlan", "SearchResult",
            "FaTRQIndex", "PipelineConfig", "build", "recall_at_k",
            "ShardedExecutor", "ShardedIndex", "lpt_assign",
-           "make_sharded_executor", "partition_database"]
+           "make_sharded_executor", "partition_database",
+           "StreamingConfig", "StreamingIndex"]

@@ -14,6 +14,12 @@ index's kNN graph (built on first use and kept on the index,
 range + halo partition.  ``mode="baseline"`` runs on the static layout
 only, and a wrapped ``ShardedIndex`` answers only the front it was
 partitioned for.
+
+``Database.wrap`` also adopts a ``StreamingIndex`` (the streaming
+layout): both fronts and both backends, ``shards=S`` over its
+``rebuild_static`` snapshot, ids mapped to global ids.  Executors are kept
+per (generation, resolved plan); a mutation bumps the generation and
+drops them.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from repro_torch.anns.pipeline import FaTRQIndex, PipelineConfig
 from repro_torch.anns.pipeline import build as _build_index
 from repro_torch.anns.registry import PlanError
 from repro_torch.anns.sharding import ShardedIndex, make_sharded_executor
+from repro_torch.anns.streaming import StreamingIndex
 from repro_torch.memory import QueryCost
 
 __all__ = ["Database", "QueryPlan", "SearchResult", "PlanError"]
@@ -46,7 +53,7 @@ class QueryPlan:
     micro_batch: int | None = None
     mode: str = "fatrq"               # "fatrq" | "baseline"
 
-    def resolve(self, index: FaTRQIndex | ShardedIndex) -> "QueryPlan":
+    def resolve(self, index) -> "QueryPlan":
         config = index.config
         k = self.k or config.final_k
         return dataclasses.replace(
@@ -59,25 +66,34 @@ class QueryPlan:
 
 @dataclass(frozen=True)
 class SearchResult:
-    ids: torch.Tensor         # (Q, k) int32 database ids
+    ids: torch.Tensor         # (Q, k) database ids (int64 global ids on
+                              # the streaming layout, else int32)
     distances: torch.Tensor   # (Q, k) f32 exact squared L2 of ``ids``
     cost: QueryCost           # the Table-I traffic ledger
     plan: QueryPlan           # the resolved plan
 
 
 class Database:
-    """Query handle over one ``FaTRQIndex`` (static) or ``ShardedIndex``."""
+    """Query handle over one ``FaTRQIndex`` (static), ``ShardedIndex`` or
+    ``StreamingIndex``."""
 
-    def __init__(self, index: FaTRQIndex | ShardedIndex):
-        if isinstance(index, ShardedIndex):
+    def __init__(self, index: FaTRQIndex | ShardedIndex | StreamingIndex):
+        if isinstance(index, StreamingIndex):
+            self.layout = "streaming"
+        elif isinstance(index, ShardedIndex):
             self.layout = "sharded"
         elif isinstance(index, FaTRQIndex):
             self.layout = "static"
         else:
             raise TypeError(f"cannot wrap {type(index).__name__}: the port "
-                            f"has the static FaTRQIndex and ShardedIndex "
-                            f"layouts")
+                            f"has the static FaTRQIndex, ShardedIndex and "
+                            f"StreamingIndex layouts")
         self.index = index
+        self._compiled: dict[tuple, tuple] = {}
+        if self.layout == "streaming":
+            # a mutation drops the executors of older generations at once
+            # (their fronts and snapshots hold superseded device tensors)
+            index.add_generation_hook(lambda st, gen: self._compiled.clear())
 
     @classmethod
     def build(cls, x, config: PipelineConfig, *, device=None,
@@ -99,21 +115,34 @@ class Database:
     def config(self) -> PipelineConfig:
         return self.index.config
 
+    @property
+    def generation(self) -> int:
+        """0 for the immutable layouts; a ``StreamingIndex``'s mutation
+        count."""
+        return getattr(self.index, "generation", 0)
+
     def __len__(self) -> int:
+        if self.layout == "streaming":
+            return self.index.n_live
         if self.layout == "sharded":
             return int(self.index.shard_rows.sum())
         return int(self.index.x.shape[0])
 
     def _effective_layout(self, plan: QueryPlan) -> str:
         """A shard count on a static index routes through the sharded
-        layout."""
-        return "sharded" if plan.shards is not None else self.layout
+        layout; a streaming index stays streaming (its ``shards`` search a
+        snapshot, validated against the sharded layout too)."""
+        if self.layout != "static":
+            return self.layout
+        return "sharded" if plan.shards is not None else "static"
 
     def validate(self, plan: QueryPlan | None = None) -> QueryPlan:
         """Resolve and check a plan; raise ``PlanError`` before any work."""
         p = (plan or QueryPlan()).resolve(self.index)
         layout = self._effective_layout(p)
         registry.validate_combo(p.front, p.backend, layout)
+        if self.layout == "streaming" and p.shards is not None:
+            registry.validate_combo(p.front, p.backend, "sharded")
         if p.mode == "baseline":
             if layout != "static":
                 raise PlanError(
@@ -155,21 +184,48 @@ class Database:
         rp = self.validate(p)
         q = torch.as_tensor(queries, dtype=torch.float32) \
             .to(self.index.device).contiguous()
-        if self._effective_layout(rp) == "sharded":
-            ex = make_sharded_executor(
-                self.index, shards=self.index.n_shards
-                if rp.shards is None else rp.shards,
-                front=rp.front, backend=rp.backend,
-                micro_batch=rp.micro_batch, refine_budget=rp.refine_budget)
-        else:
-            ex = make_executor(self.index, front=rp.front,
-                               backend=rp.backend,
-                               micro_batch=rp.micro_batch,
-                               refine_budget=rp.refine_budget)
+        ex, gid = self._compile(rp)
         if rp.mode == "baseline":
             ids, dists, out = ex.execute_baseline(q, k=rp.k)
             if cost is not None:
                 out = cost.merge(out)
         else:
             ids, dists, out = ex.execute(q, k=rp.k, cost=cost)
+        if gid is not None:
+            ids = gid[ids.long()]
         return SearchResult(ids=ids, distances=dists, cost=out, plan=rp)
+
+    def _compile(self, rp: QueryPlan) -> tuple:
+        """(executor, row → global id map or None) of a resolved plan.  The
+        static and sharded factories memoize on the index; a streaming
+        index's executors are kept here per (generation, plan)."""
+        if self.layout != "streaming":
+            return self._build(rp)
+        key = (self.generation, rp)
+        hit = self._compiled.get(key)
+        if hit is None:
+            hit = self._compiled[key] = self._build(rp)
+        return hit
+
+    def _build(self, rp: QueryPlan) -> tuple:
+        if self.layout == "streaming":
+            st = self.index
+            if rp.shards is None:
+                return (st._executor(rp.front, rp.backend, rp.micro_batch,
+                                     rp.refine_budget),
+                        st._dev()["row_gid"])
+            idx, gid = st.rebuild_static()
+            return (make_sharded_executor(
+                idx, shards=rp.shards, front=rp.front, backend=rp.backend,
+                micro_batch=rp.micro_batch, refine_budget=rp.refine_budget),
+                torch.from_numpy(gid).to(st.device))
+        if self._effective_layout(rp) == "sharded":
+            return make_sharded_executor(
+                self.index, shards=self.index.n_shards
+                if rp.shards is None else rp.shards,
+                front=rp.front, backend=rp.backend,
+                micro_batch=rp.micro_batch,
+                refine_budget=rp.refine_budget), None
+        return make_executor(self.index, front=rp.front, backend=rp.backend,
+                             micro_batch=rp.micro_batch,
+                             refine_budget=rp.refine_budget), None

@@ -3,8 +3,10 @@ the port runs.  ``validate_combo`` is the one plan-time check; anything
 the JAX package offers that is not ported yet raises ``PlanError`` saying
 so, never a mid-search error.
 
-A front declares its layouts and a stage factory per layout; the sharded
-layout builds no stage object, its front registers ``ShardedFrontHooks``
+A front declares its layouts and a stage factory per layout; a module
+imported later attaches its own layout's factory with
+``add_front_factory`` (``anns.streaming`` does).  The sharded layout
+builds no stage object, its front registers ``ShardedFrontHooks``
 (``anns.sharding`` registers the IVF and graph fronts').
 """
 
@@ -13,9 +15,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable
 
-#: layouts the port runs (the JAX package also has streaming and tiered
-#: layouts, which later slices port)
-LAYOUTS = ("static", "sharded")
+#: layouts the port runs (the JAX package also has the tiered layout,
+#: which a later slice ports)
+LAYOUTS = ("static", "sharded", "streaming")
 
 
 class PlanError(ValueError):
@@ -69,6 +71,16 @@ def register_front(name: str, *, layouts: tuple[str, ...],
                              f"{LAYOUTS}")
     _FRONTS[name] = FrontSpec(name=name, layouts=tuple(layouts),
                               factories=dict(make))
+
+
+def add_front_factory(name: str, layout: str, factory: Callable) -> None:
+    """Attach a layout's stage factory to a registered front that declares
+    the layout."""
+    spec = _FRONTS[name]
+    if layout not in spec.layouts:
+        raise ValueError(f"front {name!r} does not declare layout "
+                         f"{layout!r} (declared: {spec.layouts})")
+    spec.factories[layout] = factory
 
 
 def register_sharded_front(name: str, hooks: ShardedFrontHooks) -> None:

@@ -374,9 +374,10 @@ def make_graph_front(index, *, graph_index: graph_mod.GraphIndex | None = None,
                            pq_codes=index.pq_codes, **opts)
 
 
-registry.register_front("ivf", layouts=("static", "sharded"),
+# the streaming layout's factories are attached by ``anns.streaming``
+registry.register_front("ivf", layouts=("static", "sharded", "streaming"),
                         make={"static": make_ivf_front})
-registry.register_front("graph", layouts=("static", "sharded"),
+registry.register_front("graph", layouts=("static", "sharded", "streaming"),
                         make={"static": make_graph_front})
 registry.register_backend("reference", make=ReferenceRefineBackend)
 registry.register_backend("cuda", make=CudaRefineBackend)

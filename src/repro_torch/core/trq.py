@@ -81,6 +81,64 @@ def encode_database(x: torch.Tensor, x_c: torch.Tensor, *,
                     model=calib.identity_model(x.device))
 
 
+def encode_rows(x_new: torch.Tensor, x_c_new: torch.Tensor, *,
+                num_levels: int = 1,
+                model: calib.CalibrationModel | None = None) -> TRQCodes:
+    """TRQ codes of new rows ``x_new (B, D)`` only.  Every per-record
+    quantity is row-independent, so these are the rows a full
+    ``encode_database`` of the grown database would give them; ``model``
+    carries the fitted calibration over (identity if None)."""
+    codes = encode_database(x_new, x_c_new, num_levels=num_levels)
+    if model is None:
+        return codes
+    return TRQCodes(dim=codes.dim, levels=codes.levels,
+                    scalars=codes.scalars, model=model)
+
+
+def _per_record(codes: TRQCodes) -> list[torch.Tensor]:
+    """Every per-record tensor of ``codes``, in one fixed order."""
+    sc = codes.scalars
+    return [t for lv in codes.levels for t in (lv.packed, lv.proj, lv.norm,
+                                               lv.rho)] + \
+        [sc.delta_sq, sc.cross, sc.rho, sc.norm]
+
+
+def write_rows(dst: TRQCodes, src: TRQCodes, start: int) -> TRQCodes:
+    """Write ``src``'s rows into ``dst`` at rows ``start…``; returns
+    ``dst`` (its dim and calibration model stay).
+
+    The JAX package's ``write_rows`` is a functional update; this one
+    writes ``dst``'s tensors in place, so ``dst`` must own them (the
+    streaming row store does: it never shares its capacity-padded tensors
+    with an index or snapshot) and hold at least start + len(src) rows.
+    """
+    if dst.num_levels != src.num_levels or dst.dim != src.dim:
+        raise ValueError("write_rows: level/dim mismatch between dst and src")
+    for d, s in zip(_per_record(dst), _per_record(src)):
+        d[start:start + s.shape[0]] = s
+    return dst
+
+
+def gather_rows(codes: TRQCodes, idx: torch.Tensor) -> TRQCodes:
+    """Every per-record tensor gathered at rows ``idx`` (new tensors); dim
+    and calibration model pass through.  Codes are centroid-relative, so a
+    moved row needs no re-encode."""
+    return map_rows(codes, lambda t: t[idx])
+
+
+def map_rows(codes: TRQCodes, fn) -> TRQCodes:
+    """``codes`` with ``fn`` applied to every per-record tensor."""
+    return TRQCodes(
+        dim=codes.dim,
+        levels=tuple(TRQLevel(*map(fn, (lv.packed, lv.proj, lv.norm,
+                                        lv.rho))) for lv in codes.levels),
+        scalars=RecordScalars(*map(fn, (codes.scalars.delta_sq,
+                                        codes.scalars.cross,
+                                        codes.scalars.rho,
+                                        codes.scalars.norm))),
+        model=codes.model)
+
+
 def unpack_level(codes: TRQCodes, level: int,
                  idx: torch.Tensor | None = None) -> torch.Tensor:
     """int8 trits for (a subset of) records at one level."""
