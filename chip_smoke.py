@@ -77,14 +77,40 @@ Phases, each of which raises on failure:
 5. the plain ``reference`` backend on the card over a subset of queries
    must give the same ids and ledger as the ``cuda`` backend, unsharded
    and sharded, on both fronts;
-6. the streaming layout: the static paths' partitions and executors are
+6. the tiered layout: a never-rebalanced ``TieredIndex`` must give the
+   static fatrq and graph paths' ids, distances and ledgers bit for bit;
+   a cold-only placement (``TieredConfig(hot_rows_frac=0.0,
+   cold_rows_frac=0.3)``, heat from one pass) the same ids and
+   distances, with exactly the cold accesses moved from ``refine:cxl``
+   to ``cold:ssd``, and no hot scoring run; on 1000 Zipfian queries
+   (anchors ∝ rank^-1.3 of the rows nearest row 0, noise 0.02,
+   ``--seed``) an all-warm pass, ``rebalance_tiers()`` with
+   ``TieredConfig(decay=0.5, hot_rows_frac=0.1, cold_rows_frac=0.2)``
+   (a second one must keep the generation, the executor must be
+   rebuilt), then the hot pass: fewer ``rerank:ssd`` accesses than
+   all-warm, a ``hot:hbm`` entry, a lower modelled time, recall@10 of
+   0.5 on static, all-warm and hot, and the ``reference`` backend equal
+   to ``cuda`` on 64 queries, both fronts.  ``pq_adc`` and the fused
+   kernel (one and two levels) against their plain versions at the
+   tiered shape with the real hot mask and cold flags (alive and counts
+   exact), queries/s of static fatrq, all-warm, cold-only, static fatrq
+   on the Zipfian trace and the hot pass (median of 5, in turns),
+   profiled all-warm and hot passes, and one traced query batch and
+   ``rebalance_tiers()``: bit-equal to untraced, the span tree, the
+   ``index.rebalance_tiers`` event, ``tiered_rows`` summing to N, a
+   Chrome trace that loads as JSON, and each stage's measured and
+   modelled time;
+7. the streaming layout: the static paths' partitions and executors are
    freed, the 1M index is wrapped in a ``StreamingIndex`` (its graph taken over, so
    ``insert_nodes`` runs in every round) and driven through three rounds
    of churn, each inserting 20,000 perturbed copies of database rows and
    deleting 20,000 random live ids (round 1 also rebalances over
    ``--shards`` shards), each insert, delete, rebalance, rebuild and
    compaction timed (encode, ``insert_nodes``, ``compact_graph``, the
-   host copies and the cycle collection of a dropped snapshot apart).  Mid-churn, ``Database.query`` on the IVF front
+   host copies and the cycle collection of a dropped snapshot apart);
+   round 0's insert and delete traced (``index.insert`` and
+   ``index.delete`` events, ``streaming_mutations_total`` of 1 each).
+   Mid-churn, ``Database.query`` on the IVF front
    (``cuda``) must give the ids and per-tier bytes of the same plan over
    ``rebuild_static()`` mapped through its global ids, bill
    ``delta:cxl`` while delta rows remain, return no dead id and reach
@@ -102,10 +128,11 @@ Phases, each of which raises on failure:
    ``pq_adc`` and the fused kernel on both streaming fronts and of the
    bounds kernel on the sharded ones must be non-zero.  Then the peak
    device memory, which must stay under 70 GB;
-7. print one ``kernels`` JSON line (the three kernels of the graph paths
+8. print one ``kernels`` JSON line (the three kernels of the graph paths
    with a ``graph`` entry: their numbers at the graph shapes; ``pq_adc``
-   and the fused kernel with a ``streaming`` entry at the streaming IVF
-   shape), then the result line ``{"ok": true, "device": {...}}`` last.
+   and the fused kernel with ``streaming`` and ``tiered`` entries at the
+   streaming IVF and tiered shapes), then the result line ``{"ok": true,
+   "device": {...}}`` last.
 
 It exits non-zero with no result when no GPU is present, or when the
 ``src/repro_torch`` package is not beside it.
@@ -114,6 +141,7 @@ It exits non-zero with no result when no GPU is present, or when the
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1124,6 +1152,7 @@ def streaming_phase(torch, args, cfg, index, ds, q64, lut64, launches,
     from repro_torch.core import trq as trq_mod
     from repro_torch.data.synthetic import brute_force_topk
     from repro_torch.index import graph as graph_mod
+    from repro_torch.obs import metrics, trace
     from repro_torch.quant import pq as pq_mod
 
     timers = Timers(torch)
@@ -1179,14 +1208,33 @@ def streaming_phase(torch, args, cfg, index, ds, q64, lut64, launches,
         new = ds.x[pick] + 0.25 * noise / d ** 0.5
         new = new / torch.linalg.vector_norm(new, dim=-1, keepdim=True)
         timers.take()
-        _, ins_s = timed(torch, lambda: st.insert(new))
-        print(f"streaming round {rnd}: insert {STREAM_BATCH} rows "
-              f"{ins_s:.3f} s ({STREAM_BATCH / ins_s:.0f} rows/s; "
-              f"{timers.take()})")
-        dead = rng.choice(st.live_gids(), size=STREAM_BATCH, replace=False)
-        _, del_s = timed(torch, lambda: st.delete(dead))
-        print(f"streaming round {rnd}: delete {STREAM_BATCH} ids {del_s:.3f} "
-              f"s")
+        # round 0 traced: its insert and delete events and mutation counts
+        tracer, reg = trace.Tracer(), metrics.MetricsRegistry()
+        with contextlib.ExitStack() as stack:
+            if rnd == 0:
+                stack.enter_context(trace.use(tracer))
+                stack.enter_context(metrics.use(reg))
+            _, ins_s = timed(torch, lambda: st.insert(new))
+            print(f"streaming round {rnd}: insert {STREAM_BATCH} rows "
+                  f"{ins_s:.3f} s ({STREAM_BATCH / ins_s:.0f} rows/s; "
+                  f"{timers.take()})")
+            dead = rng.choice(st.live_gids(), size=STREAM_BATCH,
+                              replace=False)
+            _, del_s = timed(torch, lambda: st.delete(dead))
+            print(f"streaming round {rnd}: delete {STREAM_BATCH} ids "
+                  f"{del_s:.3f} s")
+        if rnd == 0:
+            flat = reg.flat()
+            if [sp.name for sp in tracer.spans] != ["index.insert",
+                                                    "index.delete"] \
+                    or flat['streaming_mutations_total{op="insert"}'] != 1 \
+                    or flat['streaming_mutations_total{op="delete"}'] != 1:
+                fail(f"streaming round 0 traced: events "
+                     f"{[sp.name for sp in tracer.spans]}, metrics {flat}")
+            print(f"streaming round 0 traced: index.insert "
+                  f"{tracer.spans[0].attrs} and index.delete "
+                  f"{tracer.spans[1].attrs}; streaming_mutations_total "
+                  f"insert 1, delete 1")
         if rnd == 1:
             stats, reb_s = timed(torch, lambda: st.rebalance(args.shards))
             print(f"streaming round {rnd}: rebalance({args.shards}) "
@@ -1308,6 +1356,340 @@ def streaming_phase(torch, args, cfg, index, ds, q64, lut64, launches,
     rows["adc"]["launches"] = launches["streaming"]["pq_adc"]
     rows["refine"]["launches"] = launches["streaming"]["ternary_refine_fused"]
     return rows["adc"], rows["refine"]
+
+
+
+# the tiered phase's Zipfian trace (tests/test_tiered.py's recipe): queries,
+# popularity exponent, Gaussian noise per coordinate
+ZIPF_QUERIES, ZIPF_EXP, ZIPF_NOISE = 1000, 1.3, 0.02
+
+
+def zipf_queries(torch, x, n: int, seed: int):
+    """``n`` queries drawn from ``seed``: anchor rows ranked by distance to
+    row 0, popularity ∝ rank^-1.3, noise 0.02 per coordinate,
+    renormalized."""
+    import numpy as np
+    near = torch.argsort(((x - x[0]) ** 2).sum(-1)).cpu().numpy()
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, near.size + 1, dtype=np.float64) ** ZIPF_EXP
+    rows = near[rng.choice(near.size, size=n, p=p / p.sum())]
+    q = x[torch.from_numpy(rows).to(x.device)].cpu().numpy().astype(
+        np.float64) + ZIPF_NOISE * rng.standard_normal((n, x.shape[1]))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return torch.from_numpy(q.astype(np.float32)).to(x.device)
+
+
+def tiered_kernels(torch, ti, cold_ti, cfg, q64, cq64, stores2,
+                   hot_launches) -> tuple[dict, dict]:
+    """``pq_adc`` and the fused refine kernel at the tiered shape: the IVF
+    candidates of the 64 Zipfian queries ``q64`` on the rebalanced
+    placement ``ti``, hot slots made invalid with d0 = +inf and cold slots
+    as ``is_delta``, as the executor routes them; the fused kernel also on
+    the cold-only placement ``cold_ti``'s candidates of the 64 queries
+    ``cq64`` (where a quarter of the slots are cold), each on the
+    one-level store and on the two-level ``stores2``.  est within
+    ``EST_TOL``, alive and counts (cold survivors too) exact; returns the
+    two rows at the hot placement's shape."""
+    from repro_torch.anns import registry
+    from repro_torch.anns.stages import Candidates
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pq_adc as pq_adc_mod
+    from repro_torch.kernels import ternary_refine as tr
+    from repro_torch.memory import TIER_COLD, TIER_HOT
+    from repro_torch.quant import pq as pq_mod
+    index = ti.inner
+    cand = registry.make_front("ivf", "tiered", ti).candidates(q64)
+    hot = cand.valid & (cand.tier == TIER_HOT)
+    cold = cand.valid & (cand.tier == TIER_COLD)
+    print(f"tiered kernel shapes: Q={cand.ids.shape[0]} C="
+          f"{cand.ids.shape[1]}, {int(cand.valid.sum())} valid slots, "
+          f"{int(hot.sum())} hot (invalid for refinement), {int(cold.sum())}"
+          f" cold (is_delta)")
+    lut = pq_mod.adc_table(index.codebook, q64)
+    d0, adc = check_adc(torch, pq_adc_mod, index.pq_codes, cand.ids,
+                        cand.valid, lut, "tiered")
+    if not torch.equal(d0, cand.d0):
+        fail("pq_adc tiered: the front's d0 differs from a second call's")
+    lib_ms, lib_d = adc_library(torch, index.pq_codes, cand.ids, lut)
+    ok, lib_err = close(lib_d[cand.valid], d0[cand.valid], ADC_ATOL,
+                        ADC_RTOL)
+    if not ok:
+        fail(f"embedding_bag disagrees with pq_adc at the tiered shape "
+             f"({lib_err})")
+    adc["library_ms"] = lib_ms
+    del lib_d
+    rcand = Candidates(
+        ids=cand.ids, valid=cand.valid & ~hot,
+        d0=torch.where(hot, torch.full_like(cand.d0, float("inf")),
+                       cand.d0), counters={})
+    ccand = registry.make_front("ivf", "tiered", cold_ti).candidates(cq64)
+    c_cold = ccand.valid & (ccand.tier == TIER_COLD)
+    stores1 = tr.RefineStores.from_trq(index.trq)
+    model = index.trq.model
+    err = 0.0
+    for label, kc, kq, flags in (("hot placement", rcand, q64, cold),
+                                 ("cold-only placement", ccand, cq64,
+                                  c_cold)):
+        for stores in (stores1, stores2):
+            e, n_mism = check_refine(
+                torch, tr, ops, stores, model, kc, kq, flags,
+                k=cfg.final_k, bound_name="cauchy", z=cfg.z,
+                label=f"tiered {label} (real hot mask and cold flags)")
+            if n_mism:
+                fail(f"ternary_refine_fused tiered {label} L="
+                     f"{stores.num_levels}: {n_mism} alive mismatches")
+            err = max(err, e)
+    c_counts = tr.ternary_refine_fused(
+        stores1, cq64, ccand.ids, ccand.d0, ccand.valid, c_cold, model,
+        k=cfg.final_k, bound="cauchy", z=cfg.z)[2]
+    print(f"ternary_refine_fused tiered cold-only placement: "
+          f"{int(c_cold.sum())} cold of {int(ccand.valid.sum())} valid "
+          f"slots, survivors {int(c_counts[:, 0].sum())} of which cold "
+          f"{int(c_counts[:, 1].sum())}; alive and counts exact at L=1 and "
+          f"L=2")
+    args = (stores1, q64, rcand.ids, rcand.d0, rcand.valid, cold, model)
+    kw = dict(k=cfg.final_k, bound="cauchy", z=cfg.z)
+    counts = tr.ternary_refine_fused(*args, **kw)[2]
+    planes = ops.make_query_planes(q64, stores1.packed[0].shape[1])
+    params = ops.query_params(q64, model.w, model.bias, model.resid_std,
+                              cfg.z)
+    refine = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: tr.ternary_refine_fused(*args, **kw), 20),
+        plain_ms=time_ms(lambda: tr.refine_plain(
+            stores1, planes, params, *args[2:6], k=cfg.final_k,
+            bound="cauchy"), 3),
+        library_ms=None,
+        **refine_cost(torch, stores1, rcand, q64, delta=True))
+    print(f"ternary_refine_fused tiered: {refine['ms']:.4f} ms per call "
+          f"(bound {refine['bound_ms']:.4f} ms), plain "
+          f"{refine['plain_ms']:.3f} ms, survivors {int(counts[:, 0].sum())}"
+          f" of which cold {int(counts[:, 1].sum())}; alive and counts "
+          f"exact at L=1 and L=2")
+    print_launches(torch, "ternary_refine_fused tiered",
+                   lambda: tr.ternary_refine_fused(*args, **kw), 20)
+    adc["launches"] = hot_launches["pq_adc"]
+    refine["launches"] = hot_launches["ternary_refine_fused"]
+    return adc, refine
+
+
+def tiered_phase(torch, args, cfg, db, ds, results, stores2, launches,
+                 reset_launches, read_launches) -> tuple[dict, dict]:
+    """The tiered layout on the 1M index (see the module docstring):
+    all-warm and cold-only against the static answers, the Zipfian trace
+    before and after ``rebalance_tiers()``, the kernels at the tiered
+    shape, queries/s, a profiled hot pass, and one traced query batch and
+    rebalance; returns the ``pq_adc`` and fused-kernel rows at the tiered
+    shape."""
+    import tempfile
+    from repro_torch.anns import (Database, QueryPlan, TieredConfig,
+                                  TieredIndex, recall_at_k)
+    from repro_torch.anns import stages as stages_mod
+    from repro_torch.data.synthetic import brute_force_topk
+    from repro_torch.obs import export, metrics, trace
+
+    index = db.index
+    queries, nq = ds.queries, ds.queries.shape[0]
+    plans = {"ivf": QueryPlan(backend="cuda"),
+             "graph": QueryPlan(front="graph", backend="cuda")}
+    ledger = lambda c: {key: (v.accesses, v.bytes)          # noqa: E731
+                        for key, v in c.ledger.items()}
+
+    def counted(label: str, tdb, q, plan):
+        reset_launches()
+        res = tdb.query(q, plan=plan)
+        torch.cuda.synchronize()
+        got = read_launches()
+        for name in ("pq_adc", "ternary_refine_fused"):
+            if got[name] == 0:
+                fail(f"the {label} path never launched {name}")
+        launches[label] = got
+        return res
+
+    # all-warm: a never-rebalanced TieredIndex is the static index
+    warm_db = Database.wrap(TieredIndex(index))
+    for front, static in (("ivf", "fatrq"), ("graph", "graph")):
+        label = "tiered_warm" + ("_graph" if front == "graph" else "")
+        res, want = counted(label, warm_db, queries, plans[front]), \
+            results[static]
+        if not (torch.equal(res.ids, want.ids)
+                and torch.equal(res.distances, want.distances)
+                and ledger(res.cost) == ledger(want.cost)):
+            fail(f"{label}: not bit-equal to the static {static} path "
+                 f"(ids, distances or ledger)")
+    print("tiered all-warm: ids, distances and ledger bit-equal to static, "
+          "IVF and graph fronts (cuda)")
+
+    # cold-only: heat from one pass, then 30% of rows to SSD; the hot path
+    # must never run (no host synchronize), the answers stay static
+    cold_ti = TieredIndex(index, TieredConfig(hot_rows_frac=0.0,
+                                              cold_rows_frac=0.3))
+    cold_db = Database.wrap(cold_ti)
+    cold_db.query(queries, plan=plans["ivf"])
+    rep = cold_ti.rebalance_tiers()
+    if not rep["changed"] or rep["occupancy"]["hot"] != (0, 0):
+        fail(f"cold-only rebalance: {rep}")
+
+    def no_hot(*a, **kw):
+        fail("the cold-only placement ran the hot scoring")
+
+    score_hot, stages_mod._score_hot = stages_mod._score_hot, no_hot
+    try:
+        for front, static in (("ivf", "fatrq"), ("graph", "graph")):
+            label = "tiered_cold" + ("_graph" if front == "graph" else "")
+            res, want = counted(label, cold_db, queries, plans[front]), \
+                results[static]
+            if not (torch.equal(res.ids, want.ids)
+                    and torch.equal(res.distances, want.distances)):
+                fail(f"{label}: ids or distances differ from static")
+            got, exp = ledger(res.cost), ledger(want.cost)
+            n_cold = got.pop("cold:ssd", (0, 0))[0]
+            n_refine = got.pop("refine:cxl")[0]
+            if n_refine + n_cold != exp.pop("refine:cxl")[0] or got != exp \
+                    or (front == "ivf" and n_cold == 0):
+                fail(f"{label}: the ledger {ledger(res.cost)} does not move "
+                     f"exactly the cold accesses off {ledger(want.cost)}")
+            print(f"{label}: ids and distances bit-equal to static; "
+                  f"{n_cold} refine:cxl accesses moved to cold:ssd, every "
+                  f"other entry equal; no hot scoring")
+    finally:
+        stages_mod._score_hot = score_hot
+    print(f"tiered cold-only placement: {rep['occupancy']} (lists, rows)")
+
+    # the Zipfian trace: all-warm pass, rebalance, hot pass
+    zq = zipf_queries(torch, ds.x, ZIPF_QUERIES, args.seed)
+    zgt = brute_force_topk(ds.x, zq, cfg.final_k)
+    hot_ti = TieredIndex(index, TieredConfig(decay=0.5, hot_rows_frac=0.1,
+                                             cold_rows_frac=0.2))
+    zdb = Database.wrap(hot_ti)
+    zwarm = zdb.query(zq, plan=plans["ivf"])
+    stale = list(hot_ti._executor_cache.values())
+    rep, rep_s = timed(torch, hot_ti.rebalance_tiers)
+    if not rep["changed"] or rep["occupancy"]["hot"][0] == 0:
+        fail(f"Zipfian rebalance placed no hot list: {rep}")
+    again = hot_ti.rebalance_tiers()
+    if again["changed"] or hot_ti.generation != rep["generation"]:
+        fail("a second rebalance_tiers() on unchanged heat moved the "
+             "generation")
+    zhot = counted("tiered", zdb, zq, plans["ivf"])
+    if any(ex is old for ex in hot_ti._executor_cache.values()
+           for old in stale) or any(
+            key[0] != hot_ti.generation for key in hot_ti._executor_cache):
+        fail("the executor was not rebuilt after the migration")
+    zstatic = db.query(zq, plan=plans["ivf"])
+    led_w, led_h = zwarm.cost.ledger, zhot.cost.ledger
+    n_front = led_h["coarse:hbm"].accesses
+    n_hot = led_h["hot:hbm"].accesses if "hot:hbm" in led_h else 0
+    n_cold = led_h["cold:ssd"].accesses if "cold:ssd" in led_h else 0
+    recalls = {lab: recall_at_k(r.ids, zgt, cfg.final_k)
+               for lab, r in (("static", zstatic), ("all-warm", zwarm),
+                              ("hot", zhot))}
+    print(f"tiered Zipfian rebalance ({rep_s:.3f} s): moves {rep['moves']}, "
+          f"occupancy (lists, rows) {rep['occupancy']}, generation "
+          f"{rep['generation']}; a second rebalance keeps it; the executor "
+          f"was rebuilt")
+    print(f"tiered Zipfian hot pass: {n_hot} hot ({n_hot / n_front:.4f}) "
+          f"and {n_cold} cold ({n_cold / n_front:.4f}) of {n_front} valid "
+          f"candidates; rerank:ssd {led_h['rerank:ssd'].accesses} against "
+          f"all-warm {led_w['rerank:ssd'].accesses}; modelled "
+          f"{zhot.cost.total_seconds():.6f} s against "
+          f"{zwarm.cost.total_seconds():.6f} s; recall@10 {recalls}")
+    if "hot:hbm" not in led_h:
+        fail("the Zipfian hot pass has no hot:hbm entry")
+    if led_h["rerank:ssd"].accesses >= led_w["rerank:ssd"].accesses:
+        fail("the hot pass fetches no fewer rows from SSD than all-warm")
+    if zhot.cost.total_seconds() >= zwarm.cost.total_seconds():
+        fail("the hot pass's modelled time is not below all-warm's")
+    for lab, r in recalls.items():
+        if r < 0.5:
+            fail(f"tiered Zipfian {lab}: recall@10 {r:.4f} below 0.5")
+    for front in ("ivf", "graph"):
+        a = zdb.query(zq[:64], plan=dataclasses.replace(
+            plans[front], backend="reference", micro_batch=8))
+        b = zdb.query(zq[:64], plan=plans[front])
+        if not torch.equal(a.ids, b.ids) or ledger(a.cost) != ledger(b.cost):
+            fail(f"tiered hot placement ({front}): the reference backend "
+                 f"differs from cuda (ids or ledger)")
+    print("tiered hot placement: the reference backend on 64 queries gives "
+          "the cuda backend's ids and ledger, both fronts")
+
+    rows = tiered_kernels(torch, hot_ti, cold_ti, cfg, zq[:64].contiguous(),
+                          queries[:64].contiguous(), stores2,
+                          launches["tiered"])
+
+    # queries/s, the paths in turns, median of 5; then profiled all-warm
+    # and hot passes
+    paths = {"static fatrq": (db, queries),
+             "tiered all-warm": (warm_db, queries),
+             "tiered cold-only": (cold_db, queries),
+             "static fatrq, Zipfian": (db, zq),
+             "tiered after rebalance, Zipfian": (zdb, zq)}
+    runs = {label: [] for label in paths}
+    for _ in range(5):
+        for label, (pdb, q) in paths.items():
+            runs[label].append(timed(
+                torch, lambda: pdb.query(q, plan=plans["ivf"]))[1])
+    for label, r in runs.items():
+        secs, n = sorted(r)[len(r) // 2], paths[label][1].shape[0]
+        print(f"{label}: {n / secs:.1f} queries/s (median of "
+              f"{[round(x, 6) for x in r]} s for {n})")
+    device_breakdown(torch, "tiered all-warm", lambda: warm_db.query(
+        queries, plan=plans["ivf"]))
+    device_breakdown(torch, "tiered hot pass", lambda: zdb.query(
+        zq, plan=plans["ivf"]))
+
+    # one traced query batch and one traced rebalance
+    plain, plain_s = timed(torch, lambda: zdb.query(zq, plan=plans["ivf"]))
+    t0 = time.perf_counter()
+    tracer = trace.Tracer(
+        virtual_clock=lambda: (time.perf_counter() - t0) * 1e6)
+    reg = metrics.MetricsRegistry()
+    with trace.use(tracer), metrics.use(reg):
+        traced, traced_s = timed(torch, lambda: zdb.query(
+            zq, plan=plans["ivf"]))
+        hot_ti.rebalance_tiers()
+    if not (torch.equal(traced.ids, plain.ids)
+            and torch.equal(traced.distances, plain.distances)
+            and ledger(traced.cost) == ledger(plain.cost)):
+        fail("the traced query differs from the untraced one")
+    (q_span,) = tracer.by_name("query")
+    (ex_span,) = tracer.by_name("execute")
+    n_mb = -(-ZIPF_QUERIES // cfg.micro_batch)
+    if ex_span.parent != q_span.sid or [
+            s.name for s in tracer.children(ex_span.sid)] != \
+            ["front", "refine", "rerank"] * n_mb:
+        fail("the span tree is not query → execute → front/refine/rerank "
+             "per micro-batch")
+    if len(tracer.by_name("index.rebalance_tiers")) != 1:
+        fail("no index.rebalance_tiers event")
+    flat = reg.flat()
+    tier_rows = sum(flat[f'tiered_rows{{tier="{t}"}}']
+                    for t in ("hot", "warm", "cold"))
+    if tier_rows != args.n:
+        fail(f"tiered_rows gauges sum to {tier_rows}, not {args.n}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = export.write_chrome_trace(tracer.spans,
+                                         os.path.join(tmp, "trace.json"))
+        with open(path) as f:
+            doc = json.load(f)
+    n_x = sum(e["ph"] == "X" for e in doc["traceEvents"])
+    drift = {stage: flat[f'fatrq_model_drift_ratio_sum{{stage="{stage}"}}']
+             / flat[f'fatrq_model_drift_ratio_count{{stage="{stage}"}}']
+             for stage in ("front", "refine", "rerank")}
+    totals = {stage: (sum(s.wall_s for s in tracer.by_name(stage)),
+                      sum(s.attrs["model_s"] for s in tracer.by_name(stage)))
+              for stage in ("front", "refine", "rerank")}
+    print(f"tiered traced: ids, distances and ledger bit-equal to untraced; "
+          f"{len(tracer.spans)} spans (query → execute → front/refine/rerank"
+          f" x {n_mb}), index.rebalance_tiers event, tiered_rows gauges sum "
+          f"to {tier_rows}; Chrome trace valid JSON with {n_x} complete "
+          f"events; traced query {traced_s:.4f} s against untraced "
+          f"{plain_s:.4f} s")
+    for stage, (wall, model) in totals.items():
+        print(f"tiered traced {stage}: measured {wall:.6f} s, modelled "
+              f"{model:.6f} s, drift ratio {wall / model:.4f} overall, mean "
+              f"per micro-batch {drift[stage]:.4f}")
+    return rows
 
 
 def main() -> int:
@@ -1523,7 +1905,7 @@ def main() -> int:
         gsi.gid[0][gsh.ids.long()].long(), q64, lut64, index,
         (stores1, stores2), model, cfg,
         torch.Generator(device="cuda").manual_seed(args.seed + 5))
-    del stores2, gcand, gsh
+    del gcand, gsh
     b_args = (stores1, q64, sh_cand.ids, sh_cand.d0, sh_cand.valid)
     b_planes = ops.make_query_planes(q64, stores1.packed[0].shape[1])
     b_params = ops.query_params(q64, model.w, model.bias, model.resid_std,
@@ -1711,12 +2093,22 @@ def main() -> int:
         print(f"{label}: the reference backend on {sub.shape[0]} queries "
               f"gives the cuda backend's ids and ledger")
 
+    # ---- the tiered layout over the same index
+    t = time.perf_counter()
+    t_adc, t_refine = tiered_phase(torch, args, cfg, db, ds, results,
+                                   stores2, launches, reset_launches,
+                                   read_launches)
+    del stores2
+    gc.collect()          # the tiered indexes and their executors
+    print(f"tiered phase: {time.perf_counter() - t:.1f} s")
+
     # ---- the streaming layout over the same index; the static paths are
     # done, so their partitions (the graph's 11.9 GB) and executors (each
     # graph front's 3.1 GB PQ decode) are freed first
     peak_static = torch.cuda.max_memory_allocated() / 1e9
     index.__dict__.pop("_sharded_cache")
     index.__dict__.pop("_executor_cache")
+    db._compiled.clear()
     del gsi, xs_loc, si
     torch.cuda.reset_peak_memory_stats()
     s_adc, s_refine = streaming_phase(torch, args, cfg, index, ds, q64,
@@ -1742,7 +2134,10 @@ def main() -> int:
           "path's launches; graph_sharded's for the bounds kernel); the "
           "streaming entries of pq_adc and ternary_refine_fused hold them "
           "at the streaming IVF shape (round 0, mid-churn) with the "
-          "streaming path's launches; the fused call "
+          "streaming path's launches; the tiered entries hold them at the "
+          "tiered shape (64 Zipfian queries on the rebalanced placement, "
+          "hot slots invalid, cold slots is_delta) with the tiered hot "
+          "pass's launches; the fused call "
           "launches its prune once per level, so the prune's launches on "
           "the fatrq path are the fused kernel's (ternary_refine_prune "
           "counts only the prune launched alone)")
@@ -1759,6 +2154,7 @@ def main() -> int:
     adc["graph"], refine["graph"], bounds_row["graph"] = \
         g_adc, g_refine, g_bounds
     adc["streaming"], refine["streaming"] = s_adc, s_refine
+    adc["tiered"], refine["tiered"] = t_adc, t_refine
 
     print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all")
     src = "src/repro_torch/kernels/csrc/ternary_refine.cu"

@@ -3,7 +3,8 @@
 A second package beside the JAX one (``repro``), laid out with the same
 subpackage names so each module's counterpart is easy to find:
 
-* ``memory`` — Table-I tier model and record layout (pure Python).
+* ``memory`` — Table-I tier model, record layout and the tiered
+  layout's hot/warm/cold placement policy (pure Python and numpy).
 * ``core`` — base-3 packing, optimal ternary codes, the decomposition
   scalars, calibration, the progressive estimator and the TRQ encoder.
 * ``quant`` / ``index`` — k-means, product quantization, the IVF index and
@@ -12,9 +13,11 @@ subpackage names so each module's counterpart is easy to find:
   refinement, its bounds-emitting form for the sharded layout and the
   level-0 scoring of gathered rows), each beside its plain PyTorch
   version, plus the nvcc/ctypes loader.
-* ``anns`` — stages, executor, pipeline build, the sharded and streaming
-  layouts and the ``Database`` API (static, sharded and streaming
-  layouts, IVF and graph fronts).
+* ``anns`` — stages, executor, pipeline build, the sharded, streaming and
+  tiered layouts and the ``Database`` API (static, sharded, streaming and
+  tiered layouts, IVF and graph fronts).
+* ``obs`` — query-lifecycle tracing, metrics and exporters (pure
+  Python).
 * ``data`` — synthetic clustered embeddings with exact ground truth.
 * ``interop`` — loads an index built by the JAX package from numpy arrays.
 
@@ -29,3 +32,9 @@ import torch
 # enough to flip nearest-centroid assignments and ground-truth ties.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+from repro_torch import obs  # noqa: E402
+from repro_torch.anns import TieredFrontStage, TieredIndex  # noqa: E402
+from repro_torch.memory import TieredConfig  # noqa: E402
+
+__all__ = ["obs", "TieredConfig", "TieredFrontStage", "TieredIndex"]

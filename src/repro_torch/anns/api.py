@@ -1,12 +1,14 @@
 """``Database`` handle + ``QueryPlan``: the port's query API.
 
 ``Database.build(x, config)`` builds a static index (on the GPU unless a
-device is given); ``Database.wrap(index)`` adopts a static ``FaTRQIndex``
-or a ``ShardedIndex``.  ``query`` resolves a plan against the index
-config, validates it once against the capability registry (``PlanError``
-for anything not ported yet), fetches or builds the executor and returns a
-``SearchResult``.  A plan with ``shards`` on a static index runs the
-sharded layout (``anns.sharding``) over a partition kept on the index.
+device is given); ``Database.wrap(index)`` adopts a static ``FaTRQIndex``,
+a ``ShardedIndex``, a ``StreamingIndex`` or a ``TieredIndex``.  ``query``
+resolves a plan against the index config, validates it once against the
+capability registry (``PlanError`` for anything unsupported or not ported
+yet), fetches or builds the executor (kept per (generation, resolved
+plan)) and returns a ``SearchResult``.  A plan with ``shards`` on a static
+index runs the sharded layout (``anns.sharding``) over a partition kept
+on the index.
 
 Both fronts run on both layouts: ``QueryPlan(front="graph")`` searches the
 index's kNN graph (built on first use and kept on the index,
@@ -15,11 +17,16 @@ range + halo partition.  ``mode="baseline"`` runs on the static layout
 only, and a wrapped ``ShardedIndex`` answers only the front it was
 partitioned for.
 
-``Database.wrap`` also adopts a ``StreamingIndex`` (the streaming
-layout): both fronts and both backends, ``shards=S`` over its
-``rebuild_static`` snapshot, ids mapped to global ids.  Executors are kept
-per (generation, resolved plan); a mutation bumps the generation and
-drops them.
+A ``StreamingIndex`` (the streaming layout) runs both fronts and both
+backends, ``shards=S`` over its ``rebuild_static`` snapshot, ids mapped to
+global ids; a mutation bumps the generation and drops its executors.  A
+``TieredIndex`` (the tiered layout) runs both fronts and both backends,
+unsharded and in ``mode="fatrq"`` only; a placement migration bumps its
+generation.
+
+Traced (``obs.trace``), a query opens a ``query`` span holding
+``plan.resolve``, a ``plan.compile`` event (``cache_hit``) and, on a miss,
+a ``plan.compile.build`` span, then the executor's spans.
 """
 
 from __future__ import annotations
@@ -36,7 +43,9 @@ from repro_torch.anns.pipeline import build as _build_index
 from repro_torch.anns.registry import PlanError
 from repro_torch.anns.sharding import ShardedIndex, make_sharded_executor
 from repro_torch.anns.streaming import StreamingIndex
+from repro_torch.anns.tiered import TieredIndex
 from repro_torch.memory import QueryCost
+from repro_torch.obs import trace
 
 __all__ = ["Database", "QueryPlan", "SearchResult", "PlanError"]
 
@@ -63,6 +72,10 @@ class QueryPlan:
             micro_batch=self.micro_batch if self.micro_batch is not None
             else config.micro_batch)
 
+    def to_record(self) -> dict:
+        """JSON-friendly dict (span attributes, logs)."""
+        return dataclasses.asdict(self)
+
 
 @dataclass(frozen=True)
 class SearchResult:
@@ -74,25 +87,29 @@ class SearchResult:
 
 
 class Database:
-    """Query handle over one ``FaTRQIndex`` (static), ``ShardedIndex`` or
-    ``StreamingIndex``."""
+    """Query handle over one ``FaTRQIndex`` (static), ``ShardedIndex``,
+    ``StreamingIndex`` or ``TieredIndex``."""
 
-    def __init__(self, index: FaTRQIndex | ShardedIndex | StreamingIndex):
-        if isinstance(index, StreamingIndex):
+    def __init__(self, index: FaTRQIndex | ShardedIndex | StreamingIndex
+                 | TieredIndex):
+        if isinstance(index, TieredIndex):
+            self.layout = "tiered"
+        elif isinstance(index, StreamingIndex):
             self.layout = "streaming"
         elif isinstance(index, ShardedIndex):
             self.layout = "sharded"
         elif isinstance(index, FaTRQIndex):
             self.layout = "static"
         else:
-            raise TypeError(f"cannot wrap {type(index).__name__}: the port "
-                            f"has the static FaTRQIndex, ShardedIndex and "
-                            f"StreamingIndex layouts")
+            raise TypeError(f"cannot wrap {type(index).__name__}: expected "
+                            f"FaTRQIndex, ShardedIndex, StreamingIndex or "
+                            f"TieredIndex")
         self.index = index
         self._compiled: dict[tuple, tuple] = {}
-        if self.layout == "streaming":
-            # a mutation drops the executors of older generations at once
-            # (their fronts and snapshots hold superseded device tensors)
+        if self.layout in ("streaming", "tiered"):
+            # a mutation or migration drops the executors of older
+            # generations at once (their fronts and snapshots hold
+            # superseded device tensors)
             index.add_generation_hook(lambda st, gen: self._compiled.clear())
 
     @classmethod
@@ -118,7 +135,7 @@ class Database:
     @property
     def generation(self) -> int:
         """0 for the immutable layouts; a ``StreamingIndex``'s mutation
-        count."""
+        count; a ``TieredIndex``'s migration count."""
         return getattr(self.index, "generation", 0)
 
     def __len__(self) -> int:
@@ -152,6 +169,13 @@ class Database:
         elif p.mode != "fatrq":
             raise PlanError(f"unknown search mode {p.mode!r}; expected "
                             f"'fatrq' or 'baseline'")
+        if self.layout == "tiered" and p.shards is not None:
+            raise PlanError(
+                f"unsupported plan: shards={p.shards} cannot run on the "
+                f"'tiered' index layout — heat-driven placement is "
+                f"per-device; partition the wrapped static index "
+                f"(Database.wrap(tiered.inner)) and re-apply tiering per "
+                f"shard instead")
         if self.layout == "sharded":
             if p.shards not in (None, self.index.n_shards):
                 raise PlanError(
@@ -181,29 +205,39 @@ class Database:
             p = dataclasses.replace(p, refine_budget=refine_budget)
         if micro_batch is not None:
             p = dataclasses.replace(p, micro_batch=micro_batch)
-        rp = self.validate(p)
-        q = torch.as_tensor(queries, dtype=torch.float32) \
-            .to(self.index.device).contiguous()
-        ex, gid = self._compile(rp)
-        if rp.mode == "baseline":
-            ids, dists, out = ex.execute_baseline(q, k=rp.k)
-            if cost is not None:
-                out = cost.merge(out)
-        else:
-            ids, dists, out = ex.execute(q, k=rp.k, cost=cost)
-        if gid is not None:
-            ids = gid[ids.long()]
+        # a bad plan raises PlanError before the queries are touched
+        with trace.span("query", track="query", layout=self.layout) as sp_q:
+            with trace.span("plan.resolve", track="query"):
+                rp = self.validate(p)
+            q = torch.as_tensor(queries, dtype=torch.float32) \
+                .to(self.index.device).contiguous()
+            sp_q.set_attrs(plan=rp.to_record(), n_queries=int(q.shape[0]))
+            ex, gid = self._compile(rp)
+            if rp.mode == "baseline":
+                ids, dists, out = ex.execute_baseline(q, k=rp.k)
+                if cost is not None:
+                    out = cost.merge(out)
+            else:
+                ids, dists, out = ex.execute(q, k=rp.k, cost=cost)
+            if gid is not None:
+                ids = gid[ids.long()]
         return SearchResult(ids=ids, distances=dists, cost=out, plan=rp)
 
     def _compile(self, rp: QueryPlan) -> tuple:
-        """(executor, row → global id map or None) of a resolved plan.  The
-        static and sharded factories memoize on the index; a streaming
-        index's executors are kept here per (generation, plan)."""
-        if self.layout != "streaming":
-            return self._build(rp)
-        key = (self.generation, rp)
+        """(executor, row → global id map or None) of a resolved plan, kept
+        per (generation, plan); a miss drops the older generations'
+        entries (their fronts hold superseded tensors)."""
+        gen = self.generation
+        key = (gen, rp)
         hit = self._compiled.get(key)
-        if hit is None:
+        trace.event("plan.compile", track="query", cache_hit=hit is not None,
+                    generation=gen, layout=self.layout)
+        if hit is not None:
+            return hit
+        self._compiled = {kk: v for kk, v in self._compiled.items()
+                          if kk[0] == gen}
+        with trace.span("plan.compile.build", track="query",
+                        layout=self.layout, generation=gen):
             hit = self._compiled[key] = self._build(rp)
         return hit
 
@@ -219,6 +253,12 @@ class Database:
                 idx, shards=rp.shards, front=rp.front, backend=rp.backend,
                 micro_batch=rp.micro_batch, refine_budget=rp.refine_budget),
                 torch.from_numpy(gid).to(st.device))
+        if self.layout == "tiered":
+            return make_executor(self.index, front=rp.front,
+                                 backend=rp.backend,
+                                 micro_batch=rp.micro_batch,
+                                 refine_budget=rp.refine_budget,
+                                 layout="tiered"), None
         if self._effective_layout(rp) == "sharded":
             return make_sharded_executor(
                 self.index, shards=self.index.n_shards

@@ -5,9 +5,10 @@ so, never a mid-search error.
 
 A front declares its layouts and a stage factory per layout; a module
 imported later attaches its own layout's factory with
-``add_front_factory`` (``anns.streaming`` does).  The sharded layout
-builds no stage object, its front registers ``ShardedFrontHooks``
-(``anns.sharding`` registers the IVF and graph fronts').
+``add_front_factory`` (``anns.streaming`` and ``anns.tiered`` do).  The
+sharded layout builds no stage object, its front registers
+``ShardedFrontHooks`` (``anns.sharding`` registers the IVF and graph
+fronts').
 """
 
 from __future__ import annotations
@@ -15,9 +16,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable
 
-#: layouts the port runs (the JAX package also has the tiered layout,
-#: which a later slice ports)
-LAYOUTS = ("static", "sharded", "streaming")
+#: the index layouts, as in the JAX package
+LAYOUTS = ("static", "sharded", "streaming", "tiered")
 
 
 class PlanError(ValueError):
@@ -120,13 +120,26 @@ def _not_ported(kind: str, name: str, have) -> PlanError:
                      f"the port has {kind}s {tuple(have)}")
 
 
+def _pair_error(name: str, supported: tuple[str, ...],
+                layout: str) -> PlanError:
+    """A front that does not run on ``layout``: the error names the pair
+    and the fronts that do run there (the JAX package's message)."""
+    alts = sorted(n for n, s in _FRONTS.items() if layout in s.layouts)
+    alt = "/".join(alts).upper() or "NO registered"
+    return PlanError(
+        f"unsupported plan: front {name!r} cannot run on the {layout!r} "
+        f"index layout — front {name!r} supports layouts "
+        f"[{', '.join(supported)}]; the {layout!r} layout supports the "
+        f"{alt} front only (fronts: {alts})")
+
+
 def _front(name: str, layout: str) -> FrontSpec:
     if layout not in LAYOUTS:
         raise _not_ported("layout", layout, LAYOUTS)
     if name not in _FRONTS:
         raise _not_ported("front", name, _FRONTS)
     if layout not in _FRONTS[name].layouts:
-        raise _not_ported("layout", layout, _FRONTS[name].layouts)
+        raise _pair_error(name, _FRONTS[name].layouts, layout)
     return _FRONTS[name]
 
 

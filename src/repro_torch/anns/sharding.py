@@ -62,8 +62,9 @@ import numpy as np
 import torch
 
 from repro_torch.anns import registry
-from repro_torch.anns.executor import (_accumulate, _cat, fold_counts,
-                                       iter_chunks, search_budget)
+from repro_torch.anns.executor import (_accumulate, _attach_ledger, _cat,
+                                       fold_counts, iter_chunks,
+                                       search_budget)
 from repro_torch.anns.stages import (Candidates, Counters, _exact_sq,
                                      _smallest, fold_graph_front_cost,
                                      fold_ivf_front_cost, graph_for,
@@ -71,7 +72,8 @@ from repro_torch.anns.stages import (Candidates, Counters, _exact_sq,
 from repro_torch.core.trq import TRQCodes
 from repro_torch.index import graph as graph_mod
 from repro_torch.kernels.pq_adc import pq_adc
-from repro_torch.memory import QueryCost, RecordLayout
+from repro_torch.memory import QueryCost, RecordLayout, Tier
+from repro_torch.obs import trace
 from repro_torch.quant import pq as pq_mod
 
 
@@ -523,11 +525,32 @@ class ShardedExecutor:
                 cost: QueryCost | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor, QueryCost]:
         """Sharded FaTRQ search: (Q, k) GLOBAL ids, their exact squared-L2
-        distances and the merged per-shard ledger."""
-        ids, dists, shard_counts = self._search(queries, k=k)
-        merged = self._fold(shard_counts)
-        if cost is not None:
-            merged = cost.merge(merged)
+        distances and the merged per-shard ledger.
+
+        Traced, the ``execute`` span carries one ``front`` / ``refine`` /
+        ``rerank`` event each with its stage's modeled time (``fused``:
+        the shards' stages run interleaved, so there is no stage boundary
+        to time apart) and the merged ledger."""
+        si = self.sharded
+        cfg = si.config
+        k = k or cfg.final_k
+        tr = trace.active()
+        with trace.span("execute", track="query", front=si.front,
+                        backend=self.backend.name, k=k,
+                        budget=search_budget(cfg, k, self.refine_budget),
+                        shards=si.n_shards, fused=True,
+                        n_queries=int(queries.shape[0])) as sp_ex:
+            ids, dists, shard_counts = self._search(queries, k=k)
+            merged = self._fold(shard_counts)
+            if tr is not None:
+                for stage, tier in (("front", Tier.HBM),
+                                    ("refine", Tier.CXL),
+                                    ("rerank", Tier.SSD)):
+                    tr.event(stage, track="query", parent=sp_ex.span.sid,
+                             fused=True, model_s=merged.tier_seconds(tier))
+                _attach_ledger(sp_ex, merged)
+            if cost is not None:
+                merged = cost.merge(merged)
         return ids, dists, merged
 
     def _search(self, queries: torch.Tensor, *, k: int | None = None):

@@ -13,6 +13,9 @@
             ``ternary_refine_fused_bounds`` kernel) and runs one alive
             chain over the stacked shards with pooled thresholds.
   rerank  : survivors fetch full-precision vectors ("SSD") for exact L2.
+            On the tiered layout (``anns.tiered``) hot slots are scored
+            exactly before the rerank (``_score_hot``), and their fetches
+            are not SSD reads (``_rerank_survivors_tiered``).
 
 Each stage returns device-side counters (0-d tensors) beside its tensors;
 the executor folds them into a ``QueryCost`` ledger with one host
@@ -62,6 +65,12 @@ class Candidates(NamedTuple):
     # unsharded cuts break exact ties by; the graph front's zeros (Q, 1)
     # say that a shard's slot c is the unsharded beam slot c
     list_rank: torch.Tensor | None = None
+    # (Q, C) int8 ``memory.placement`` TIER_* codes on the tiered layout
+    # (``anns.tiered``) where some list is not warm, else None; the
+    # executor routes on them: hot slots are scored exactly and skip
+    # refinement, cold slots' residual stream bills at SSD rates through
+    # ``is_delta``
+    tier: torch.Tensor | None = None
 
 
 class Refined(NamedTuple):
@@ -314,9 +323,10 @@ def _exact_sq(x: torch.Tensor, queries: torch.Tensor,
     return out
 
 
-def _rerank_survivors(x, queries, ids, est, alive, *, k: int, budget: int):
+def _rerank_fetch(x, queries, ids, est, alive, *, k: int, budget: int):
     """The top-``budget`` survivors by estimate fetch full vectors; exact
-    L2; top-k.  Returns (ids, distances, n_ssd)."""
+    L2; top-k.  Returns (ids, distances, the fetched slots (Q, budget) and
+    which of them were alive)."""
     est_m = torch.where(alive, est, torch.full_like(est, float("inf")))
     order = _smallest(est_m, budget)
     fetch_ids = torch.gather(ids, 1, order)
@@ -325,7 +335,47 @@ def _rerank_survivors(x, queries, ids, est, alive, *, k: int, budget: int):
     d = torch.where(fetch_alive, d, torch.full_like(d, float("inf")))
     best = _smallest(d, k)
     return (torch.gather(fetch_ids, 1, best), torch.gather(d, 1, best),
-            fetch_alive.sum())
+            order, fetch_alive)
+
+
+def _rerank_survivors(x, queries, ids, est, alive, *, k: int, budget: int):
+    """Exact rerank of the top-``budget`` survivors (``_rerank_fetch``).
+    Returns (ids, distances, n_ssd)."""
+    topk, topk_d, _, fetch_alive = _rerank_fetch(x, queries, ids, est, alive,
+                                                 k=k, budget=budget)
+    return topk, topk_d, fetch_alive.sum()
+
+
+def _score_hot(x, queries, ids, hot):
+    """Exact squared L2 of the hot slots (Q, C), +inf elsewhere: the
+    tiered layout's direct scoring of rows that live in HBM.  Only the hot
+    slots' rows are gathered (not every slot's), under ``_RERANK_BYTES`` a
+    step, with ``_exact_sq``'s row formula.  Finding the hot slots
+    synchronizes the host once."""
+    out = torch.full(ids.shape, float("inf"), dtype=x.dtype,
+                     device=x.device)
+    slots = hot.reshape(-1).nonzero().squeeze(1)
+    qi = torch.div(slots, ids.shape[1], rounding_mode="floor")
+    rows = ids.reshape(-1)[slots].long()
+    step = max(1, _RERANK_BYTES // (x.shape[1] * 4))
+    flat = out.view(-1)
+    for a in range(0, slots.numel(), step):
+        d = x[rows[a:a + step]]                     # a fresh gather
+        flat[slots[a:a + step]] = d.sub_(queries[qi[a:a + step]]) \
+            .square_().sum(-1)
+    return out
+
+
+def _rerank_survivors_tiered(x, queries, ids, est, alive, hot, *, k: int,
+                             budget: int):
+    """``_rerank_survivors`` for the tiered layout: the same ids and
+    distances, but the fetches of hot rows (already in HBM) do not count
+    as SSD reads.  Returns (ids, distances, n_ssd, n_hot_fetch)."""
+    topk, topk_d, order, fetch_alive = _rerank_fetch(
+        x, queries, ids, est, alive, k=k, budget=budget)
+    fetch_hot = torch.gather(hot, 1, order) & fetch_alive
+    return (topk, topk_d, (fetch_alive & ~fetch_hot).sum(),
+            fetch_hot.sum())
 
 
 def _rerank_all(x, queries, ids, valid, *, k: int):
@@ -374,10 +424,11 @@ def make_graph_front(index, *, graph_index: graph_mod.GraphIndex | None = None,
                            pq_codes=index.pq_codes, **opts)
 
 
-# the streaming layout's factories are attached by ``anns.streaming``
-registry.register_front("ivf", layouts=("static", "sharded", "streaming"),
+# the streaming and tiered layouts' factories are attached by
+# ``anns.streaming`` and ``anns.tiered``
+registry.register_front("ivf", layouts=registry.LAYOUTS,
                         make={"static": make_ivf_front})
-registry.register_front("graph", layouts=("static", "sharded", "streaming"),
+registry.register_front("graph", layouts=registry.LAYOUTS,
                         make={"static": make_graph_front})
 registry.register_backend("reference", make=ReferenceRefineBackend)
 registry.register_backend("cuda", make=CudaRefineBackend)

@@ -68,6 +68,7 @@ from repro_torch.device import chunks
 from repro_torch.index import graph as graph_mod
 from repro_torch.index import ivf as ivf_mod
 from repro_torch.memory import QueryCost
+from repro_torch.obs import metrics as obs_metrics, trace
 from repro_torch.quant import pq as pq_mod
 from repro_torch.quant.kmeans import assign
 
@@ -345,6 +346,27 @@ class StreamingIndex:
             # device memory (GBs at 1M rows) once it is dropped
             gc.collect()
 
+    def _observe_mutation(self, op: str, **attrs) -> None:
+        """Mutation observability: always the mutation counter by op and
+        the tombstone and delta-fraction gauges; while tracing, an
+        ``index.<op>`` event with the whole ``drift()`` (which reruns
+        ``lpt_assign`` under a shard assignment, too dear untraced)."""
+        reg = obs_metrics.active()
+        reg.counter("streaming_mutations_total", "index mutations by op",
+                    labelnames=("op",)).labels(op=op).inc()
+        live, tomb = self.n_live, self.n_tombstones
+        reg.gauge("streaming_tombstone_frac",
+                  "tombstoned fraction of tracked rows").set(
+                      tomb / max(live + tomb, 1))
+        reg.gauge("streaming_delta_frac",
+                  "delta-page rows over live rows").set(
+                      self.n_delta_rows / max(live, 1))
+        if trace.active() is not None:
+            payload = {"generation": self.generation, "n_live": live,
+                       **self.drift()}
+            payload.update(attrs)
+            trace.event(f"index.{op}", track="index", **payload)
+
     def _grow_rows(self, need: int) -> None:
         new_cap = max(need, 2 * self.cap_rows)
         self.pq_codes = _pad_rows(self.pq_codes, new_cap)
@@ -414,6 +436,7 @@ class StreamingIndex:
         self.delta_len += counts
 
         self._invalidate()
+        self._observe_mutation("insert", n=b)
         if self.scfg.auto_compact:
             self.maybe_compact()
         return gids
@@ -437,6 +460,7 @@ class StreamingIndex:
         self.n_tombstones += gids.size
         self._n_live -= gids.size
         self._invalidate()
+        self._observe_mutation("delete", n=int(gids.size))
         if self.scfg.auto_compact:
             self.maybe_compact()
         return int(gids.size)
@@ -494,6 +518,8 @@ class StreamingIndex:
         self.n_tombstones = 0
         self._n_base = n_live
         self._invalidate()
+        self._observe_mutation("compact", folded_delta_rows=folded,
+                               dropped_tombstones=dropped)
         return {"folded_delta_rows": folded, "dropped_tombstones": dropped,
                 "n_live": n_live}
 
@@ -517,6 +543,8 @@ class StreamingIndex:
         self._n_shards = n_shards
         stats["shard_loads"] = [int(self.base_len[m].sum()) for m in members]
         self._invalidate()
+        self._observe_mutation("rebalance", moved_rows=stats["moved_rows"],
+                               shard_loads=stats["shard_loads"])
         return stats
 
     def maybe_compact(self) -> dict | None:

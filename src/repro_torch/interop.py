@@ -9,6 +9,9 @@ Keys are the JAX ``FaTRQIndex`` field paths: ``codebook.codebooks``,
 ``graph.start`` (the JAX search's start draw,
 ``jax.random.randint(PRNGKey(0), (beam,), 0, n)``), which go into the
 port's graph cache so that both packages traverse one graph.
+
+``tiered_from_numpy`` carries a JAX ``TieredIndex`` across: the inner
+index through ``index_from_numpy``, then its placement state as numpy.
 """
 
 from __future__ import annotations
@@ -18,12 +21,14 @@ import torch
 
 from repro_torch.anns.pipeline import FaTRQIndex, PipelineConfig
 from repro_torch.anns.stages import keep_graph
+from repro_torch.anns.tiered import TieredIndex
 from repro_torch.core.calibration import CalibrationModel
 from repro_torch.core.decomposition import RecordScalars
 from repro_torch.core.trq import TRQCodes, TRQLevel
 from repro_torch.device import resolve_device
 from repro_torch.index.graph import GraphIndex, draw_start
 from repro_torch.index.ivf import IVFIndex
+from repro_torch.memory.placement import TieredConfig
 from repro_torch.quant.pq import PQCodebook
 
 
@@ -58,3 +63,26 @@ def index_from_numpy(arrays: dict[str, np.ndarray], config: PipelineConfig,
             draw_start(x.shape[0], torch.Generator(device=dev).manual_seed(0))
         keep_graph(index, GraphIndex(neighbors=neighbors, start=start))
     return index
+
+
+def tiered_from_numpy(arrays: dict[str, np.ndarray], placement: dict,
+                      config: PipelineConfig, *, device=None,
+                      tiered: TieredConfig | None = None) -> TieredIndex:
+    """The port's ``TieredIndex`` in a JAX ``TieredIndex``'s state:
+    ``arrays`` are its inner index's leaves (``index_from_numpy``);
+    ``placement`` holds ``list_tier`` (JAX ``ti.list_tier``), ``heat``
+    (``ti.heat.heat``), ``observations`` (``ti.heat.observations``) and
+    ``generation``; ``tiered`` is the JAX index's ``TieredConfig``
+    (default: the default config)."""
+    ti = TieredIndex(index_from_numpy(arrays, config, device=device), tiered)
+    tier = np.asarray(placement["list_tier"], np.int8)
+    heat = np.asarray(placement["heat"], np.float64)
+    if tier.shape != ti.list_tier.shape or heat.shape != ti.heat.heat.shape:
+        raise ValueError(f"placement of {tier.shape[0]} lists and heat of "
+                         f"{heat.shape[0]} for an index of "
+                         f"{ti.list_tier.shape[0]} lists")
+    ti.list_tier = tier.copy()
+    ti.heat.heat = heat.copy()
+    ti.heat.observations = int(placement["observations"])
+    ti.generation = int(placement["generation"])
+    return ti
