@@ -77,6 +77,31 @@ Phases, each of which raises on failure:
 5. the plain ``reference`` backend on the card over a subset of queries
    must give the same ids and ledger as the ``cuda`` backend, unsharded
    and sharded, on both fronts;
+   then the serving path: each query-side op of the IVF and graph paths
+   on one query alone and inside a 64-row bucket padded from 37, printed
+   as bit-equal or not; ``pq_adc`` and the fused kernel on that padded
+   bucket against their plain versions (+inf and no survivor or count in
+   a padded row; est within tolerance on the valid slots, alive and
+   counts exact); ``Retriever`` with the 1000 queries sent as calls of
+   ragged sizes (37, 5, 64, 1, ...), ``bucket=True`` against
+   ``bucket=False``: ids, distances and ledgers bit-equal call by call,
+   and with buckets ``pq_adc`` sees only query counts 1, 2, 4, ... 64, on
+   the static and the sharded (``--shards``) layouts here, on the
+   rebalanced tiered index (Zipfian queries) at the end of phase 6 and
+   on the streaming index mid-churn in phase 7's round 0; then
+   ``ServingEngine`` on the static IVF fatrq plan (``max_batch=64``,
+   ``max_wait_us=200``): 4096 requests every 10 us of virtual time drawn
+   by a Zipf(1.1) rank over the queries, every 4th from a tenant
+   throttled by a token bucket, with a result cache: every response
+   (hits too) equal to a sequential ``db.query`` of its query under its
+   class plan, ids and distances bit for bit, with the double buffer on
+   and off, ``total_cost`` equal to the sum of the misses' sequential
+   ledgers, and without the cache overlap on and off equal row by row on
+   the same batches; hits, misses, batches and padded slots, the
+   modelled (virtual-clock) latencies, requests/s to drain with overlap
+   on, off and ``batching=False`` (host clock, median of 5, in turns),
+   and one profiled overlap-on run: device busy, idle share and how long
+   the fronts' stream and the refines' stream ran kernels at once;
 6. the tiered layout: a never-rebalanced ``TieredIndex`` must give the
    static fatrq and graph paths' ids, distances and ledgers bit for bit;
    a cold-only placement (``TieredConfig(hot_rows_frac=0.0,
@@ -128,10 +153,18 @@ Phases, each of which raises on failure:
    ``pq_adc`` and the fused kernel on both streaming fronts and of the
    bounds kernel on the sharded ones must be non-zero.  Then the peak
    device memory, which must stay under 70 GB;
-8. print one ``kernels`` JSON line (the three kernels of the graph paths
+8. invalidation: one ``ServingEngine`` with a cache over a
+   ``StreamingIndex`` of the 1M index runs 1024 requests, takes 20,000
+   inserted near-copies of the queries' true neighbours, and runs them
+   again; then over a ``TieredIndex`` on Zipfian queries around a
+   ``rebalance_tiers()``.  Each mutation must purge the cache and every
+   response after it equal a fresh sequential ``db.query``;
+9. print one ``kernels`` JSON line (the three kernels of the graph paths
    with a ``graph`` entry: their numbers at the graph shapes; ``pq_adc``
    and the fused kernel with ``streaming`` and ``tiered`` entries at the
-   streaming IVF and tiered shapes), then the result line ``{"ok": true,
+   streaming IVF and tiered shapes, and ``serving`` entries at the
+   padded bucket with the engine's launches), then the result line
+   ``{"ok": true,
    "device": {...}}`` last.
 
 It exits non-zero with no result when no GPU is present, or when the
@@ -1140,10 +1173,13 @@ def streaming_kernels(torch, st, cfg, q64, lut64) -> tuple[dict, dict]:
 
 
 def streaming_phase(torch, args, cfg, index, ds, q64, lut64, launches,
-                    reset_launches, read_launches) -> tuple[dict, dict]:
+                    reset_launches, read_launches,
+                    serve_check) -> tuple[dict, dict]:
     """Wrap the built index in a ``StreamingIndex`` and drive rounds of
-    churn through ``Database.query`` (see the module docstring); returns
-    the ``pq_adc`` and fused-kernel rows at the streaming IVF shape."""
+    churn through ``Database.query`` (see the module docstring); in round
+    0, mid-churn, ``serve_check("streaming", index, queries)`` runs the
+    ``Retriever`` check; returns the ``pq_adc`` and fused-kernel rows at
+    the streaming IVF shape."""
     import numpy as np
     from repro_torch.anns import (Database, QueryPlan, StreamingConfig,
                                   StreamingIndex, recall_at_k)
@@ -1292,6 +1328,7 @@ def streaming_phase(torch, args, cfg, index, ds, q64, lut64, launches,
         print(f"streaming round {rnd}: the reference backend on 64 queries "
               f"gives the cuda backend's ids and ledger, both fronts")
         if rnd == 0:
+            serve_check("streaming", st, queries)
             rows["adc"], rows["refine"] = streaming_kernels(
                 torch, st, cfg, q64, lut64)
             runs = {"streaming": [], "streaming_graph": []}
@@ -1474,13 +1511,15 @@ def tiered_kernels(torch, ti, cold_ti, cfg, q64, cq64, stores2,
 
 
 def tiered_phase(torch, args, cfg, db, ds, results, stores2, launches,
-                 reset_launches, read_launches) -> tuple[dict, dict]:
+                 reset_launches, read_launches,
+                 serve_check) -> tuple[dict, dict]:
     """The tiered layout on the 1M index (see the module docstring):
     all-warm and cold-only against the static answers, the Zipfian trace
     before and after ``rebalance_tiers()``, the kernels at the tiered
-    shape, queries/s, a profiled hot pass, and one traced query batch and
-    rebalance; returns the ``pq_adc`` and fused-kernel rows at the tiered
-    shape."""
+    shape, queries/s, a profiled hot pass, one traced query batch and
+    rebalance, then ``serve_check("tiered", index, queries)`` (the
+    ``Retriever`` check) on the rebalanced index and the Zipfian queries;
+    returns the ``pq_adc`` and fused-kernel rows at the tiered shape."""
     import tempfile
     from repro_torch.anns import (Database, QueryPlan, TieredConfig,
                                   TieredIndex, recall_at_k)
@@ -1689,7 +1728,553 @@ def tiered_phase(torch, args, cfg, db, ds, results, stores2, launches,
         print(f"tiered traced {stage}: measured {wall:.6f} s, modelled "
               f"{model:.6f} s, drift ratio {wall / model:.4f} overall, mean "
               f"per micro-batch {drift[stage]:.4f}")
+    serve_check("tiered", hot_ti, zq)
     return rows
+
+
+# ---- the serving phase
+# ragged Retriever call sizes, cycled until the queries run out
+SERVE_SIZES = (37, 5, 64, 1, 23, 50, 2, 64, 17, 9, 33, 3, 48, 11, 60, 29, 7,
+               4, 41, 13)
+SERVE_REQUESTS, SERVE_ZIPF, SERVE_GAP_US = 4096, 1.1, 10.0
+# the throttled tenant (every 4th request, ~25,000 requests/s of virtual
+# time): its sustained rate and burst
+SERVE_BUSY_RPS, SERVE_BUSY_BURST = 2000.0, 8.0
+SERVE_INVALIDATE = 1024        # requests per run of the invalidation checks
+BUCKETS = frozenset(1 << i for i in range(7))     # 1, 2, ..., 64
+
+
+def ragged(n: int) -> list[tuple[int, int]]:
+    """(start, stop) of calls of ``SERVE_SIZES`` sizes covering n rows."""
+    out, at = [], 0
+    while at < n:
+        b = min(SERVE_SIZES[len(out) % len(SERVE_SIZES)], n - at)
+        out.append((at, at + b))
+        at += b
+    return out
+
+
+def retriever_check(torch, label: str, index, queries, launches,
+                    reset_launches, read_launches, *, needs,
+                    shards: int | None = None) -> None:
+    """``Retriever`` over one layout with the queries sent as calls of
+    ragged sizes, ``bucket=True`` and ``bucket=False``: ids, distances and
+    ledger bit-equal call by call.  The query counts that reach
+    ``pq_adc`` (the front's last launch; every later kernel of the path
+    takes the same batch) are recorded: with buckets only powers of two up
+    to the micro-batch of 64.  The bucketed run's launches are counted."""
+    from repro_torch.anns import sharding, stages
+    from repro_torch.serving import Retriever
+    ledger = lambda c: {key: (v.accesses, v.bytes)          # noqa: E731
+                        for key, v in c.ledger.items()}
+    calls = ragged(queries.shape[0])
+    adc = stages.pq_adc
+    out, seen, secs = {}, {}, {}
+    for bucket in (True, False):
+        shapes = seen[bucket] = set()
+
+        def record(codes, ids, valid, lut, _shapes=shapes):
+            _shapes.add(int(ids.shape[0]))
+            return adc(codes, ids, valid, lut)
+
+        r = Retriever(index=index, backend="cuda", shards=shards,
+                      micro_batch=64, bucket=bucket)
+        saved = stages.pq_adc, sharding.pq_adc
+        stages.pq_adc = sharding.pq_adc = record
+        try:
+            if bucket:
+                reset_launches()
+            res, secs[bucket] = timed(torch, lambda: [
+                r.query(queries[a:b], k=10) for a, b in calls])
+            if bucket:
+                launches[f"serving_{label}"] = read_launches()
+        finally:
+            stages.pq_adc, sharding.pq_adc = saved
+        out[bucket] = res
+    for (a, b), got, want in zip(calls, out[True], out[False]):
+        if not (torch.equal(got.ids, want.ids)
+                and torch.equal(got.distances, want.distances)
+                and ledger(got.cost) == ledger(want.cost)):
+            fail(f"Retriever {label}: the bucketed call of {b - a} queries "
+                 f"differs from the unbucketed one")
+    if not seen[True] <= BUCKETS:
+        fail(f"Retriever {label}: bucketed calls reached pq_adc at query "
+             f"counts {sorted(seen[True] - BUCKETS)}")
+    if seen[False] <= BUCKETS:
+        fail(f"Retriever {label}: unbucketed calls reached pq_adc only at "
+             f"bucket shapes; the shape record is void")
+    for name in needs:
+        if launches[f"serving_{label}"][name] == 0:
+            fail(f"Retriever {label}: never launched {name}")
+    print(f"Retriever {label}: {queries.shape[0]} queries in {len(calls)} "
+          f"calls of ragged sizes, bucket=True and bucket=False give "
+          f"bit-equal ids, distances and ledgers; pq_adc saw query counts "
+          f"{sorted(seen[True])} bucketed, {len(seen[False])} distinct "
+          f"unbucketed; {secs[True]:.3f} s bucketed, {secs[False]:.3f} s "
+          f"not; launches {launches[f'serving_{label}']}")
+
+
+def shape_invariance(torch, db, cfg, queries) -> dict:
+    """Each query-side op of the IVF and graph paths on query 0 alone
+    (Q = 1) and inside a 64-row bucket padded from 37: bit-equal or not,
+    op by op.  Printed for the record; the serving checks below are the
+    gate on the answers."""
+    from repro_torch.anns import QueryPlan, stages
+    from repro_torch.anns.executor import pad_chunk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_refine as tr
+    from repro_torch.quant import pq as pq_mod
+    index = db.index
+    q1 = queries[:1].contiguous()
+    qpad, qvalid = pad_chunk(queries[:37].contiguous(), 64)
+    front = db.executor_for(QueryPlan(backend="cuda")).front
+    gfront = db.executor_for(QueryPlan(front="graph", backend="cuda")).front
+    backend = db.executor_for(QueryPlan(backend="cuda")).backend
+    same = {}
+    d1 = stages.rank_centroid_lists(index.ivf.centroids, q1,
+                                    nprobe=cfg.nprobe)[0]
+    dp = stages.rank_centroid_lists(index.ivf.centroids, qpad,
+                                    nprobe=cfg.nprobe)[0]
+    same["centroid distances (stages.rank_centroid_lists)"] = torch.equal(
+        d1[0], dp[0])
+    same["ADC tables (pq.adc_table)"] = torch.equal(
+        pq_mod.adc_table(index.codebook, q1)[0],
+        pq_mod.adc_table(index.codebook, qpad)[0])
+    c1, cp = front.candidates(q1), front.candidates(qpad, qvalid=qvalid)
+    same["IVF candidates and d0 (pq_adc)"] = torch.equal(
+        c1.ids[0], cp.ids[0]) and torch.equal(c1.d0[0], cp.d0[0])
+    kw = dict(k=cfg.final_k, bound=cfg.bound, z=cfg.z)
+    stores = backend.stores(index.trq)
+    r1 = tr.ternary_refine_fused(stores, q1, c1.ids, c1.d0, c1.valid, None,
+                                 index.trq.model, **kw)
+    rp = tr.ternary_refine_fused(stores, qpad, cp.ids, cp.d0, cp.valid,
+                                 None, index.trq.model, **kw)
+    same["est and alive (ternary_refine_fused)"] = torch.equal(
+        r1[0][0], rp[0][0]) and torch.equal(r1[1][0], rp[1][0])
+    for c in (40, 10):            # the budget, and a degraded budget
+        ids_c = cp.ids[:, :c].contiguous()
+        same[f"exact L2 over {c} fetched rows (stages._exact_sq)"] = \
+            torch.equal(stages._exact_sq(index.x, q1, ids_c[:1])[0],
+                        stages._exact_sq(index.x, qpad, ids_c)[0])
+    model = index.trq.model
+    same["query norm (ops.query_params)"] = torch.equal(
+        ops.query_params(q1, model.w, model.bias, model.resid_std,
+                         cfg.z)[0],
+        ops.query_params(qpad, model.w, model.bias, model.resid_std,
+                         cfg.z)[0])
+    g1, gp = gfront.candidates(q1), gfront.candidates(qpad, qvalid=qvalid)
+    same["graph beam and d0 (graph.search, pq_adc)"] = torch.equal(
+        g1.ids[0], gp.ids[0]) and torch.equal(g1.d0[0], gp.d0[0])
+    for op, eq in same.items():
+        print(f"batch-shape invariance, Q=1 against a padded bucket of 64: "
+              f"{op}: {'bit-equal' if eq else 'DIFFERS'}")
+    return same
+
+
+def padded_kernels(torch, db, cfg, queries) -> tuple[dict, dict]:
+    """``pq_adc`` and the fused refine kernel on one padded bucket (37
+    queries padded to 64: rows 37..63 have no valid slot) against their
+    plain versions: d0 within tolerance and +inf on exactly the invalid
+    slots; est within tolerance on the valid slots; alive and counts
+    exact, none in a padded row.  Returns their rows."""
+    from repro_torch.anns import QueryPlan
+    from repro_torch.anns.executor import pad_chunk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pq_adc as pq_adc_mod
+    from repro_torch.kernels import ternary_refine as tr
+    from repro_torch.quant import pq as pq_mod
+    index = db.index
+    qpad, qvalid = pad_chunk(queries[:37].contiguous(), 64)
+    ex = db.executor_for(QueryPlan(backend="cuda"))
+    cand = ex.front.candidates(qpad, qvalid=qvalid)
+    if bool(cand.valid[37:].any()):
+        fail("a padded row of the bucket has a valid slot")
+    lut = pq_mod.adc_table(index.codebook, qpad)
+    d0, adc = check_adc(torch, pq_adc_mod, index.pq_codes, cand.ids,
+                        cand.valid, lut, "padded bucket (37 of 64 rows)")
+    if not torch.equal(d0, cand.d0):
+        fail("pq_adc padded bucket: the front's d0 differs from a second "
+             "call's")
+    adc["library_ms"], lib_d = adc_library(torch, index.pq_codes, cand.ids,
+                                           lut)
+    ok, lib_err = close(lib_d[cand.valid], d0[cand.valid], ADC_ATOL,
+                        ADC_RTOL)
+    if not ok:
+        fail(f"embedding_bag disagrees with pq_adc at the padded bucket "
+             f"({lib_err})")
+    del lib_d
+    stores, model = ex.backend.stores(index.trq), index.trq.model
+    args = (stores, qpad, cand.ids, cand.d0, cand.valid, None, model)
+    kw = dict(k=cfg.final_k, bound="cauchy", z=cfg.z)
+    est, alive, counts = tr.ternary_refine_fused(*args, **kw)
+    planes = ops.make_query_planes(qpad, stores.packed[0].shape[1])
+    params = ops.query_params(qpad, model.w, model.bias, model.resid_std,
+                              cfg.z)
+    p_est, p_alive, p_counts, _ = tr.refine_plain(
+        stores, planes, params, cand.ids, cand.d0, cand.valid, None,
+        k=cfg.final_k, bound="cauchy")
+    torch.cuda.synchronize()
+    ok, err = close(est[cand.valid], p_est[cand.valid], EST_TOL, EST_TOL)
+    if not ok:
+        fail(f"ternary_refine_fused padded bucket: est off on valid slots "
+             f"(max err {err})")
+    if not (torch.equal(alive, p_alive) and torch.equal(counts, p_counts)):
+        fail(f"ternary_refine_fused padded bucket: alive or counts differ "
+             f"from the plain version ({int((alive != p_alive).sum())} "
+             f"alive slots)")
+    if bool(alive[37:].any()) or bool(counts[37:].any()):
+        fail("ternary_refine_fused padded bucket: a padded row has a "
+             "survivor or a count")
+    refine = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: tr.ternary_refine_fused(*args, **kw), 20),
+        plain_ms=time_ms(lambda: tr.refine_plain(
+            stores, planes, params, *args[2:6], k=cfg.final_k,
+            bound="cauchy"), 3),
+        library_ms=None, **refine_cost(torch, stores, cand, qpad))
+    print(f"ternary_refine_fused padded bucket: est within {err:.3g} on "
+          f"valid slots, alive and counts exact, no survivor in the 27 "
+          f"padded rows; {refine['ms']:.4f} ms per call (bound "
+          f"{refine['bound_ms']:.4f} ms), plain {refine['plain_ms']:.3f} ms")
+    return adc, refine
+
+
+def kernel_streams(torch, fn) -> dict | None:
+    """One run of ``fn`` under ``torch.profiler`` (device activity only):
+    each CUDA stream's kernels as the exported Chrome trace gives them
+    (``args.stream``), the device's busy time (the union of all kernel
+    intervals) over the span from the first kernel's start to the last
+    one's end, and the time during which a kernel of the stream that ran
+    ``adc_kernel`` (the fronts) and one of the stream that ran
+    ``score_kernel`` (the refines) were both running.  None when the
+    profiler recorded no kernel."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kern = [(e["args"].get("stream"), float(e["ts"]),
+             float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
+            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    if not kern:
+        return None
+
+    def union(iv):
+        out = []
+        for a, b in sorted(iv):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    def overlap(u, v):
+        total, i, j = 0.0, 0, 0
+        while i < len(u) and j < len(v):
+            total += max(0.0, min(u[i][1], v[j][1]) - max(u[i][0], v[j][0]))
+            if u[i][1] < v[j][1]:
+                i += 1
+            else:
+                j += 1
+        return total
+
+    streams = {}
+    for s, a, b, name in kern:
+        streams.setdefault(s, []).append((a, b, name))
+    front = {s for s, _, _, n in kern if "adc_kernel" in n}
+    refine = {s for s, _, _, n in kern if "score_kernel" in n}
+    span = max(b for _, _, b, _ in kern) - min(a for _, a, _, _ in kern)
+    busy = sum(b - a for a, b in union([(a, b) for _, a, b, _ in kern]))
+    out = {"span_ms": span / 1e3, "busy_ms": busy / 1e3,
+           "idle_share": 1.0 - busy / span, "front_streams": sorted(front),
+           "refine_streams": sorted(refine),
+           "kernels_by_stream": {s: len(v) for s, v in streams.items()}}
+    if len(front) == 1 and len(refine) == 1 and front != refine:
+        uf = union([(a, b) for a, b, _ in streams[next(iter(front))]])
+        ur = union([(a, b) for a, b, _ in streams[next(iter(refine))]])
+        out.update(front_busy_ms=sum(b - a for a, b in uf) / 1e3,
+                   refine_busy_ms=sum(b - a for a, b in ur) / 1e3,
+                   overlap_ms=overlap(uf, ur) / 1e3)
+    return out
+
+
+def zipf_picks(n_queries: int, n: int, seed: int):
+    """``n`` query indices: Zipf(``SERVE_ZIPF``) ranks over a random order
+    of the ``n_queries`` queries, so popular queries repeat."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, n_queries + 1, dtype=np.float64) ** SERVE_ZIPF
+    order = rng.permutation(n_queries)
+    return order[rng.choice(n_queries, size=n, p=p / p.sum())]
+
+
+def check_responses(torch, label: str, db, eng, resp, picks, queries,
+                    seq: dict) -> None:
+    """Every response equals a sequential ``db.query`` of its query under
+    its class plan (ids and distances bit for bit), cache hits included;
+    the engine's ``total_cost`` equals the sum of the sequential ledgers
+    over the misses.  ``seq`` keeps the sequential answers by (query,
+    degraded) across calls."""
+    import numpy as np
+    from repro_torch.memory import QueryCost
+    for r in resp:
+        key = (int(picks[r.rid]), r.degraded)
+        if key not in seq:
+            seq[key] = db.query(queries[key[0]][None],
+                                plan=eng._class_plan(eng.base_plan.k,
+                                                     r.degraded))
+    total = QueryCost()
+    bad = []
+    for r in resp:
+        ref = seq[(int(picks[r.rid]), r.degraded)]
+        if not (np.array_equal(r.ids, ref.ids[0].cpu().numpy()) and
+                np.array_equal(r.distances, ref.distances[0].cpu().numpy())):
+            bad.append(r)
+        if not r.cache_hit:
+            total.merge(ref.cost)
+    if bad:
+        r = bad[0]
+        fail(f"{label}: {len(bad)} responses differ from a sequential "
+             f"db.query of their query (first: rid {r.rid}, batch {r.batch},"
+             f" cache hit {r.cache_hit}, degraded {r.degraded})")
+    ledger = lambda c: {key: (v.accesses, v.bytes)          # noqa: E731
+                        for key, v in c.ledger.items()}
+    if ledger(eng.total_cost) != ledger(total):
+        fail(f"{label}: total_cost {ledger(eng.total_cost)} is not the sum "
+             f"of the sequential ledgers of the misses {ledger(total)}")
+
+
+def finish_waits_not_on_fronts(torch, db, host) -> None:
+    """The double buffer's retire (the current stream's wait on the
+    front's event, then ``run_finish`` and its blocking counter copy)
+    must not wait for the engine's side stream: with a front in flight
+    and ~1 s of sleep queued on the side stream behind it, the retire
+    returns while the side stream is still busy."""
+    from repro_torch.anns import QueryPlan
+    from repro_torch.serving import Request, ServingEngine
+    eng = ServingEngine(db, plan=QueryPlan(backend="cuda"), max_batch=64)
+    responses = []
+    for i in range(64):
+        eng._admit(Request(query=host[i], rid=i), responses, None)
+    eng._dispatch_ready(responses, drain=True)       # the front, in flight
+    with torch.cuda.stream(eng._side):
+        torch.cuda._sleep(2_000_000_000)             # a later front, ~1 s
+    t = time.perf_counter()
+    eng._retire_inflight(responses)
+    retire_s = time.perf_counter() - t
+    busy = not eng._side.query()
+    torch.cuda.synchronize()
+    if not busy or len(responses) != 64:
+        fail(f"engine: the retire waited for the side stream ({retire_s:.3f}"
+             f" s, side stream busy after it: {busy})")
+    print(f"engine: a retire returned in {retire_s * 1e3:.3f} ms while ~1 s "
+          f"of work was still queued on the fronts' stream (the finish's "
+          f"host copy waits for the current stream only)")
+
+
+def engine_phase(torch, args, cfg, db, ds, launches, reset_launches,
+                 read_launches) -> None:
+    """``ServingEngine`` on the static IVF fatrq plan (see the module
+    docstring): bit-identity to sequential ``db.query`` on every row,
+    overlap on ≡ off, the cache, requests/s to drain, and one profiled
+    run's streams."""
+    import numpy as np
+    from repro_torch.anns import QueryPlan
+    from repro_torch.serving import (Request, ResultCache, ServingEngine,
+                                     TenantQoS)
+    host = ds.queries.cpu()
+    picks = zipf_picks(host.shape[0], SERVE_REQUESTS, args.seed + 7)
+
+    def requests():
+        return [Request(query=host[picks[i]],
+                        tenant="busy" if i % 4 == 0 else "t0",
+                        arrival_us=i * SERVE_GAP_US, rid=i)
+                for i in range(SERVE_REQUESTS)]
+
+    def engine(cache=True, **kw):
+        return ServingEngine(
+            db, plan=QueryPlan(backend="cuda"), max_batch=64,
+            max_wait_us=200.0,
+            cache=ResultCache(capacity=4096) if cache else None,
+            qos={"busy": TenantQoS(rate_rps=SERVE_BUSY_RPS,
+                                   burst=SERVE_BUSY_BURST)}, **kw)
+
+    engine().run(requests()[:256])                  # warm-up
+    torch.cuda.synchronize()
+    finish_waits_not_on_fronts(torch, db, host)
+    reset_launches()
+    eng = engine()
+    resp, on_s = timed(torch, lambda: eng.run(requests()))
+    launches["serving_engine"] = read_launches()
+    for name in ("pq_adc", "ternary_refine_fused"):
+        if launches["serving_engine"][name] == 0:
+            fail(f"the engine never launched {name}")
+    off = engine(overlap=False)
+    resp_off = off.run(requests())
+    seq = {}
+    check_responses(torch, "engine (overlap on)", db, eng, resp, picks,
+                    ds.queries, seq)
+    check_responses(torch, "engine (overlap off)", db, off, resp_off, picks,
+                    ds.queries, seq)
+    # overlap on ≡ off row by row on the same batches: without the cache
+    # (with it, a repeat that arrives while its first copy is in flight
+    # misses with overlap on and hits with it off, and the token bucket
+    # is charged for misses only)
+    plain = [engine(cache=False, overlap=o) for o in (True, False)]
+    a_resp, b_resp = (e.run(requests()) for e in plain)
+    if plain[0].batch_log != plain[1].batch_log:
+        fail("engine without cache: overlap on and off formed different "
+             "batches")
+    for a, b in zip(a_resp, b_resp):
+        if not (a.rid == b.rid and np.array_equal(a.ids, b.ids)
+                and np.array_equal(a.distances, b.distances)
+                and a.degraded == b.degraded):
+            fail(f"engine without cache: overlap on and off differ at rid "
+                 f"{a.rid}")
+    check_responses(torch, "engine without cache (overlap on)", db,
+                    plain[0], a_resp, picks, ds.queries, seq)
+    hits = [r for r in resp if r.cache_hit]
+    st = eng.stats
+    if not hits or not st.degraded:
+        fail(f"engine: the trace made {len(hits)} cache hits and "
+             f"{st.degraded} degraded requests")
+    lat = np.array([r.latency_us for r in resp])
+    print(f"engine (static IVF fatrq, max_batch 64, max_wait 200 us, "
+          f"{SERVE_REQUESTS} requests every {SERVE_GAP_US} us, Zipf "
+          f"{SERVE_ZIPF} over {host.shape[0]} queries, tenant 'busy' every "
+          f"4th request at {SERVE_BUSY_RPS} rps burst {SERVE_BUSY_BURST}): "
+          f"{st.cache_hits} hits, {st.requests - st.cache_hits} misses, "
+          f"{st.batches} batches, {st.padded_slots} padded slots, "
+          f"{st.degraded} degraded; {len(seq)} distinct (query, class) "
+          f"answers; every response equal to a sequential db.query of its "
+          f"query under its class plan (overlap on and off, with the "
+          f"cache), total_cost equal to the sum of the misses' sequential "
+          f"ledgers; without the cache ({plain[0].stats.batches} batches) "
+          f"overlap on and off equal on every row; launches "
+          f"{launches['serving_engine']}")
+    print(f"engine modelled latency (virtual clock, tier model, not "
+          f"measured): p50 {np.percentile(lat, 50):.1f} us, p99 "
+          f"{np.percentile(lat, 99):.1f} us, drain at "
+          f"{max(r.done_us for r in resp):.1f} us")
+    runs = {"overlap on": [], "overlap off": [], "batching off": []}
+    kws = {"overlap on": {}, "overlap off": {"overlap": False},
+           "batching off": {"batching": False}}
+    for _ in range(5):
+        for label, kw in kws.items():
+            e, reqs = engine(**kw), requests()
+            runs[label].append(timed(torch, lambda: e.run(reqs))[1])
+    for label, r in runs.items():
+        secs = sorted(r)[len(r) // 2]
+        print(f"engine {label}: {SERVE_REQUESTS / secs:.1f} requests/s to "
+              f"drain (host clock, median of {[round(x, 6) for x in r]} s)")
+    e, reqs = engine(), requests()
+    prof = kernel_streams(torch, lambda: e.run(reqs))
+    if prof is None:
+        print("engine profiled: not measured (the profiler recorded no "
+              "kernel)")
+        return
+    print(f"engine profiled (overlap on): device busy "
+          f"{prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms span, "
+          f"idle share {prof['idle_share']:.4f}; kernels by stream "
+          f"{prof['kernels_by_stream']}; fronts (adc_kernel) on "
+          f"{prof['front_streams']}, refines (score_kernel) on "
+          f"{prof['refine_streams']}")
+    if "overlap_ms" not in prof:
+        fail("engine: the fronts and the refines did not run on two "
+             "streams")
+    print(f"engine profiled: front stream busy {prof['front_busy_ms']:.3f} "
+          f"ms, refine stream busy {prof['refine_busy_ms']:.3f} ms, both "
+          f"running at once {prof['overlap_ms']:.3f} ms")
+
+
+def serving_phase(torch, args, cfg, db, ds, launches, reset_launches,
+                  read_launches) -> tuple[dict, dict]:
+    """The serving phase on the static index (see the module docstring);
+    returns the ``pq_adc`` and fused-kernel rows at the padded bucket."""
+    shape_invariance(torch, db, cfg, ds.queries)
+    adc, refine = padded_kernels(torch, db, cfg, ds.queries)
+    retriever_check(torch, "static", db.index, ds.queries, launches,
+                    reset_launches, read_launches,
+                    needs=("pq_adc", "ternary_refine_fused"))
+    retriever_check(torch, "sharded", db.index, ds.queries, launches,
+                    reset_launches, read_launches, shards=args.shards,
+                    needs=("pq_adc", "ternary_refine_fused_bounds"))
+    engine_phase(torch, args, cfg, db, ds, launches, reset_launches,
+                 read_launches)
+    return adc, refine
+
+
+def invalidation_phase(torch, args, cfg, index, ds) -> None:
+    """One engine over a ``StreamingIndex`` of the 1M index: run, insert
+    ``STREAM_BATCH`` near-copies of the queries' true neighbours, run
+    again; then over a ``TieredIndex``: run on Zipfian queries,
+    ``rebalance_tiers()``, run again.  Each mutation must purge the cache,
+    and every response of each second run must equal a fresh sequential
+    ``db.query`` (so none equals a stale answer that changed): the
+    inserted rows change answers by construction, a migration may not."""
+    import numpy as np
+    from repro_torch.anns import (Database, QueryPlan, StreamingConfig,
+                                  StreamingIndex, TieredConfig, TieredIndex)
+    from repro_torch.memory import QueryCost
+    from repro_torch.serving import Request, ResultCache, ServingEngine
+
+    def two_runs(label, idx, queries, mutate, *, must_change):
+        host = queries.cpu()
+        picks = zipf_picks(host.shape[0], SERVE_INVALIDATE, args.seed + 8)
+        cache = ResultCache(capacity=4096)
+        eng = ServingEngine(idx, plan=QueryPlan(backend="cuda"),
+                            max_batch=64, max_wait_us=200.0, cache=cache)
+
+        def requests(t0):
+            return [Request(query=host[picks[i]],
+                            arrival_us=t0 + i * SERVE_GAP_US,
+                            rid=i) for i in range(SERVE_INVALIDATE)]
+
+        first = eng.run(requests(0.0))
+        inv0 = cache.stats.invalidations
+        out, mut_s = timed(torch, mutate)
+        if cache.stats.invalidations <= inv0 or len(cache):
+            fail(f"{label}: the mutation purged no cache entry "
+                 f"({cache.stats.invalidations - inv0} invalidations, "
+                 f"{len(cache)} left)")
+        eng.total_cost = QueryCost()
+        second = eng.run(requests(eng.clock.now_us))
+        check_responses(torch, f"{label} (after the mutation)",
+                        Database.wrap(idx), eng, second, picks, queries, {})
+        changed = sum(not np.array_equal(a.ids, b.ids)
+                      for a, b in zip(first, second))
+        if must_change and not changed:
+            fail(f"{label}: no answer changed across the mutation; the "
+                 f"stale-entry check is void")
+        print(f"{label}: {out} in {mut_s:.3f} s purged "
+              f"{cache.stats.invalidations - inv0} entries; after it "
+              f"{changed} of {SERVE_INVALIDATE} responses changed, every "
+              f"response equal to a fresh sequential db.query (no stale "
+              f"entry served)")
+
+    st = StreamingIndex(index, StreamingConfig(auto_compact=False))
+    gen = torch.Generator(device=index.device).manual_seed(args.seed + 9)
+    near = ds.gt[:, :STREAM_BATCH // ds.gt.shape[0]].reshape(-1)
+    x_new = ds.x[near.long()] + 1e-3 * torch.randn(
+        (near.numel(), ds.x.shape[1]), generator=gen, device=index.device)
+    two_runs("engine invalidation, streaming insert", st, ds.queries,
+             lambda: f"{st.insert(x_new).size} rows inserted (near-copies "
+                     f"of the queries' true neighbours)", must_change=True)
+    del st, x_new
+    gc.collect()
+    ti = TieredIndex(index, TieredConfig(decay=0.5, hot_rows_frac=0.1,
+                                         cold_rows_frac=0.2))
+    two_runs("engine invalidation, tiered rebalance_tiers", ti,
+             zipf_queries(torch, ds.x, ZIPF_QUERIES, args.seed),
+             lambda: f"rebalance_tiers() to (lists, rows) "
+                     f"{ti.rebalance_tiers()['occupancy']}",
+             must_change=False)
 
 
 def main() -> int:
@@ -2093,11 +2678,25 @@ def main() -> int:
         print(f"{label}: the reference backend on {sub.shape[0]} queries "
               f"gives the cuda backend's ids and ledger")
 
+    # ---- the serving path over the same index
+    t = time.perf_counter()
+    v_adc, v_refine = serving_phase(torch, args, cfg, db, ds, launches,
+                                    reset_launches, read_launches)
+    print(f"serving phase (static and sharded): "
+          f"{time.perf_counter() - t:.1f} s")
+
+    def serve_check(label, idx, q):
+        t = time.perf_counter()
+        retriever_check(torch, label, idx, q, launches, reset_launches,
+                        read_launches,
+                        needs=("pq_adc", "ternary_refine_fused"))
+        print(f"serving phase ({label}): {time.perf_counter() - t:.1f} s")
+
     # ---- the tiered layout over the same index
     t = time.perf_counter()
     t_adc, t_refine = tiered_phase(torch, args, cfg, db, ds, results,
                                    stores2, launches, reset_launches,
-                                   read_launches)
+                                   read_launches, serve_check)
     del stores2
     gc.collect()          # the tiered indexes and their executors
     print(f"tiered phase: {time.perf_counter() - t:.1f} s")
@@ -2113,7 +2712,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     s_adc, s_refine = streaming_phase(torch, args, cfg, index, ds, q64,
                                       lut64, launches, reset_launches,
-                                      read_launches)
+                                      read_launches, serve_check)
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"peak device memory: {max(peak_static, peak):.1f} GB "
           f"({peak_static:.1f} GB before the streaming phase, {peak:.1f} GB "
@@ -2121,6 +2720,10 @@ def main() -> int:
     if max(peak_static, peak) >= PEAK_GB:
         fail(f"peak device memory {max(peak_static, peak):.1f} GB reaches "
              f"{PEAK_GB} GB")
+    gc.collect()          # the streaming index and its snapshots
+    t = time.perf_counter()
+    invalidation_phase(torch, args, cfg, index, ds)
+    print(f"serving phase (invalidation): {time.perf_counter() - t:.1f} s")
 
     print("library_ms: pq_adc's is one embedding_bag call at the fatrq "
           "shape (int32 indices built outside the timer, no +inf mask; the "
@@ -2155,6 +2758,9 @@ def main() -> int:
         g_adc, g_refine, g_bounds
     adc["streaming"], refine["streaming"] = s_adc, s_refine
     adc["tiered"], refine["tiered"] = t_adc, t_refine
+    v_adc["launches"] = launches["serving_engine"]["pq_adc"]
+    v_refine["launches"] = launches["serving_engine"]["ternary_refine_fused"]
+    adc["serving"], refine["serving"] = v_adc, v_refine
 
     print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all")
     src = "src/repro_torch/kernels/csrc/ternary_refine.cu"

@@ -18,6 +18,9 @@ subpackage names so each module's counterpart is easy to find:
   tiered layouts, IVF and graph fronts).
 * ``obs`` — query-lifecycle tracing, metrics and exporters (pure
   Python).
+* ``serving`` — the ``Retriever``, the continuous-batching
+  ``ServingEngine`` (fronts on a side CUDA stream, double-buffered
+  against the refine) and its result cache.
 * ``data`` — synthetic clustered embeddings with exact ground truth.
 * ``interop`` — loads an index built by the JAX package from numpy arrays.
 
@@ -33,8 +36,9 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from repro_torch import obs  # noqa: E402
+from repro_torch import obs, serving  # noqa: E402
 from repro_torch.anns import TieredFrontStage, TieredIndex  # noqa: E402
 from repro_torch.memory import TieredConfig  # noqa: E402
 
-__all__ = ["obs", "TieredConfig", "TieredFrontStage", "TieredIndex"]
+__all__ = ["obs", "serving", "TieredConfig", "TieredFrontStage",
+           "TieredIndex"]

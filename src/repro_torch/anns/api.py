@@ -24,6 +24,13 @@ global ids; a mutation bumps the generation and drops its executors.  A
 unsharded and in ``mode="fatrq"`` only; a placement migration bumps its
 generation.
 
+``Database.compiled(plan)`` validates once and returns a ``CompiledPlan``:
+the executor of one index generation with its global-id map, the serving
+engine's dispatch handle (``execute``, and ``run_front`` / ``run_finish``
+where the layout has a front/refine boundary).  ``query(bucket=True)``
+pads ragged micro-batches to power-of-two buckets
+(``executor.bucket_for``), with the same answers and ledger.
+
 Traced (``obs.trace``), a query opens a ``query`` span holding
 ``plan.resolve``, a ``plan.compile`` event (``cache_hit``) and, on a miss,
 a ``plan.compile.build`` span, then the executor's spans.
@@ -47,7 +54,8 @@ from repro_torch.anns.tiered import TieredIndex
 from repro_torch.memory import QueryCost
 from repro_torch.obs import trace
 
-__all__ = ["Database", "QueryPlan", "SearchResult", "PlanError"]
+__all__ = ["CompiledPlan", "Database", "QueryPlan", "SearchResult",
+           "PlanError"]
 
 
 @dataclass(frozen=True)
@@ -84,6 +92,62 @@ class SearchResult:
     distances: torch.Tensor   # (Q, k) f32 exact squared L2 of ``ids``
     cost: QueryCost           # the Table-I traffic ledger
     plan: QueryPlan           # the resolved plan
+
+
+@dataclass
+class CompiledPlan:
+    """A validated plan bound to its executor at one index generation.
+
+    ``supports_split`` says whether the executor has a front/refine
+    boundary: ``run_front`` then ``run_finish`` on one micro-batch is
+    exactly ``execute`` on it.  The sharded layout has none (its shards'
+    stages run in one body); dispatch whole batches through ``execute``
+    there.  Ids come back as global ids (mapped through ``_gid`` on the
+    streaming layout)."""
+
+    db: "Database"
+    plan: QueryPlan                  # fully resolved
+    generation: int                  # index generation at compile time
+    _ex: object
+    _gid: torch.Tensor | None        # row → global id (streaming)
+
+    @property
+    def supports_split(self) -> bool:
+        return hasattr(self._ex, "run_front")
+
+    def _result(self, ids, dists, cost) -> SearchResult:
+        if self._gid is not None:
+            ids = self._gid[ids.long()]
+        return SearchResult(ids=ids, distances=dists, cost=cost,
+                            plan=self.plan)
+
+    def execute(self, queries, *, pad: bool = False,
+                cost: QueryCost | None = None) -> SearchResult:
+        """Whole-batch dispatch: front, refine, rerank and the fold."""
+        q = self.db._queries(queries)
+        if self.plan.mode == "baseline":
+            ids, dists, out = self._ex.execute_baseline(q, k=self.plan.k,
+                                                        pad=pad)
+            if cost is not None:
+                out = cost.merge(out)
+        else:
+            ids, dists, out = self._ex.execute(q, k=self.plan.k, cost=cost,
+                                               pad=pad)
+        return self._result(ids, dists, out)
+
+    def run_front(self, chunk: torch.Tensor, *,
+                  qvalid: torch.Tensor | None = None):
+        """Stage 1 for ONE micro-batch (at most the plan's
+        ``micro_batch`` rows, on the index's device): the ``Candidates``
+        handle to pass to ``run_finish``."""
+        return self._ex.run_front(chunk, qvalid=qvalid)
+
+    def run_finish(self, chunk: torch.Tensor, cand, *,
+                   cost: QueryCost | None = None) -> SearchResult:
+        """Stage 2: refine, rerank and the ledger fold of a ``run_front``
+        result, with global ids (padded rows included)."""
+        return self._result(*self._ex.run_finish(chunk, cand, k=self.plan.k,
+                                                 cost=cost))
 
 
 class Database:
@@ -189,12 +253,34 @@ class Database:
                     f"{self.index.front!r} front")
         return p
 
+    def executor_for(self, plan: QueryPlan | None = None):
+        """Validate and compile ``plan``; its executor (kept per
+        (generation, resolved plan))."""
+        return self._compile(self.validate(plan))[0]
+
+    def compiled(self, plan: QueryPlan | None = None) -> CompiledPlan:
+        """Validate and compile ``plan`` into a ``CompiledPlan`` for this
+        generation: O(1) when the executor is kept, rebuilt after a
+        mutation or migration."""
+        rp = self.validate(plan)
+        ex, gid = self._compile(rp)
+        return CompiledPlan(db=self, plan=rp, generation=self.generation,
+                            _ex=ex, _gid=gid)
+
+    def _queries(self, queries) -> torch.Tensor:
+        """Queries as a contiguous float32 tensor on the index's device."""
+        return torch.as_tensor(queries, dtype=torch.float32) \
+            .to(self.index.device).contiguous()
+
     def query(self, queries, *, plan: QueryPlan | None = None,
               k: int | None = None, micro_batch: int | None = None,
-              refine_budget: int | None = None,
+              refine_budget: int | None = None, bucket: bool = False,
               cost: QueryCost | None = None) -> SearchResult:
         """Planned search → ``SearchResult``; ``k``, ``micro_batch`` and
-        ``refine_budget`` override the plan for this call."""
+        ``refine_budget`` override the plan for this call.  ``bucket=True``
+        pads ragged micro-batches to power-of-two buckets
+        (``executor.bucket_for``) under a validity mask: the same ids,
+        distances and ledger, from a fixed set of batch shapes."""
         p = plan or QueryPlan()
         if k is not None:
             stale = p.k is not None and k != p.k and \
@@ -209,19 +295,12 @@ class Database:
         with trace.span("query", track="query", layout=self.layout) as sp_q:
             with trace.span("plan.resolve", track="query"):
                 rp = self.validate(p)
-            q = torch.as_tensor(queries, dtype=torch.float32) \
-                .to(self.index.device).contiguous()
+            q = self._queries(queries)
             sp_q.set_attrs(plan=rp.to_record(), n_queries=int(q.shape[0]))
             ex, gid = self._compile(rp)
-            if rp.mode == "baseline":
-                ids, dists, out = ex.execute_baseline(q, k=rp.k)
-                if cost is not None:
-                    out = cost.merge(out)
-            else:
-                ids, dists, out = ex.execute(q, k=rp.k, cost=cost)
-            if gid is not None:
-                ids = gid[ids.long()]
-        return SearchResult(ids=ids, distances=dists, cost=out, plan=rp)
+            return CompiledPlan(db=self, plan=rp, generation=self.generation,
+                                _ex=ex, _gid=gid).execute(q, pad=bucket,
+                                                          cost=cost)
 
     def _compile(self, rp: QueryPlan) -> tuple:
         """(executor, row → global id map or None) of a resolved plan, kept

@@ -10,9 +10,19 @@ candidate slot by its tier code: hot slots leave refinement and are
 scored exactly, cold slots refine as ``is_delta`` rows whose residual
 stream bills at SSD rates.
 
+Fixed shapes: ``execute(pad=True)`` pads every ragged micro-batch to its
+power-of-two bucket (``bucket_for``, ``pad_chunk``) with a per-query
+validity mask ``qvalid``; padded rows add no candidates, no counters and
+no heat, so the answers and the ledger are the unpadded ones bit for
+bit, and the kernels see only the bucket shapes.  ``run_front`` and
+``run_finish`` split one micro-batch at the front/refine boundary for the
+serving engine's double buffer; together they are ``execute`` on that
+micro-batch.
+
 Spans (``obs.trace``): ``execute`` per search, ``front`` / ``refine`` /
-``rerank`` per micro-batch, ``refine.l{ℓ}`` events, and the modeled time
-and measured-to-modeled drift per stage.  While a tracer is active each
+``rerank`` per micro-batch (``front`` and ``finish`` per split call),
+``refine.l{ℓ}`` events, and the modeled time and measured-to-modeled
+drift per stage.  While a tracer is active each
 stage synchronizes its CUDA device before its span closes and each
 micro-batch's counters cross to the host once more; with no tracer, none
 of that happens.
@@ -59,6 +69,42 @@ def iter_chunks(queries: torch.Tensor, micro_batch: int | None):
         return
     for i in range(0, queries.shape[0], micro_batch):
         yield queries[i:i + micro_batch]
+
+
+def bucket_for(n: int, micro_batch: int | None = None) -> int:
+    """Smallest batch bucket covering ``n`` queries: a power of two, capped
+    at ``micro_batch`` (the full micro-batch's shape).  Padding ragged
+    micro-batches up to their bucket keeps the query shapes the stages
+    and kernels see at {1, 2, 4, ..., micro_batch} whatever batch sizes
+    callers send."""
+    b = 1
+    while b < n:
+        b <<= 1
+    if micro_batch is not None and b > micro_batch >= n:
+        b = micro_batch
+    return b
+
+
+def pad_chunk(chunk: torch.Tensor, bucket: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zero-pad an (n, D) micro-batch to ``bucket`` rows; returns the
+    padded batch and the (bucket,) bool per-query validity mask, made on
+    the batch's device (all true when n == bucket)."""
+    n = chunk.shape[0]
+    qvalid = torch.arange(bucket, device=chunk.device) < n
+    if n == bucket:
+        return chunk, qvalid
+    pad = chunk.new_zeros((bucket - n,) + tuple(chunk.shape[1:]))
+    return torch.cat([chunk, pad], dim=0), qvalid
+
+
+def _padded(chunk: torch.Tensor, pad: bool, micro_batch: int | None
+            ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The micro-batch the stages see, and its validity mask (None when
+    not padding: every row is a real query)."""
+    if not pad:
+        return chunk, None
+    return pad_chunk(chunk, bucket_for(chunk.shape[0], micro_batch))
 
 
 def _collect(counters: Counters) -> dict:
@@ -181,20 +227,9 @@ class SearchExecutor:
         model_s = {"front": cost.tier_seconds(Tier.HBM),
                    "refine": cost.tier_seconds(Tier.CXL),
                    "rerank": cost.tier_seconds(Tier.SSD)}
-        drift = metrics.active().histogram(
-            "fatrq_model_drift_ratio",
-            "measured wall seconds / QueryCost-modeled seconds per stage",
-            labelnames=("stage",), buckets=_DRIFT_BUCKETS)
         for stage, handle in spans.items():
-            if handle is None or handle.span is None:
-                continue
-            m = model_s[stage]
-            handle.set_attr("model_s", m)
-            wall = handle.span.wall_s
-            if wall is not None and m > 0:
-                ratio = wall / m
-                handle.set_attr("wall_model_drift", ratio)
-                drift.labels(stage=stage).observe(ratio)
+            if handle is not None and handle.span is not None:
+                _attach_drift(handle, model_s[stage], stage)
         # per level, as fold_counts walks them: level 0 streams every
         # candidate, level ℓ ≥ 1 only the survivors of ℓ − 1
         sp_refine = spans.get("refine")
@@ -216,10 +251,12 @@ class SearchExecutor:
                      model_s=cxl.seconds(n_lv, n_lv * far))
 
     def execute(self, queries: torch.Tensor, *, k: int | None = None,
-                cost: QueryCost | None = None
+                cost: QueryCost | None = None, pad: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor, QueryCost]:
         """FaTRQ search: (Q, k) ids, their exact squared-L2 distances and
-        the folded traffic ledger."""
+        the folded traffic ledger.  ``pad=True`` pads each ragged
+        micro-batch to its bucket (``bucket_for``) under a validity mask;
+        the padded rows are sliced off before the concatenation."""
         cfg = self.index.config
         k = k or cfg.final_k
         budget = search_budget(cfg, k, self.refine_budget)
@@ -230,27 +267,76 @@ class SearchExecutor:
             ids_parts, dist_parts = [], []
             counters: Counters = {}
             for chunk in iter_chunks(queries, self.micro_batch):
+                n = chunk.shape[0]
+                chunk, qvalid = _padded(chunk, pad, self.micro_batch)
                 with trace.span("front", track="query",
-                                stage=self.front.name,
-                                n=int(chunk.shape[0])) as sp_front:
-                    cand = self.front.candidates(chunk)
+                                stage=self.front.name, n=n) as sp_front:
+                    cand = self.front.candidates(chunk, qvalid=qvalid)
                     if tr is not None:
                         _sync(cand.d0)
                 topk, topk_d, cnt = self._refine_rerank(
                     chunk, cand, k=k, budget=budget, front_span=sp_front)
-                ids_parts.append(topk)
-                dist_parts.append(topk_d)
+                ids_parts.append(topk[:n])
+                dist_parts.append(topk_d[:n])
                 _accumulate(counters, cnt)
             cost = self._fold(counters, cost)
             if tr is not None:
                 _attach_ledger(sp_ex, cost)
         return _cat(ids_parts), _cat(dist_parts), cost
 
+    def run_front(self, chunk: torch.Tensor, *,
+                  qvalid: torch.Tensor | None = None):
+        """The front stage alone for ONE micro-batch (no chunking): the
+        ``Candidates`` handle to pass to ``run_finish``.  The serving
+        engine issues it for batch N+1 before it retires batch N's
+        ``run_finish``.  Traced, the span synchronizes the device before
+        it closes and carries the front's modeled time and drift, from
+        the front counters alone (``run_finish`` folds the rest)."""
+        tr = trace.active()
+        with trace.span("front", track="query", stage=self.front.name,
+                        n=int(chunk.shape[0]), split=True) as sp:
+            cand = self.front.candidates(chunk, qvalid=qvalid)
+            if tr is not None:
+                _sync(cand.d0)
+        if tr is not None:
+            cost = QueryCost()
+            self.front.fold_cost(cost, _collect(dict(cand.counters)),
+                                 self.index.layout)
+            _attach_drift(sp, cost.tier_seconds(Tier.HBM), "front")
+        return cand
+
+    def run_finish(self, chunk: torch.Tensor, cand, *, k: int | None = None,
+                   cost: QueryCost | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor, QueryCost]:
+        """Refine + rerank + ledger fold of a ``run_front`` result: with
+        ``run_front``, exactly ``execute`` on that micro-batch (padded rows
+        included: the caller slices them off)."""
+        cfg = self.index.config
+        k = k or cfg.final_k
+        budget = search_budget(cfg, k, self.refine_budget)
+        tr = trace.active()
+        with trace.span("finish", track="query", backend=self.backend.name,
+                        k=k, budget=budget) as sp_fin:
+            topk, topk_d, counters = self._refine_rerank(chunk, cand, k=k,
+                                                         budget=budget)
+            cost = self._fold(counters, cost)
+            if tr is not None:
+                _attach_ledger(sp_fin, cost)
+        return topk, topk_d, cost
+
+    def search(self, queries: torch.Tensor, *, k: int | None = None,
+               cost: QueryCost | None = None
+               ) -> tuple[torch.Tensor, QueryCost]:
+        """The legacy tuple: (Q, k) ids and the ledger (no distances)."""
+        ids, _, cost = self.execute(queries, k=k, cost=cost)
+        return ids, cost
+
     def execute_baseline(self, queries: torch.Tensor, *,
-                         k: int | None = None
+                         k: int | None = None, pad: bool = False
                          ) -> tuple[torch.Tensor, torch.Tensor, QueryCost]:
         """Baseline (cuVS/FAISS style): front stage, then exact rerank of
-        the FULL candidate list from SSD — no far-memory refinement."""
+        the FULL candidate list from SSD — no far-memory refinement.
+        ``pad`` as in ``execute``."""
         k = k or self.index.config.final_k
         tr = trace.active()
         with trace.span("execute", track="query", front=self.front.name,
@@ -259,9 +345,11 @@ class SearchExecutor:
             ids_parts, dist_parts = [], []
             counters: Counters = {}
             for chunk in iter_chunks(queries, self.micro_batch):
+                n = chunk.shape[0]
+                chunk, qvalid = _padded(chunk, pad, self.micro_batch)
                 with trace.span("front", track="query",
-                                stage=self.front.name, n=int(chunk.shape[0])):
-                    cand = self.front.candidates(chunk)
+                                stage=self.front.name, n=n):
+                    cand = self.front.candidates(chunk, qvalid=qvalid)
                     if tr is not None:
                         _sync(cand.d0)
                 with trace.span("rerank", track="query", baseline=True):
@@ -269,8 +357,8 @@ class SearchExecutor:
                         self.index.x, chunk, cand.ids, cand.valid, k=k)
                     if tr is not None:
                         _sync(topk)
-                ids_parts.append(topk)
-                dist_parts.append(topk_d)
+                ids_parts.append(topk[:n])
+                dist_parts.append(topk_d[:n])
                 _accumulate(counters, cand.counters)
                 _accumulate(counters, {"ssd_fetch": n_valid})
             counts = _collect(counters)
@@ -284,6 +372,13 @@ class SearchExecutor:
                 _attach_ledger(sp_ex, cost)
         return _cat(ids_parts), _cat(dist_parts), cost
 
+    def search_baseline(self, queries: torch.Tensor, *,
+                        k: int | None = None
+                        ) -> tuple[torch.Tensor, QueryCost]:
+        """The legacy tuple over ``execute_baseline``."""
+        ids, _, cost = self.execute_baseline(queries, k=k)
+        return ids, cost
+
     def _fold(self, counters: Counters, cost: QueryCost | None) -> QueryCost:
         """One host transfer: device counters → Table-I ledger.  The tiered
         layout's per-list access histogram rides the same transfer into
@@ -295,6 +390,22 @@ class SearchExecutor:
         return fold_counts(counts, cost=cost, config=self.index.config,
                            layout=self.index.layout,
                            front_fold=self.front.fold_cost)
+
+
+def _attach_drift(handle, model_s: float, stage: str) -> None:
+    """Attach a stage's modeled seconds and its measured-wall / modeled
+    drift to its span, and observe the drift into
+    ``fatrq_model_drift_ratio{stage}`` of the active registry."""
+    handle.set_attr("model_s", model_s)
+    wall = handle.span.wall_s
+    if wall is not None and model_s > 0:
+        ratio = wall / model_s
+        handle.set_attr("wall_model_drift", ratio)
+        metrics.active().histogram(
+            "fatrq_model_drift_ratio",
+            "measured wall seconds / QueryCost-modeled seconds per stage",
+            labelnames=("stage",), buckets=_DRIFT_BUCKETS) \
+            .labels(stage=stage).observe(ratio)
 
 
 def _attach_ledger(handle, cost: QueryCost) -> None:

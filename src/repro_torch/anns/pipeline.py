@@ -1,4 +1,5 @@
-"""FaTRQ index build and ``recall_at_k``.
+"""FaTRQ index build, the legacy ``search`` / ``baseline_search`` tuple
+surfaces and ``recall_at_k``.
 
 ``build`` is the offline build (PQ → IVF → TRQ encode → index-driven
 calibration).  The JAX build splits one PRNG key into its random draws;
@@ -18,7 +19,7 @@ from repro_torch.core import trq as trq_mod
 from repro_torch.core.trq import TRQCodes
 from repro_torch.device import resolve_device
 from repro_torch.index import ivf as ivf_mod
-from repro_torch.memory import RecordLayout
+from repro_torch.memory import QueryCost, RecordLayout
 from repro_torch.quant import pq as pq_mod
 from repro_torch.quant.kmeans import random_init
 
@@ -145,6 +146,34 @@ def build(x, config: PipelineConfig, *, device=None,
     trq = trq_mod.calibrate(trq, qs, x, x_c, pair_i)
     return FaTRQIndex(config=config, codebook=codebook, pq_codes=pq_codes,
                       ivf=ivf, trq=trq, x=x)
+
+
+def search(index, queries, *, k: int | None = None,
+           cost: QueryCost | None = None, front: str | None = None,
+           backend: str | None = None, shards: int | None = None,
+           micro_batch: int | None = None
+           ) -> tuple[torch.Tensor, QueryCost]:
+    """FaTRQ search → ((Q, k) ids, the traffic ledger): a shim over
+    ``Database.wrap(index).query`` with the keywords as the plan (use
+    ``Database`` for the distances too).  ``index`` may be any layout's
+    index; it runs where its tensors lie."""
+    from repro_torch.anns.api import Database, QueryPlan
+    res = Database.wrap(index).query(
+        queries, plan=QueryPlan(front=front, backend=backend, shards=shards,
+                                k=k, micro_batch=micro_batch), cost=cost)
+    return res.ids, res.cost
+
+
+def baseline_search(index, queries, *, k: int | None = None,
+                    front: str | None = None
+                    ) -> tuple[torch.Tensor, QueryCost]:
+    """The no-refinement baseline (coarse ADC, then an exact rerank of the
+    whole candidate list from SSD) → (ids, ledger): a shim over
+    ``QueryPlan(mode="baseline")``."""
+    from repro_torch.anns.api import Database, QueryPlan
+    res = Database.wrap(index).query(
+        queries, plan=QueryPlan(front=front, k=k, mode="baseline"))
+    return res.ids, res.cost
 
 
 def recall_at_k(pred, gt, k: int) -> float:

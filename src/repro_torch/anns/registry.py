@@ -3,7 +3,11 @@ the port runs.  ``validate_combo`` is the one plan-time check; anything
 the JAX package offers that is not ported yet raises ``PlanError`` saying
 so, never a mid-search error.
 
-A front declares its layouts and a stage factory per layout; a module
+A front declares its layouts and a stage factory per layout, each
+factory ``(index, **opts)`` giving a ``stages.FrontStage``, whose
+``candidates(queries, qvalid=None)`` takes the per-query validity mask of
+a bucket-padded micro-batch (``executor.pad_chunk``): padded rows yield
+no candidates and no counter contributions.  A module
 imported later attaches its own layout's factory with
 ``add_front_factory`` (``anns.streaming`` and ``anns.tiered`` do).  The
 sharded layout builds no stage object, its front registers
@@ -32,9 +36,12 @@ class ShardedFrontHooks:
       per-shard global rows, the front's replicated (``rep``) and
       shard-stacked (``db``) tensors and a hashable tuple of static
       traversal args;
-    * ``body(queries, rep, db, codebook, pq_codes, **args)
-      -> list[Candidates]``: one micro-batch's candidates on every shard,
-      in shard order, with shard-local ids and 0-d counters each;
+    * ``body(queries, rep, db, codebook, pq_codes, *, qvalid=None,
+      **args) -> list[Candidates]``: one micro-batch's candidates on every
+      shard, in shard order, with shard-local ids and 0-d counters each;
+      ``qvalid`` is the per-query validity mask of a bucket-padded
+      micro-batch: padded rows yield no candidates and no counter
+      contributions on any shard;
     * ``fold(cost, counts, layout)``: the front's per-shard ledger fold.
     """
 

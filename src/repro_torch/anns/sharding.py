@@ -63,7 +63,7 @@ import torch
 
 from repro_torch.anns import registry
 from repro_torch.anns.executor import (_accumulate, _attach_ledger, _cat,
-                                       fold_counts, iter_chunks,
+                                       _padded, fold_counts, iter_chunks,
                                        search_budget)
 from repro_torch.anns.stages import (Candidates, Counters, _exact_sq,
                                      _smallest, fold_graph_front_cost,
@@ -315,7 +315,7 @@ def partition_database(index, n_shards: int,
 
 
 def _ivf_shard_front(queries, rep, fdb, codebook, pq_codes, *,
-                     nprobe: int) -> list[Candidates]:
+                     qvalid=None, nprobe: int) -> list[Candidates]:
     """The IVF front on every shard of one micro-batch.  The replicated
     centroid ranking and ADC tables are computed once; then per shard the
     chosen lists it owns are gathered, in probe order, and scored with one
@@ -326,7 +326,8 @@ def _ivf_shard_front(queries, rep, fdb, codebook, pq_codes, *,
     ``list_rank[j]`` at position pos, the unsharded front's slot
     r·cap + pos: the partitioner keeps each list's rows in order at the
     same cap, so a shard's slots are the unsharded ones restricted to it,
-    in the same order."""
+    in the same order.  ``qvalid`` masks padded query rows out of every
+    shard's slots and counters."""
     (centroids,) = rep
     list_gid, lists = fdb
     nq = queries.shape[0]
@@ -350,6 +351,8 @@ def _ivf_shard_front(queries, rep, fdb, codebook, pq_codes, *,
         ids_l = lists[s][slot]                                # (Q, pl, cap)
         valid = ((ids_l >= 0) & (rank < nprobe)[:, :, None]) \
             .reshape(nq, pl * cap)
+        if qvalid is not None:                # padded rows: no candidates
+            valid &= qvalid[:, None]
         ids = ids_l.clamp(min=0).reshape(nq, pl * cap).contiguous()
         d0 = pq_adc(pq_codes[s], ids, valid, lut)
         cands.append(Candidates(ids=ids, valid=valid, d0=d0,
@@ -358,8 +361,8 @@ def _ivf_shard_front(queries, rep, fdb, codebook, pq_codes, *,
     return cands
 
 
-def _graph_shard_front(queries, rep, fdb, codebook, pq_codes, *, beam: int,
-                       iters: int, expand: int,
+def _graph_shard_front(queries, rep, fdb, codebook, pq_codes, *,
+                       qvalid=None, beam: int, iters: int, expand: int,
                        degree: int) -> list[Candidates]:
     """The graph front on every shard of one micro-batch: one replicated
     beam, a frontier exchange per hop over the halo-partitioned subgraphs.
@@ -376,7 +379,9 @@ def _graph_shard_front(queries, rep, fdb, codebook, pq_codes, *, beam: int,
     unsharded values to the bit.  The shared ``graph.beam_merge`` then
     keeps the unsharded beam; each shard claims the slots it owns and
     ADC-scores them with one ``pq_adc`` launch on its record store.  A
-    shard's slot c is the unsharded beam slot c (``list_rank`` zeros)."""
+    shard's slot c is the unsharded beam slot c (``list_rank`` zeros).
+    ``qvalid`` masks padded query rows out of the owned slots and of each
+    hop's ownership count (their beams still advance, unused)."""
     (start,) = rep
     xs_loc, adj_gid, adj_loc, loc_of = fdb
     n_shards = loc_of.shape[0]
@@ -418,7 +423,8 @@ def _graph_shard_front(queries, rep, fdb, codebook, pq_codes, *, beam: int,
             rows = xs_loc[s][adj_loc[s][pl].reshape(nq, -1).long()]
             nd.append(torch.where(own_e, graph_mod.sq_dist(rows, queries),
                                   0.0))
-            hops[s] = hops[s] + own.sum()
+            hops[s] = hops[s] + (own.sum() if qvalid is None
+                                 else (own & qvalid[:, None]).sum())
         ids, ds, expanded = graph_mod.beam_merge(
             ids, ds, expanded, exchange(neigh), exchange(nd), beam=beam)
     order = torch.sort(ds, dim=1, stable=True).indices
@@ -429,6 +435,8 @@ def _graph_shard_front(queries, rep, fdb, codebook, pq_codes, *, beam: int,
     cands = []
     for s in range(n_shards):
         valid, lfin = owned(s, beam_ids)                      # owned slots
+        if qvalid is not None:                # padded rows: no candidates
+            valid &= qvalid[:, None]
         ids_local = lfin.int().contiguous()
         d0 = pq_adc(pq_codes[s], ids_local, valid, lut)
         cands.append(Candidates(ids=ids_local, valid=valid, d0=d0,
@@ -522,10 +530,13 @@ class ShardedExecutor:
     refine_budget: int | None = None  # plan-level SSD budget override
 
     def execute(self, queries: torch.Tensor, *, k: int | None = None,
-                cost: QueryCost | None = None
+                cost: QueryCost | None = None, pad: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor, QueryCost]:
         """Sharded FaTRQ search: (Q, k) GLOBAL ids, their exact squared-L2
-        distances and the merged per-shard ledger.
+        distances and the merged per-shard ledger.  ``pad=True`` pads each
+        ragged micro-batch to its bucket under a validity mask, as
+        ``SearchExecutor.execute`` does.  There is no front/finish split:
+        the shards' stages run interleaved in one body.
 
         Traced, the ``execute`` span carries one ``front`` / ``refine`` /
         ``rerank`` event each with its stage's modeled time (``fused``:
@@ -540,7 +551,7 @@ class ShardedExecutor:
                         budget=search_budget(cfg, k, self.refine_budget),
                         shards=si.n_shards, fused=True,
                         n_queries=int(queries.shape[0])) as sp_ex:
-            ids, dists, shard_counts = self._search(queries, k=k)
+            ids, dists, shard_counts = self._search(queries, k=k, pad=pad)
             merged = self._fold(shard_counts)
             if tr is not None:
                 for stage, tier in (("front", Tier.HBM),
@@ -553,7 +564,8 @@ class ShardedExecutor:
                 merged = cost.merge(merged)
         return ids, dists, merged
 
-    def _search(self, queries: torch.Tensor, *, k: int | None = None):
+    def _search(self, queries: torch.Tensor, *, k: int | None = None,
+                pad: bool = False):
         """(ids, distances, per-shard counts) of a search."""
         si = self.sharded
         cfg = si.config
@@ -563,16 +575,18 @@ class ShardedExecutor:
         ids_parts, dist_parts = [], []
         counters: Counters = {}
         for chunk in iter_chunks(queries, self.micro_batch):
+            n = chunk.shape[0]
+            chunk, qvalid = _padded(chunk, pad, self.micro_batch)
             cands = body(chunk, si.front_rep, si.front_db, si.codebook,
-                         si.pq_codes, **dict(si.front_args))
+                         si.pq_codes, qvalid=qvalid, **dict(si.front_args))
             refined = self.backend.refine_sharded(
                 chunk, cands, si.shard_trqs, k=k, bound=cfg.bound, z=cfg.z)
             topk, topk_d, n_ssd = _rerank_survivors_sharded(
                 si.x, si.gid, chunk, torch.stack([c.ids for c in cands]),
                 torch.stack([c.list_rank for c in cands]), refined.est,
                 refined.alive, k=k, budget=budget)
-            ids_parts.append(topk)
-            dist_parts.append(topk_d)
+            ids_parts.append(topk[:n])
+            dist_parts.append(topk_d[:n])
             _accumulate(counters, {n: torch.stack([c.counters[n]
                                                    for c in cands])
                                    for n in cands[0].counters})

@@ -29,7 +29,7 @@ depends on that order; ``torch.topk`` on CUDA promises no tie order.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import NamedTuple
+from typing import NamedTuple, Protocol
 
 import torch
 
@@ -37,6 +37,7 @@ from repro_torch.anns import registry
 from repro_torch.core import trq as trq_mod
 from repro_torch.core.estimator import alive_chain
 from repro_torch.core.trq import TRQCodes
+from repro_torch.device import row_sum
 from repro_torch.index import graph as graph_mod
 from repro_torch.index import ivf as ivf_mod
 from repro_torch.kernels.pq_adc import pq_adc
@@ -82,6 +83,24 @@ class Refined(NamedTuple):
     counters: Counters
 
 
+class FrontStage(Protocol):
+    """Candidate generation: a query micro-batch in, ``Candidates`` out.
+
+    ``qvalid`` is the (Q,) bool per-query validity mask of a bucket-padded
+    micro-batch (``executor.pad_chunk``): a padded row must have no valid
+    slot and add nothing to any counter (nor to the tiered layout's heat),
+    so a padded batch's answers and ledger are the unpadded ones bit for
+    bit.  ``None`` means every row is a real query."""
+
+    name: str
+
+    def candidates(self, queries: torch.Tensor,
+                   qvalid: torch.Tensor | None = None) -> Candidates: ...
+
+    def fold_cost(self, cost: QueryCost, counts: dict[str, int],
+                  layout: RecordLayout) -> None: ...
+
+
 def _smallest(v: torch.Tensor, k: int) -> torch.Tensor:
     """Positions of the k smallest per row, lower position first on ties."""
     return torch.sort(v, dim=-1, stable=True).indices[..., :k]
@@ -122,11 +141,14 @@ class IVFFrontStage:
     nprobe: int = 8
     name: str = field(default="ivf", init=False)
 
-    def candidates(self, queries: torch.Tensor) -> Candidates:
+    def candidates(self, queries: torch.Tensor,
+                   qvalid: torch.Tensor | None = None) -> Candidates:
         _, top_lists = rank_centroid_lists(self.ivf.centroids, queries,
                                            nprobe=self.nprobe)
         ids = self.ivf.lists[top_lists].reshape(queries.shape[0], -1)
         valid = ids >= 0
+        if qvalid is not None:                # padded rows: no candidates
+            valid &= qvalid[:, None]
         safe = torch.clamp(ids, min=0).contiguous()
         d0 = adc_score(self.codebook, self.pq_codes, safe, queries, valid)
         return Candidates(ids=safe, valid=valid, d0=d0,
@@ -135,6 +157,18 @@ class IVFFrontStage:
     def fold_cost(self, cost: QueryCost, counts: dict[str, int],
                   layout: RecordLayout) -> None:
         fold_ivf_front_cost(cost, counts, layout)
+
+
+def graph_hops(front, queries: torch.Tensor,
+               qvalid: torch.Tensor | None) -> torch.Tensor:
+    """``front_hops`` of a graph front: the traversal's work is the same
+    for every real query (``iters · expand · degree``), none for a padded
+    row."""
+    per_q = front.iters * front.expand * front.graph.degree
+    if qvalid is None:
+        return torch.full((), queries.shape[0] * per_q,
+                          device=queries.device)
+    return qvalid.sum() * per_q
 
 
 def fold_graph_front_cost(cost: QueryCost, counts: dict[str, int],
@@ -168,18 +202,19 @@ class GraphFrontStage:
     def __post_init__(self):
         self.x_score = pq_mod.decode(self.codebook, self.pq_codes)
 
-    def candidates(self, queries: torch.Tensor) -> Candidates:
+    def candidates(self, queries: torch.Tensor,
+                   qvalid: torch.Tensor | None = None) -> Candidates:
         ids = graph_mod.search(self.graph, self.x_score, queries,
                                iters=self.iters, beam=self.beam,
                                expand=self.expand)            # (Q, beam)
-        valid = torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
+        valid = torch.ones(ids.shape, dtype=torch.bool, device=ids.device) \
+            if qvalid is None else qvalid[:, None].expand(ids.shape) \
+            .contiguous()
         d0 = adc_score(self.codebook, self.pq_codes, ids, queries, valid)
-        # the traversal's work is the same for every query
-        hops = queries.shape[0] * self.iters * self.expand * self.graph.degree
         return Candidates(ids=ids, valid=valid, d0=d0,
                           counters={"front_cand": valid.sum(),
-                                    "front_hops": torch.full(
-                                        (), hops, device=ids.device)})
+                                    "front_hops": graph_hops(
+                                        self, queries, qvalid)})
 
     def fold_cost(self, cost: QueryCost, counts: dict[str, int],
                   layout: RecordLayout) -> None:
@@ -313,13 +348,15 @@ class CudaRefineBackend:
 def _exact_sq(x: torch.Tensor, queries: torch.Tensor,
               ids: torch.Tensor) -> torch.Tensor:
     """||x[ids] − q||² (Q, C), gathered a few queries at a time so the
-    (q, C, D) rows stay under ``_RERANK_BYTES``."""
+    (q, C, D) rows stay under ``_RERANK_BYTES``; each row's sum in an order
+    of its own (``device.row_sum``), so a query gets the same bits alone
+    and in a batch."""
     nq, c = ids.shape
     step = max(1, _RERANK_BYTES // max(1, c * x.shape[1] * 4))
     out = torch.empty((nq, c), dtype=x.dtype, device=x.device)
     for a in range(0, nq, step):
         rows = x[ids[a:a + step].long()]
-        out[a:a + step] = ((rows - queries[a:a + step, None, :]) ** 2).sum(-1)
+        out[a:a + step] = row_sum((rows - queries[a:a + step, None, :]) ** 2)
     return out
 
 
@@ -361,8 +398,8 @@ def _score_hot(x, queries, ids, hot):
     flat = out.view(-1)
     for a in range(0, slots.numel(), step):
         d = x[rows[a:a + step]]                     # a fresh gather
-        flat[slots[a:a + step]] = d.sub_(queries[qi[a:a + step]]) \
-            .square_().sum(-1)
+        flat[slots[a:a + step]] = row_sum(
+            d.sub_(queries[qi[a:a + step]]).square_())
     return out
 
 

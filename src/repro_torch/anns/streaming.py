@@ -61,7 +61,7 @@ from repro_torch.anns.pipeline import FaTRQIndex, PipelineConfig
 from repro_torch.anns.sharding import lpt_assign, make_sharded_executor
 from repro_torch.anns.stages import (Candidates, adc_score,
                                      fold_graph_front_cost,
-                                     fold_ivf_front_cost,
+                                     fold_ivf_front_cost, graph_hops,
                                      rank_centroid_lists)
 from repro_torch.core import trq as trq_mod
 from repro_torch.device import chunks
@@ -121,7 +121,8 @@ class StreamingFrontStage:
     nprobe: int = 8
     name: str = field(default="streaming", init=False)
 
-    def candidates(self, queries: torch.Tensor) -> Candidates:
+    def candidates(self, queries: torch.Tensor,
+                   qvalid: torch.Tensor | None = None) -> Candidates:
         _, top = rank_centroid_lists(self.centroids, queries,
                                      nprobe=self.nprobe)
         nq = queries.shape[0]
@@ -129,6 +130,8 @@ class StreamingFrontStage:
         ids = torch.cat([ids_b, self.delta_lists[top].reshape(nq, -1)], 1)
         safe = ids.clamp(min=0)
         valid = (ids >= 0) & self.alive[safe.long()]
+        if qvalid is not None:                # padded rows: no candidates
+            valid &= qvalid[:, None]
         d0 = adc_score(self.codebook, self.pq_codes, safe, queries, valid)
         is_delta = (torch.arange(ids.shape[1], device=ids.device)
                     >= ids_b.shape[1]).expand(nq, -1).contiguous()
@@ -167,18 +170,20 @@ class GraphStreamingFrontStage:
         if self.x_score is None:
             self.x_score = pq_mod.decode(self.codebook, self.pq_codes)
 
-    def candidates(self, queries: torch.Tensor) -> Candidates:
+    def candidates(self, queries: torch.Tensor,
+                   qvalid: torch.Tensor | None = None) -> Candidates:
         ids = graph_mod.search(self.graph, self.x_score, queries,
                                iters=self.iters, beam=self.beam,
                                expand=self.expand)            # (Q, beam)
         valid = self.alive[ids.long()]
+        if qvalid is not None:                # padded rows: no candidates
+            valid &= qvalid[:, None]
         d0 = adc_score(self.codebook, self.pq_codes, ids, queries, valid)
         is_delta = ids >= self.n_base
-        hops = queries.shape[0] * self.iters * self.expand * self.graph.degree
         return Candidates(ids=ids, valid=valid, d0=d0,
                           counters={"front_cand": valid.sum(),
-                                    "front_hops": torch.full(
-                                        (), hops, device=ids.device),
+                                    "front_hops": graph_hops(
+                                        self, queries, qvalid),
                                     "delta_cand": (valid & is_delta).sum()},
                           is_delta=is_delta)
 

@@ -276,8 +276,11 @@ class TieredFrontStage:
                 pos % _SUB_BINS, self.nlist * _SUB_BINS + pos % _SPARE_BINS)
         return got
 
-    def candidates(self, queries: torch.Tensor) -> Candidates:
-        cand = self.inner.candidates(queries)
+    def candidates(self, queries: torch.Tensor,
+                   qvalid: torch.Tensor | None = None) -> Candidates:
+        # a padded row has no valid slot: its slots land in the spare
+        # bins with weight 0 (no heat), and none of them is hot
+        cand = self.inner.candidates(queries, qvalid=qvalid)
         tier, counters = _tier_annotate(
             cand.ids, cand.valid, self.row_tier, self.row_bin,
             self.list_tier, self.slot_bins(cand.ids.shape[1]),

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.packing import POW3, TRITS_PER_BYTE
+from repro_torch.device import row_sum
 from repro_torch.kernels import ternary_refine as _kernels
 
 #: shared memory one block may use on Hopper (227 KB; above 48 KB only as
@@ -135,7 +136,8 @@ def query_params(q: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """(Q, 8) f32 rows [||q||, w0..w3, bias, z·resid_std, resid_std]."""
     nq = q.shape[0]
     rs = resid_std.float().reshape(1)
-    head = torch.linalg.vector_norm(q.float(), dim=-1)[:, None]
+    qf = q.float()
+    head = torch.sqrt(row_sum(qf * qf))[:, None]   # the same bits in any Q
     tail = torch.cat([w.float(), bias.float().reshape(1), z * rs, rs])
     return torch.cat([head, tail.expand(nq, 7)], dim=1).contiguous()
 

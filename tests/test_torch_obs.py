@@ -7,8 +7,13 @@ them; then the same operations must give the same bytes in both packages
 (Prometheus text, ``flat()``, JSONL and Chrome trace), one traced query
 the same span tree (names, tracks, parents) as JAX's for the same plan,
 and a traced query the untraced answer bit for bit.  With no tracer
-active the query path reads no clock and synchronizes nothing.  The
-serving engine's tracing waits for its own port."""
+active the query path and the serving engine read no clock and
+synchronize nothing.  The serving engine's pins of ``tests/test_obs.py``
+hold: tracing changes no response, a seeded trace exports the same bytes
+on every run (and JAX's bytes), the Chrome trace shows batch N+1's front
+overlapping batch N's refine on the virtual clock, one flat metrics dict
+unifies the engine's series, drift is observed only when traced, and
+the cache emits its events."""
 
 import json
 
@@ -38,6 +43,12 @@ from repro_torch.anns import (Database, PipelineConfig,  # noqa: E402
 from repro_torch.anns import executor  # noqa: E402
 from repro_torch.interop import index_from_numpy  # noqa: E402
 from repro_torch.obs import export, metrics, trace  # noqa: E402
+from repro.serving import Request as JRequest  # noqa: E402
+from repro.serving import ResultCache as JResultCache  # noqa: E402
+from repro.serving import ServingEngine as JServingEngine  # noqa: E402
+from repro.serving import TenantQoS as JTenantQoS  # noqa: E402
+from repro_torch.serving import (Request, ResultCache,  # noqa: E402
+                                 ServingEngine, TenantQoS)
 from test_torch_pipeline import export_jax_index  # noqa: E402
 
 # tests/test_obs.py's fixture
@@ -415,3 +426,151 @@ def test_tiered_rebalance_metrics_and_events_match_jax(ds, base):
     flat = reg.flat()
     assert sum(flat[f'tiered_rows{{tier="{t}"}}']
                for t in ("hot", "warm", "cold")) == 1200
+
+
+# ------------------------------------------------- serving, end to end
+
+
+def _requests(ds, n=24, seed=0, make=Request, wrap=np.asarray):
+    """``tests/test_obs.py``'s trace: ~40 us mean inter-arrival, fast
+    enough that batches queue behind the virtual pipeline units, which
+    makes the front/refine overlap visible in the exported trace."""
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(40.0, size=n))
+    pool = ds[1]
+    picks = rng.integers(0, pool.shape[0], size=n)
+    return [make(query=wrap(pool[picks[i]]),
+                 tenant="busy" if i % 3 == 0 else "t0",
+                 arrival_us=float(arrivals[i]), rid=i)
+            for i in range(n)]
+
+
+def _engine(index, tracer=None, backend="cuda"):
+    return ServingEngine(index, plan=QueryPlan(backend=backend),
+                         max_batch=4, max_wait_us=100.0,
+                         qos={"busy": TenantQoS(rate_rps=2000.0, burst=2)},
+                         cache=ResultCache(capacity=64), tracer=tracer)
+
+
+def test_serving_bit_identical_with_tracing(ds, base):
+    _, pidx = base
+    r_off = _engine(pidx).run(_requests(ds))
+    tr = trace.Tracer()
+    r_on = _engine(pidx, tracer=tr).run(_requests(ds))
+    assert len(r_off) == len(r_on) > 0
+    for a, b in zip(r_off, r_on):
+        assert a.rid == b.rid
+        assert np.array_equal(a.ids, b.ids)
+        assert np.array_equal(a.distances, b.distances)
+        assert (a.done_us, a.admit_us, a.degraded, a.cache_hit) == \
+            (b.done_us, b.admit_us, b.degraded, b.cache_hit)
+    assert tr.spans
+
+
+def test_serving_trace_exports_byte_identical(ds, base, tmp_path):
+    """Two runs export the same wall-stripped JSONL and Chrome trace, and
+    the ``reference`` backend's run exports JAX's engine's JSONL bytes."""
+    jidx, pidx = base
+    paths = []
+    for run in range(2):
+        tr = trace.Tracer()
+        _engine(pidx, tracer=tr).run(_requests(ds))
+        p = tmp_path / f"spans_{run}.jsonl"
+        export.write_jsonl(tr.spans, str(p), include_wall=False)
+        c = tmp_path / f"chrome_{run}.json"
+        export.write_chrome_trace(tr.spans, str(c))
+        paths.append((p.read_bytes(), c.read_bytes()))
+    assert paths[0] == paths[1]
+    tr, jtr = trace.Tracer(), jtrace.Tracer()
+    _engine(pidx, tracer=tr, backend="reference").run(_requests(ds))
+    JServingEngine(jidx, plan=JPlan(backend="reference"), max_batch=4,
+                   max_wait_us=100.0,
+                   qos={"busy": JTenantQoS(rate_rps=2000.0, burst=2)},
+                   cache=JResultCache(capacity=64), tracer=jtr).run(
+        _requests(ds, make=JRequest, wrap=jnp.asarray))
+    a, b = tmp_path / "port.jsonl", tmp_path / "jax.jsonl"
+    export.write_jsonl(tr.spans, str(a), include_wall=False)
+    jexport.write_jsonl(jtr.spans, str(b), include_wall=False)
+    assert a.read_bytes() == b.read_bytes()
+
+
+def test_chrome_trace_schema_and_overlap(ds, base):
+    _, pidx = base
+    tr = trace.Tracer()
+    _engine(pidx, tracer=tr).run(_requests(ds))
+    doc = export.chrome_trace(tr.spans)
+    events = doc["traceEvents"]
+    assert doc["displayTimeUnit"] == "ms"
+    meta = [e for e in events if e["ph"] == "M"]
+    assert {"process_name", "thread_name"} <= {e["name"] for e in meta}
+    tids = {e["args"]["name"]: e["tid"] for e in meta
+            if e["name"] == "thread_name"}
+    assert {"sched", "unit:front", "unit:refine", "query"} <= set(tids)
+    for e in events:
+        assert e["ph"] in ("M", "X", "i")
+        if e["ph"] == "X":
+            assert e["dur"] > 0 and e["ts"] >= 0
+        if e["ph"] != "M":
+            assert "sid" in e["args"]
+    json.dumps(doc)
+    # the double buffer: some batch's front overlaps another batch's
+    # refine on the virtual clock
+    fronts = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e["name"] == "serve.front"]
+    refines = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e["name"] == "serve.refine"]
+    assert len(fronts) >= 2 and len(refines) >= 2
+    assert any(f[0] < r[1] and r[0] < f[1]
+               for f in fronts for r in refines), \
+        "no front/refine overlap visible in the exported trace"
+
+
+def test_serving_metrics_unified_flat_dict(ds, base):
+    _, pidx = base
+    tr = trace.Tracer()
+    eng = _engine(pidx, tracer=tr)
+    eng.run(_requests(ds))
+    flat = eng.metrics()
+    assert flat['serving_requests_total{tenant="busy"}'] > 0
+    assert flat['serving_throttled_total{tenant="busy"}'] > 0
+    assert flat['serving_stats{field="requests"}'] == eng.stats.requests
+    assert flat['serving_stats{field="batches"}'] == eng.stats.batches
+    assert flat['serving_cache{field="misses"}'] == eng.cache.stats.misses
+    assert flat["serving_queue_wait_us_count"] > 0
+    assert flat["serving_batch_occupancy_count"] == eng.stats.batches
+    # the datapath's drift series landed in the ENGINE's registry
+    assert flat['fatrq_model_drift_ratio_count{stage="refine"}'] > 0
+    assert flat['fatrq_model_drift_ratio_count{stage="front"}'] > 0
+    text = export.prometheus_text(eng.registry)
+    for series in ("serving_queue_wait_us", "serving_batch_occupancy",
+                   "serving_cache", "fatrq_model_drift_ratio",
+                   "serving_stats"):
+        assert series in text
+
+
+def test_model_drift_only_when_traced(ds, base, monkeypatch):
+    """Untraced, the engine observes no drift, reads no clock and
+    synchronizes nothing."""
+    _, pidx = base
+    monkeypatch.setattr(trace, "time", _Boom())
+    monkeypatch.setattr(executor, "_sync", _Boom())
+    monkeypatch.setattr(torch.cuda, "synchronize", _Boom())
+    eng = _engine(pidx)
+    eng.run(_requests(ds))
+    assert not any(k.startswith("fatrq_model_drift")
+                   for k in eng.metrics())
+
+
+def test_cache_events(ds, base):
+    _, pidx = base
+    tr = trace.Tracer()
+    eng = _engine(pidx, tracer=tr)
+    q0, q1 = ds[1][0], ds[1][1]
+    # q1's dispatch retires q0's in-flight batch (the double buffer), so
+    # q0's answer is cached by the time its repeat arrives at t=5000
+    eng.run([Request(query=q0, arrival_us=0.0, rid=0),
+             Request(query=q1, arrival_us=300.0, rid=1),
+             Request(query=q0, arrival_us=5000.0, rid=2)])
+    assert len(tr.by_name("cache.miss")) == 2
+    assert len(tr.by_name("cache.hit")) == 1
+    assert len(tr.by_name("serve.cache_hit")) == 1

@@ -41,6 +41,7 @@ from repro_torch.interop import (index_from_numpy,  # noqa: E402
 from repro_torch.memory import (TIER_COLD, TIER_HOT, TIER_WARM,  # noqa: E402
                                 HeatTracker, Tier, occupancy, plan_migration,
                                 plan_placement)
+from repro_torch.serving import ResultCache, query_key  # noqa: E402
 from test_torch_graph import export_with_graph  # noqa: E402
 
 # tests/test_tiered.py's fixture
@@ -350,6 +351,25 @@ def test_rebalance_invalidates_executor_cache(ds, base, backend):
     assert all(k[0] == ti.generation for k in ti._executor_cache)
     db.query(ds[1], plan=QueryPlan(backend=backend))
     assert {k[0] for k in db._compiled} == {1}
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_rebalance_invalidates_result_cache(ds, base, backend):
+    _, pidx, _ = base
+    ti = TieredIndex(pidx, TieredConfig(hot_rows_frac=0.25,
+                                        cold_rows_frac=0.25))
+    db = Database.wrap(ti)
+    plan = db.validate(QueryPlan(front="ivf", backend=backend, k=5))
+    res = db.query(ds[1], plan=plan)
+    rc = ResultCache()
+    rc.attach(ti)                                 # generation hook
+    qk = query_key(ds[1][0])
+    rc.insert(qk, plan, ti.generation, res.ids[0].numpy(),
+              res.distances[0].numpy())
+    assert rc.lookup(qk, plan, ti.generation) is not None
+    assert ti.rebalance_tiers()["changed"]
+    assert rc.lookup(qk, plan, ti.generation) is None
+    assert rc.stats.invalidations == 1
 
 
 # ---------------------------------------------------------- plan errors
