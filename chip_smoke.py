@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FaTRQ on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # 1M x 768 index, 1000 queries, 4 shards
+    python3 chip_smoke.py            # 1M x 768 index, 1000 queries, 4 shards,
+                                     # then qwen2.5-3b over a 1M x 2048 index
 
 Phases, each of which raises on failure:
 
@@ -18,7 +19,8 @@ Phases, each of which raises on failure:
    partition the graph into ``--shards`` range + halo shards (timed);
 3. edge-shape phase: the fused and bounds refine kernels against their
    plain versions, and the bounds est against the fused est bit for bit,
-   on random code stores at G in {1, 13, 20, 154} and L in {1, 2, 3}, with
+   on random code stores at G in {1, 13, 20, 154, 410} (410: D = 2048,
+   rows of three passes) and L in {1, 2, 3}, with
    C = 4133 slots (not a multiple of 32 or of a block's tile) and C = 64
    (the graph beam, every odd slot repeating the id and d0 of the slot
    before it), one query with no valid slot and one with every slot
@@ -32,8 +34,8 @@ Phases, each of which raises on failure:
    over the alive buffer it reads, forced ties at tau, queries with every,
    no and fewer than k alive slots, with and without delta rows; both
    level-0 forms (``ternary_refine_batch``, ``ternary_refine``) against
-   ``refine_level0_plain`` at each G and at G = 319 (rows of several
-   passes), at Q = 5 and Q = 1 with C = 4133, on
+   ``refine_level0_plain`` at each G and at G = 319, at Q = 5 and Q = 1
+   with C = 4133, on
    code bytes from 0..255 (243..255 decode as y - 243), on fresh tensors
    and on views whose code rows and scalars start at a base that is not
    16-byte aligned;
@@ -159,11 +161,36 @@ Phases, each of which raises on failure:
    again; then over a ``TieredIndex`` on Zipfian queries around a
    ``rebalance_tiers()``.  Each mutation must purge the cache and every
    response after it equal a fresh sequential ``db.query``;
-9. print one ``kernels`` JSON line (the three kernels of the graph paths
+9. the RAG round trip at the full width of qwen2.5-3b (36 layers,
+   d_model 2048, 3,085,697,024 parameters in float32), after every
+   earlier phase's tensors are freed: a 1M x 2048 index (``make_dataset``,
+   PQ M=128, K=256, nlist 1024, nprobe 16, budget 40; its build timed)
+   whose fatrq recall@10 over 1000 queries is at least 0.9 of the
+   baseline mode's (the exact rerank of the same candidates: the IVF
+   front's ceiling on these diffuse rows) with recall@1 of at least 0.99,
+   and the ``reference`` backend equal to ``cuda`` on 64; ``pq_adc`` and the
+   fused kernel against their plain versions at its shape (G = 410,
+   alive and counts exact); the LM drawn on the card from ``--seed``, its
+   matrix parameters equal to ``params_count()``; a prefill of 8 x 32
+   tokens and 8 teacher-forced decode steps equal to one forward of the
+   40 tokens within 2e-3; prefill and decode-step times beside their
+   bounds; then ``rag_answer`` (8 prompts of 32 tokens, k=5, 16 decode
+   steps, ``embed_fn`` the mean-pooled token embeddings) through a
+   ``Retriever`` (``backend="cuda"``, ``micro_batch=8``) and through a
+   ``ServingEngine``: ids equal to a direct ``db.query`` bit for bit, the
+   two forms' ids and tokens equal, ``pq_adc`` and the fused kernel
+   launched, every decode step run with host synchronizes raising
+   (``torch.cuda.set_sync_debug_mode("error")``) and no synchronize or
+   blocking copy among the CUDA runtime calls of two steps
+   (``torch.profiler``); recall@5, the ledger,
+   tokens/s, the phase's time and its peak memory (under 70 GB);
+10. print one ``kernels`` JSON line (the three kernels of the graph paths
    with a ``graph`` entry: their numbers at the graph shapes; ``pq_adc``
    and the fused kernel with ``streaming`` and ``tiered`` entries at the
    streaming IVF and tiered shapes, and ``serving`` entries at the
-   padded bucket with the engine's launches), then the result line
+   padded bucket with the engine's launches; ``pq_adc`` and the fused
+   kernel with ``rag`` entries at the RAG index's shape with the round
+   trip's launches), then the result line
    ``{"ok": true,
    "device": {...}}`` last.
 
@@ -247,8 +274,10 @@ def kernel_ms(torch, fn, reps: int) -> dict:
 
 
 def print_launches(torch, label: str, fn, reps: int) -> None:
-    """Each launch of one call of ``fn`` apart (``kernel_ms``)."""
-    split = kernel_ms(torch, fn, reps)
+    """Each launch of one call of ``fn`` apart (``kernel_ms``, once more if
+    the profiler recorded nothing: now and then a profiled run records no
+    device event)."""
+    split = kernel_ms(torch, fn, reps) or kernel_ms(torch, fn, reps)
     if not split:
         print(f"{label} launches: not measured (the profiler recorded no "
               f"device events)")
@@ -725,8 +754,10 @@ def sass_profile(lib, function: str) -> None:
           f"20)")
 
 
-EDGE_G = (1, 13, 20, 154)      # packed widths of the edge-shape phase
-EDGE_L0_G = EDGE_G + (319,)    # and G = 319: rows of 3 passes, at level 0
+# packed widths of the edge-shape phase; G = 410 (D = 2048, the RAG
+# index) has rows of 3 passes
+EDGE_G = (1, 13, 20, 154, 410)
+EDGE_L0_G = EDGE_G + (319,)    # and G = 319 at level 0
 EDGE_Q, EDGE_C, EDGE_N = 5, 4133, 20_000
 GRAPH_C = 64                   # the graph front's beam: its candidate slots
 
@@ -1871,71 +1902,91 @@ def shape_invariance(torch, db, cfg, queries) -> dict:
     return same
 
 
-def padded_kernels(torch, db, cfg, queries) -> tuple[dict, dict]:
-    """``pq_adc`` and the fused refine kernel on one padded bucket (37
-    queries padded to 64: rows 37..63 have no valid slot) against their
-    plain versions: d0 within tolerance and +inf on exactly the invalid
-    slots; est within tolerance on the valid slots; alive and counts
-    exact, none in a padded row.  Returns their rows."""
+def path_kernels(torch, db, cfg, q, label: str, qvalid=None,
+                 k: int | None = None):
+    """``pq_adc`` and the fused refine kernel on the candidates that the
+    cuda plan's front gives the queries ``q`` (``qvalid``: the bucket's
+    valid rows; ``k``: the refine's k, the config's ``final_k`` unless
+    given), against their plain versions: d0 within tolerance, +inf
+    on exactly the invalid slots and equal to the front's; est within
+    tolerance on the valid slots, alive and counts exact.  Returns their
+    rows (ms, bound, plain ms, library ms; each kernel's device ms
+    printed), the candidates and the kernel's alive and counts."""
     from repro_torch.anns import QueryPlan
-    from repro_torch.anns.executor import pad_chunk
     from repro_torch.kernels import ops
     from repro_torch.kernels import pq_adc as pq_adc_mod
     from repro_torch.kernels import ternary_refine as tr
     from repro_torch.quant import pq as pq_mod
     index = db.index
-    qpad, qvalid = pad_chunk(queries[:37].contiguous(), 64)
     ex = db.executor_for(QueryPlan(backend="cuda"))
-    cand = ex.front.candidates(qpad, qvalid=qvalid)
-    if bool(cand.valid[37:].any()):
-        fail("a padded row of the bucket has a valid slot")
-    lut = pq_mod.adc_table(index.codebook, qpad)
+    cand = ex.front.candidates(q, qvalid=qvalid)
+    lut = pq_mod.adc_table(index.codebook, q)
+    g = index.trq.levels[0].packed.shape[1]
+    print(f"{label} shapes: Q={cand.ids.shape[0]} C={cand.ids.shape[1]} "
+          f"M={cfg.pq_m} K={cfg.pq_k} G={g}")
     d0, adc = check_adc(torch, pq_adc_mod, index.pq_codes, cand.ids,
-                        cand.valid, lut, "padded bucket (37 of 64 rows)")
+                        cand.valid, lut, label)
     if not torch.equal(d0, cand.d0):
-        fail("pq_adc padded bucket: the front's d0 differs from a second "
-             "call's")
+        fail(f"pq_adc {label}: the front's d0 differs from a second call's")
     adc["library_ms"], lib_d = adc_library(torch, index.pq_codes, cand.ids,
                                            lut)
     ok, lib_err = close(lib_d[cand.valid], d0[cand.valid], ADC_ATOL,
                         ADC_RTOL)
     if not ok:
-        fail(f"embedding_bag disagrees with pq_adc at the padded bucket "
+        fail(f"embedding_bag disagrees with pq_adc at the {label} "
              f"({lib_err})")
-    del lib_d
+    del lib_d, d0
     stores, model = ex.backend.stores(index.trq), index.trq.model
-    args = (stores, qpad, cand.ids, cand.d0, cand.valid, None, model)
-    kw = dict(k=cfg.final_k, bound="cauchy", z=cfg.z)
+    args = (stores, q, cand.ids, cand.d0, cand.valid, None, model)
+    k = k or cfg.final_k
+    kw = dict(k=k, bound="cauchy", z=cfg.z)
     est, alive, counts = tr.ternary_refine_fused(*args, **kw)
-    planes = ops.make_query_planes(qpad, stores.packed[0].shape[1])
-    params = ops.query_params(qpad, model.w, model.bias, model.resid_std,
+    planes = ops.make_query_planes(q, g)
+    params = ops.query_params(q, model.w, model.bias, model.resid_std,
                               cfg.z)
     p_est, p_alive, p_counts, _ = tr.refine_plain(
         stores, planes, params, cand.ids, cand.d0, cand.valid, None,
-        k=cfg.final_k, bound="cauchy")
+        k=k, bound="cauchy")
     torch.cuda.synchronize()
     ok, err = close(est[cand.valid], p_est[cand.valid], EST_TOL, EST_TOL)
     if not ok:
-        fail(f"ternary_refine_fused padded bucket: est off on valid slots "
-             f"(max err {err})")
+        fail(f"ternary_refine_fused {label}: est off on valid slots (max "
+             f"err {err})")
     if not (torch.equal(alive, p_alive) and torch.equal(counts, p_counts)):
-        fail(f"ternary_refine_fused padded bucket: alive or counts differ "
-             f"from the plain version ({int((alive != p_alive).sum())} "
-             f"alive slots)")
-    if bool(alive[37:].any()) or bool(counts[37:].any()):
-        fail("ternary_refine_fused padded bucket: a padded row has a "
-             "survivor or a count")
+        fail(f"ternary_refine_fused {label}: alive or counts differ from "
+             f"the plain version ({int((alive != p_alive).sum())} alive "
+             f"slots)")
     refine = dict(
         max_abs_err=err,
         ms=time_ms(lambda: tr.ternary_refine_fused(*args, **kw), 20),
         plain_ms=time_ms(lambda: tr.refine_plain(
-            stores, planes, params, *args[2:6], k=cfg.final_k,
-            bound="cauchy"), 3),
-        library_ms=None, **refine_cost(torch, stores, cand, qpad))
-    print(f"ternary_refine_fused padded bucket: est within {err:.3g} on "
-          f"valid slots, alive and counts exact, no survivor in the 27 "
-          f"padded rows; {refine['ms']:.4f} ms per call (bound "
-          f"{refine['bound_ms']:.4f} ms), plain {refine['plain_ms']:.3f} ms")
+            stores, planes, params, *args[2:6], k=k, bound="cauchy"), 3),
+        library_ms=None, **refine_cost(torch, stores, cand, q))
+    print_launches(torch, f"ternary_refine_fused {label}",
+                   lambda: tr.ternary_refine_fused(*args, **kw), 20)
+    print(f"ternary_refine_fused {label}: est within {err:.3g} on "
+          f"{int(cand.valid.sum())} valid slots of {cand.valid.numel()}, "
+          f"alive and counts exact, survivors {int(counts[:, 0].sum())}; "
+          f"{refine['ms']:.4f} ms per call (bound {refine['bound_ms']:.4f} "
+          f"ms), plain {refine['plain_ms']:.3f} ms")
+    return adc, refine, cand, alive, counts
+
+
+def padded_kernels(torch, db, cfg, queries) -> tuple[dict, dict]:
+    """``path_kernels`` on one padded bucket (37 queries padded to 64:
+    rows 37..63 have no valid slot, survivor or count).  Returns the two
+    kernels' rows."""
+    from repro_torch.anns.executor import pad_chunk
+    qpad, qvalid = pad_chunk(queries[:37].contiguous(), 64)
+    adc, refine, cand, alive, counts = path_kernels(
+        torch, db, cfg, qpad, "padded bucket (37 of 64 rows)", qvalid)
+    if bool(cand.valid[37:].any()):
+        fail("a padded row of the bucket has a valid slot")
+    if bool(alive[37:].any()) or bool(counts[37:].any()):
+        fail("ternary_refine_fused padded bucket: a padded row has a "
+             "survivor or a count")
+    print("padded bucket: no valid slot, survivor or count in the 27 "
+          "padded rows")
     return adc, refine
 
 
@@ -2277,78 +2328,330 @@ def invalidation_phase(torch, args, cfg, index, ds) -> None:
              must_change=False)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n", type=int, default=1_000_000,
-                    help="database rows (only N is ever cut)")
-    ap.add_argument("--queries", type=int, default=1000)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--shards", type=int, default=4,
-                    help="shards of the sharded path (on one card)")
-    args = ap.parse_args()
+# the RAG phase: the LM at full width over an index of its width
+RAG_ARCH = "qwen2.5-3b"
+RAG_REQUESTS, RAG_PROMPT, RAG_K, RAG_STEPS = 8, 32, 5, 16
+LM_CHECK_STEPS = 8             # teacher-forced decode steps held to forward
+LM_TOL = 2e-3                  # decode ≡ forward, tests/test_models.py's
+RAG_RECALL_SHARE = 0.9         # fatrq's recall@10 against baseline's
+RAG_RECALL1 = 0.99             # recall@1 of the RAG index's fatrq path
 
-    t_run = time.perf_counter()
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the GPU",
-              file=sys.stderr)
-        return 1
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run this "
-              f"script from a checkout of the repository", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(SRC))
+
+def lm_bounds(model, cfg, batch: int, prompt: int, context: int
+              ) -> tuple[tuple, tuple]:
+    """The least time of a prefill of ``batch`` prompts of ``prompt``
+    tokens and of one decode step at ``context`` cached positions:
+    every weight read once (float32) plus the cache written or read; the
+    operations are 2 per weight of the blocks per token, the tied LM head
+    on one position per sequence, and the attention's QK and PV products
+    over the causal positions."""
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    head = cfg.vocab * cfg.d_model
+    blocks = cfg.params_count() - head * (1 if cfg.tie_embeddings else 2)
+    kv_row = 2 * cfg.n_kv_heads * cfg.hd * 4 * cfg.n_layers
+    attn = 4 * cfg.n_heads * cfg.hd * cfg.n_layers
+    prefill = bound("lm prefill", weight_bytes + batch * prompt * kv_row,
+                    batch * (2 * blocks * prompt + 2 * head
+                             + attn * prompt * (prompt + 1) // 2))
+    decode = bound("lm decode step",
+                   weight_bytes + batch * (context + 1) * kv_row,
+                   batch * (2 * blocks + 2 * head + attn * (context + 1)))
+    return prefill, decode
+
+
+def runtime_calls(torch, fn) -> dict:
+    """The CUDA API calls (``cuda*`` and ``cu*``) the host made inside
+    ``fn``, by name and count, from one run under ``torch.profiler``
+    (empty if it recorded none)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("under_test"):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    span = [e.time_range for e in events if e.name == "under_test"]
+    if not span:
+        return {}
+    lo, hi = span[0].start, span[0].end
+    out: dict = {}
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith("cu") and not e.name.startswith(
+                    "cutlass") and lo <= e.time_range.start <= hi):
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+def rag_phase(torch, args, launches, reset_launches, read_launches) -> dict:
+    """Phase 9: the RAG round trip at the full width of qwen2.5-3b over a
+    1M x 2048 index (the LM's d_model).  Returns the ``rag`` entries of
+    ``pq_adc`` and the fused kernel, measured at the round trip's own
+    shape (its 8 embedded prompts, k = 5); ``launches`` gains ``rag`` (the
+    ``Retriever`` form) and ``rag_serving`` (the ``ServingEngine`` form)."""
+    from repro_torch.anns import Database, PipelineConfig, QueryPlan, \
+        recall_at_k
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import make_dataset
+    from repro_torch.data.synthetic import brute_force_topk
+    from repro_torch.models import build_model, transformer
+    from repro_torch.serving import (Engine, Retriever, ServingEngine,
+                                     rag_answer)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"rag phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+          f"allocated from the earlier phases")
+    lm_cfg = ARCHS[RAG_ARCH]
+    dim = lm_cfg.d_model
+
+    # ---- the index, at the LM's width
+    t = time.perf_counter()
+    ds = make_dataset(n=args.n, d=dim, n_queries=args.queries, k_gt=100,
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(args.seed))
+    torch.cuda.synchronize()
+    print(f"rag dataset {args.n} x {dim}, {args.queries} queries, exact "
+          f"top-100: {time.perf_counter() - t:.1f} s")
+    cfg = PipelineConfig(dim=dim, pq_m=128, pq_k=256, nlist=1024, nprobe=16,
+                         trq_levels=1, final_k=10, refine_budget=40,
+                         bound="cauchy", micro_batch=64)
+    db, build_s = timed(torch, lambda: Database.build(
+        ds.x, cfg, generator=torch.Generator(device="cuda")
+        .manual_seed(args.seed)))
+    index = db.index
+    print(f"rag index build ({args.n} x {dim}, PQ M={cfg.pq_m} "
+          f"K={cfg.pq_k}, nlist {cfg.nlist}, G "
+          f"{index.trq.levels[0].packed.shape[1]}): {build_s:.1f} s (IVF "
+          f"cap {index.ivf.cap}; peak so far "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB)")
+    plan = QueryPlan(backend="cuda")
+    res, secs = timed(torch, lambda: db.query(ds.queries, plan=plan))
+    base = db.query(ds.queries, plan=QueryPlan(mode="baseline"))
+    nq = ds.queries.shape[0]
+    recall = {label: (recall_at_k(r.ids, ds.gt, cfg.final_k),
+                      recall_at_k(r.ids[:, :1], ds.gt, 1))
+              for label, r in (("fatrq", res), ("baseline", base))}
+    print(f"rag index: recall@10 fatrq {recall['fatrq'][0]:.4f}, baseline "
+          f"(every candidate reranked exactly) {recall['baseline'][0]:.4f}; "
+          f"recall@1 {recall['fatrq'][1]:.4f} and "
+          f"{recall['baseline'][1]:.4f}; fatrq {nq / secs:.1f} queries/s "
+          f"(first run), SSD fetches/query "
+          f"{res.cost.ledger['rerank:ssd'].accesses / nq:.1f}")
+    # At this width the synthetic rows are diffuse: the true neighbours
+    # after the first lie in many lists, so nprobe 16 lists hold only a
+    # third of them and no rerank of the candidates can reach 0.5.  What
+    # a broken path would break is held instead: fatrq within a tenth of
+    # the exact rerank of the same candidates, and each query's nearest
+    # row found.
+    if recall["fatrq"][0] < RAG_RECALL_SHARE * recall["baseline"][0]:
+        fail(f"rag index: fatrq recall@10 {recall['fatrq'][0]:.4f} below "
+             f"{RAG_RECALL_SHARE} of baseline's "
+             f"{recall['baseline'][0]:.4f}")
+    if recall["fatrq"][1] < RAG_RECALL1:
+        fail(f"rag index: recall@1 {recall['fatrq'][1]:.4f} below "
+             f"{RAG_RECALL1}")
+    ledger = lambda c: {k: (v.accesses, v.bytes)              # noqa: E731
+                        for k, v in c.ledger.items()}
+    sub = ds.queries[:64]
+    ref = db.query(sub, plan=QueryPlan(backend="reference", micro_batch=8))
+    cud = db.query(sub, plan=plan)
+    if not torch.equal(ref.ids, cud.ids) or \
+            ledger(ref.cost) != ledger(cud.cost):
+        fail("rag index: the reference and cuda backends differ (ids or "
+             "ledger)")
+    print(f"rag index: the reference backend on {sub.shape[0]} queries "
+          f"gives the cuda backend's ids and ledger")
+    path_kernels(torch, db, cfg, ds.queries[:64].contiguous(),
+                 "rag dataset queries")
+    del res, base, ref, cud, sub, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the LM at full width, float32
+    api = build_model(lm_cfg)
+    model, init_s = timed(torch, lambda: api.init(
+        torch.Generator(device="cuda").manual_seed(args.seed)))
+    matrices = sum(p.numel() for p in model.parameters() if p.dim() >= 2)
+    total = sum(p.numel() for p in model.parameters())
+    print(f"rag LM {lm_cfg.name}: {lm_cfg.n_layers} layers, d_model "
+          f"{lm_cfg.d_model}, {lm_cfg.n_heads} heads, {lm_cfg.n_kv_heads} KV "
+          f"heads, head dim {lm_cfg.hd}, d_ff {lm_cfg.d_ff}, vocab "
+          f"{lm_cfg.vocab}: {matrices:,} parameters in its matrices "
+          f"(params_count() {lm_cfg.params_count():,}), {total:,} with norms "
+          f"and biases, float32, drawn in {init_s:.1f} s")
+    if matrices != lm_cfg.params_count():
+        fail(f"the LM has {matrices} matrix parameters, params_count() says "
+             f"{lm_cfg.params_count()}")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    n_check = RAG_PROMPT + LM_CHECK_STEPS
+    toks = torch.randint(0, lm_cfg.vocab, (RAG_REQUESTS, n_check),
+                         generator=gen, device=gen.device)
+    with torch.no_grad():
+        full = api.forward(model, {"tokens": toks})[0][:, RAG_PROMPT - 1:]
+    cache = api.init_cache(model, RAG_REQUESTS, n_check)
+    last, cache = transformer.prefill(model, toks[:, :RAG_PROMPT], lm_cfg,
+                                      cache)
+    got = [last]
+    for t in range(RAG_PROMPT, n_check):
+        logits, cache = api.decode_step(model, toks[:, t:t + 1], cache)
+        got.append(logits)
+    ok, err = close(torch.stack(got, 1), full, LM_TOL, LM_TOL)
+    if not ok:
+        fail(f"rag LM: prefill and decode logits differ from forward's (max "
+             f"err {err})")
+    print(f"rag LM: prefill of {RAG_REQUESTS} x {RAG_PROMPT} tokens and "
+          f"{LM_CHECK_STEPS} teacher-forced decode steps equal one forward "
+          f"of {n_check} tokens within {LM_TOL} (max err {err:.3g}, logits "
+          f"up to {float(full.abs().max()):.3g})")
+    del full, got
+    c32 = transformer.prefill(model, toks[:, :RAG_PROMPT], lm_cfg,
+                              api.init_cache(model, RAG_REQUESTS,
+                                             n_check))[1]
+    prefill_ms = time_ms(lambda: transformer.prefill(
+        model, toks[:, :RAG_PROMPT], lm_cfg, c32), 5)
+    step_tok = toks[:, RAG_PROMPT:RAG_PROMPT + 1]
+
+    def one_step():
+        """Decode step 33 again: the cache is written in place, so its
+        length goes back to the prompt's before each call."""
+        c32["len"] = RAG_PROMPT
+        return api.decode_step(model, step_tok, c32)
+
+    step_ms = time_ms(one_step, 20)
+    (pre_bound, pre_by), (dec_bound, dec_by) = lm_bounds(
+        model, lm_cfg, RAG_REQUESTS, RAG_PROMPT, RAG_PROMPT)
+    print(f"rag LM prefill ({RAG_REQUESTS} x {RAG_PROMPT} tokens): "
+          f"{prefill_ms:.3f} ms, bound {pre_bound:.3f} ms ({pre_by}); decode "
+          f"step (batch {RAG_REQUESTS}, {RAG_PROMPT} cached): {step_ms:.3f} "
+          f"ms, bound {dec_bound:.3f} ms ({dec_by})")
+    device_breakdown(torch, "rag LM prefill", lambda: transformer.prefill(
+        model, toks[:, :RAG_PROMPT], lm_cfg, c32))
+    device_breakdown(torch, "rag LM decode step", one_step)
+    del c32, cache, toks
+
+    # ---- the round trip, through a Retriever and through a ServingEngine
+    prompts = torch.randint(0, lm_cfg.vocab, (RAG_REQUESTS, RAG_PROMPT),
+                            generator=gen, device=gen.device)
+
+    def embed_fn(tokens):
+        """JAX ``launch/serve.py``'s: mean-pooled token embeddings,
+        normalised."""
+        with torch.no_grad():
+            e = model.embed_tokens(tokens).mean(dim=1)
+            return e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
+
+    class SyncFreeEngine(Engine):
+        """Decodes with any host synchronize raising, and times it."""
+
+        decode_s = 0.0
+
+        def decode(self, tokens, steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = super().decode(tokens, steps)
+            except RuntimeError as e:
+                fail(f"a decode step synchronized the host: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            self.decode_s += time.perf_counter() - t
+            return out
+
+    max_len = RAG_PROMPT + RAG_STEPS
+    q = embed_fn(prompts)
+    # the two kernels against their plain versions at the round trip's
+    # shape: the rows that the kernels line reports for rag
+    adc, refine = path_kernels(torch, db, cfg, q, "rag round-trip",
+                               k=RAG_K)[:2]
+    want = db.query(q, plan=dataclasses.replace(plan, k=RAG_K))
+    out = {}
+    for form in ("rag", "rag_serving"):
+        engine = SyncFreeEngine(api, model, batch=RAG_REQUESTS,
+                                max_len=max_len)
+        kw = ({"retriever": Retriever(index=db, backend="cuda",
+                                      micro_batch=8)} if form == "rag" else
+              {"serving": ServingEngine(db, plan=plan,
+                                        max_batch=RAG_REQUESTS)})
+        reset_launches()
+        res, secs = timed(torch, lambda: rag_answer(
+            engine, index, embed_fn, prompts, k=RAG_K,
+            decode_steps=RAG_STEPS, **kw))
+        launches[form] = read_launches()
+        for name in ("pq_adc", "ternary_refine_fused"):
+            if launches[form][name] == 0:
+                fail(f"the {form} round trip never launched {name}")
+        ids = res.ids.to(want.ids.device)
+        if not torch.equal(ids, want.ids):
+            fail(f"{form}: the round trip's ids differ from db.query's in "
+                 f"{int((ids != want.ids).any(1).sum())} requests")
+        if res.tokens.shape != (RAG_REQUESTS, RAG_STEPS) or \
+                engine.stats.tokens != RAG_REQUESTS * RAG_STEPS:
+            fail(f"{form}: tokens {tuple(res.tokens.shape)}, stats "
+                 f"{engine.stats}")
+        out[form] = res
+        print(f"{form}: {RAG_REQUESTS} requests of {RAG_PROMPT} tokens, "
+              f"k={RAG_K}, {RAG_STEPS} decode steps: ids equal to db.query's "
+              f"bit for bit; {secs * 1e3:.1f} ms round trip, decode "
+              f"{engine.decode_s * 1e3:.1f} ms "
+              f"({RAG_REQUESTS * RAG_STEPS / engine.decode_s:.1f} tokens/s, "
+              f"{engine.decode_s / RAG_STEPS * 1e3:.3f} ms a step, no host "
+              f"synchronize); launches {launches[form]}; ledger "
+              f"{ledger(res.cost)}")
+    a, b = out["rag"], out["rag_serving"]
+    if not (torch.equal(a.ids.to(b.ids.device), b.ids)
+            and torch.equal(a.tokens, b.tokens)):
+        fail("the Retriever and ServingEngine round trips differ")
+    # the CUDA runtime calls of two decode steps, from the profiler: no
+    # synchronize and no blocking copy may be among them
+    engine = Engine(api, model, batch=RAG_REQUESTS, max_len=max_len)
+    calls = runtime_calls(torch, lambda: engine.decode(
+        prompts[:, -1:].int(), 2))
+    blocking = {n: c for n, c in calls.items() if "Synchronize" in n or (
+        ("Memcpy" in n or "Memset" in n) and "Async" not in n)}
+    if blocking:
+        fail(f"two decode steps made blocking CUDA runtime calls {blocking}")
+    print(f"rag decode runtime calls of 2 steps: {calls}; none blocks the "
+          f"host" if calls else "rag decode runtime calls: not measured "
+          "(the profiler recorded no CUDA runtime call)")
+    gt = brute_force_topk(index.x, q, RAG_K)
+    print(f"rag: the Retriever and ServingEngine forms give equal ids and "
+          f"tokens; recall@{RAG_K} of the retrievals against exact top-"
+          f"{RAG_K}: {recall_at_k(a.ids, gt, RAG_K):.4f}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"rag phase: {time.perf_counter() - t_phase:.1f} s, peak device "
+          f"memory {peak:.1f} GB")
+    if peak >= PEAK_GB:
+        fail(f"rag phase: peak device memory {peak:.1f} GB reaches "
+             f"{PEAK_GB} GB")
+    adc["launches"] = launches["rag"]["pq_adc"]
+    refine["launches"] = launches["rag"]["ternary_refine_fused"]
+    return {"pq_adc": adc, "ternary_refine_fused": refine}
+
+
+def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
+                reset_launches, read_launches) -> tuple[dict, dict]:
+    """Phases 2 to 8 over the 1M x 768 index.  Returns each kernel's row
+    of the ``kernels`` line by name, and the launches by path.  Every
+    tensor these phases make is freed when it returns."""
     from repro_torch.anns import Database, PipelineConfig, QueryPlan, \
         make_sharded_executor, recall_at_k
     from repro_torch.anns import registry
     from repro_torch.anns.stages import Candidates, graph_for, \
         make_graph_front, make_ivf_front
-    from repro_torch.core import calibration as cal
     from repro_torch.core import trq as trq_mod
     from repro_torch.core.estimator import alive_chain
     from repro_torch.data import make_dataset
     from repro_torch.index import graph as graph_mod
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ops
     from repro_torch.kernels import pq_adc as pq_adc_mod
     from repro_torch.kernels import ternary_refine as tr
     from repro_torch.quant import pq as pq_mod
+    edge_err, edge_bounds_err, edge_adc_err, edge_level0_err = edge_errs
 
-    def reset_launches():
-        pq_adc_mod.launches = 0
-        tr.launches = tr.bounds_launches = 0
-        tr.batch_launches = tr.single_launches = tr.prune_launches = 0
-
-    def read_launches() -> dict:
-        return {"pq_adc": pq_adc_mod.launches,
-                "ternary_refine_fused": tr.launches,
-                "ternary_refine_fused_bounds": tr.bounds_launches,
-                "ternary_refine_batch": tr.batch_launches,
-                "ternary_refine": tr.single_launches,
-                "ternary_refine_prune": tr.prune_launches}
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(card)
-    t = time.perf_counter()
-    build.build_all()
-    print(f"kernel build: {time.perf_counter() - t:.1f} s")
-    print_resources(build._target(name) for name in build.SOURCES)
-    print(prune_attributes(build))
-    level0_attrs = level0_attributes(build, 154)
-    sass_profile(build._target("ternary_refine"), "level0_kernelILb1E")
-    edge_prune(torch, tr,
-               torch.Generator(device="cuda").manual_seed(args.seed + 3))
-    edge_err, edge_bounds_err = edge_shapes(
-        torch, tr, ops, alive_chain, trq_mod, cal, Candidates,
-        torch.Generator(device="cuda").manual_seed(args.seed + 1))
-    edge_adc_err = edge_adc(
-        torch, pq_adc_mod,
-        torch.Generator(device="cuda").manual_seed(args.seed + 2))
-    edge_level0_err = edge_level0(
-        torch, tr, ops,
-        torch.Generator(device="cuda").manual_seed(args.seed + 4))
 
     # ---- data + index build
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -2762,27 +3065,110 @@ def main() -> int:
     v_refine["launches"] = launches["serving_engine"]["ternary_refine_fused"]
     adc["serving"], refine["serving"] = v_adc, v_refine
 
+    return {"pq_adc": adc, "ternary_refine_fused": refine,
+            "ternary_refine_fused_bounds": bounds_row,
+            "ternary_refine_batch": level0_rows["ternary_refine_batch"],
+            "ternary_refine": level0_rows["ternary_refine"]}, launches
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--n", type=int, default=1_000_000,
+                    help="database rows (only N is ever cut)")
+    ap.add_argument("--queries", type=int, default=1000)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shards", type=int, default=4,
+                    help="shards of the sharded path (on one card)")
+    args = ap.parse_args()
+
+    t_run = time.perf_counter()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run this "
+              f"script from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch.anns.stages import Candidates
+    from repro_torch.core import calibration as cal
+    from repro_torch.core import trq as trq_mod
+    from repro_torch.core.estimator import alive_chain
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import pq_adc as pq_adc_mod
+    from repro_torch.kernels import ternary_refine as tr
+
+    def reset_launches():
+        pq_adc_mod.launches = 0
+        tr.launches = tr.bounds_launches = 0
+        tr.batch_launches = tr.single_launches = tr.prune_launches = 0
+
+    def read_launches() -> dict:
+        return {"pq_adc": pq_adc_mod.launches,
+                "ternary_refine_fused": tr.launches,
+                "ternary_refine_fused_bounds": tr.bounds_launches,
+                "ternary_refine_batch": tr.batch_launches,
+                "ternary_refine": tr.single_launches,
+                "ternary_refine_prune": tr.prune_launches}
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card)
+    t = time.perf_counter()
+    build.build_all()
+    print(f"kernel build: {time.perf_counter() - t:.1f} s")
+    print_resources(build._target(name) for name in build.SOURCES)
+    print(prune_attributes(build))
+    level0_attrs = level0_attributes(build, 154)
+    sass_profile(build._target("ternary_refine"), "level0_kernelILb1E")
+    edge_prune(torch, tr,
+               torch.Generator(device="cuda").manual_seed(args.seed + 3))
+    edge_err, edge_bounds_err = edge_shapes(
+        torch, tr, ops, alive_chain, trq_mod, cal, Candidates,
+        torch.Generator(device="cuda").manual_seed(args.seed + 1))
+    edge_adc_err = edge_adc(
+        torch, pq_adc_mod,
+        torch.Generator(device="cuda").manual_seed(args.seed + 2))
+    edge_level0_err = edge_level0(
+        torch, tr, ops,
+        torch.Generator(device="cuda").manual_seed(args.seed + 4))
+
+    rows, launches = index_paths(
+        torch, args, (edge_err, edge_bounds_err, edge_adc_err,
+                      edge_level0_err), level0_attrs, reset_launches,
+        read_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rag = rag_phase(torch, args, launches, reset_launches, read_launches)
+    rows["pq_adc"]["rag"] = rag["pq_adc"]
+    rows["ternary_refine_fused"]["rag"] = rag["ternary_refine_fused"]
+    print("rag entries: pq_adc and ternary_refine_fused at the round "
+          "trip's shape (its 8 embedded prompts over the 1M x 2048 index, "
+          "k = 5, G = 410) with the round trip's launches (the Retriever "
+          "form; rag_serving the ServingEngine form's)")
+
     print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all")
     src = "src/repro_torch/kernels/csrc/ternary_refine.cu"
-    rows = [("pq_adc", "src/repro_torch/kernels/csrc/pq_adc.cu",
-             "src/repro/kernels/pq_adc.py:36", "fatrq", adc),
-            ("ternary_refine_fused", src,
-             "src/repro/kernels/ternary_refine.py:364", "fatrq", refine),
-            ("ternary_refine_fused_bounds", src,
-             "src/repro/kernels/ternary_refine.py:418", "sharded",
-             bounds_row),
-            ("ternary_refine_batch", src,
-             "src/repro/kernels/ternary_refine.py:178", "ops",
-             level0_rows["ternary_refine_batch"]),
-            ("ternary_refine", src,
-             "src/repro/kernels/ternary_refine.py:213", "ops",
-             level0_rows["ternary_refine"])]
+    table = [("pq_adc", "src/repro_torch/kernels/csrc/pq_adc.cu",
+              "src/repro/kernels/pq_adc.py:36", "fatrq"),
+             ("ternary_refine_fused", src,
+              "src/repro/kernels/ternary_refine.py:364", "fatrq"),
+             ("ternary_refine_fused_bounds", src,
+              "src/repro/kernels/ternary_refine.py:418", "sharded"),
+             ("ternary_refine_batch", src,
+              "src/repro/kernels/ternary_refine.py:178", "ops"),
+             ("ternary_refine", src,
+              "src/repro/kernels/ternary_refine.py:213", "ops")]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[path][name],
          "launches_by_path": {p: launches[p][name] for p in launches},
-         **row}
-        for name, source, replaces, path, row in rows]}))
+         **rows[name]}
+        for name, source, replaces, path in table]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

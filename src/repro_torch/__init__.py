@@ -20,9 +20,14 @@ subpackage names so each module's counterpart is easy to find:
   Python).
 * ``serving`` — the ``Retriever``, the continuous-batching
   ``ServingEngine`` (fronts on a side CUDA stream, double-buffered
-  against the refine) and its result cache.
+  against the refine) and its result cache; the LM's decode ``Engine``
+  and the ``rag_answer`` round trip.
+* ``configs`` / ``models`` — the ten architecture configs and the
+  transformer LM (dense, MoE and VLM families) behind ``build_model``.
+* ``launch`` — ``python -m repro_torch.launch.serve``.
 * ``data`` — synthetic clustered embeddings with exact ground truth.
-* ``interop`` — loads an index built by the JAX package from numpy arrays.
+* ``interop`` — loads an index or a transformer's weights made by the
+  JAX package from numpy arrays.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no device given and no GPU present they raise instead of falling back.

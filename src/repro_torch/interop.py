@@ -12,6 +12,10 @@ port's graph cache so that both packages traverse one graph.
 
 ``tiered_from_numpy`` carries a JAX ``TieredIndex`` across: the inner
 index through ``index_from_numpy``, then its placement state as numpy.
+
+``params_from_numpy`` carries a JAX transformer's parameter tree
+(``jax.tree.map(np.asarray, api.init(key))``) into the port's
+``models.transformer.Transformer``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from repro_torch.device import resolve_device
 from repro_torch.index.graph import GraphIndex, draw_start
 from repro_torch.index.ivf import IVFIndex
 from repro_torch.memory.placement import TieredConfig
+from repro_torch.models.transformer import Transformer
 from repro_torch.quant.pq import PQCodebook
 
 
@@ -86,3 +91,52 @@ def tiered_from_numpy(arrays: dict[str, np.ndarray], placement: dict,
     ti.heat.observations = int(placement["observations"])
     ti.generation = int(placement["generation"])
     return ti
+
+
+def params_from_numpy(cfg, tree: dict, *, device=None,
+                      dtype=torch.float32) -> Transformer:
+    """The port's model of ``cfg`` with a JAX transformer's weights, on
+    ``device`` (the GPU unless given).  ``tree`` is the JAX parameter tree
+    as numpy: ``embed``, ``final_norm``, optional ``lm_head`` and
+    ``blocks`` with a leading layer axis (``ln1``, ``ln2``,
+    ``attn.wq/wk/wv/wo[/bq/bk/bv]``, ``ffn.wg/wu/wd`` or
+    ``moe.router/wg/wu/wd``).  JAX stores a projection (in, out) and an
+    ``nn.Linear`` (out, in), so those are transposed; the experts' weights
+    keep JAX's layout."""
+    dev = resolve_device(device)
+    model = Transformer(cfg, device=dev, dtype=dtype)
+
+    def put(param: torch.Tensor, value, *, linear: bool = False) -> None:
+        t = torch.from_numpy(np.array(value))
+        if linear:
+            t = t.T
+        if tuple(t.shape) != tuple(param.shape):
+            raise ValueError(f"a {tuple(t.shape)} weight for a "
+                             f"{tuple(param.shape)} parameter")
+        with torch.no_grad():
+            param.copy_(t)
+
+    put(model.embed, tree["embed"])
+    put(model.final_norm, tree["final_norm"])
+    if model.lm_head is not None:
+        put(model.lm_head.weight, tree["lm_head"], linear=True)
+    blocks = tree["blocks"]
+    for i, blk in enumerate(model.blocks):
+        put(blk.ln1, blocks["ln1"][i])
+        put(blk.ln2, blocks["ln2"][i])
+        attn = blocks["attn"]
+        for name in ("wq", "wk", "wv", "wo"):
+            put(getattr(blk.attn, name).weight, attn[name][i], linear=True)
+        if cfg.qkv_bias:
+            for name in ("q", "k", "v"):
+                put(getattr(blk.attn, f"w{name}").bias, attn[f"b{name}"][i])
+        if cfg.is_moe:
+            moe = blocks["moe"]
+            put(blk.moe.router.weight, moe["router"][i], linear=True)
+            for name in ("wg", "wu", "wd"):
+                put(getattr(blk.moe, name), moe[name][i])
+        else:
+            for name in ("wg", "wu", "wd"):
+                put(getattr(blk.ffn, name).weight, blocks["ffn"][name][i],
+                    linear=True)
+    return model

@@ -1,0 +1,259 @@
+"""Shared model layers: RMSNorm, RoPE / M-RoPE, GQA attention (full or
+sliding window), SwiGLU, and the modules that hold their weights.
+
+The functions mirror ``repro.models.layers``; the weights live in
+``nn.Module``s: ``Attention`` (``wq``/``wk``/``wv``/``wo`` as
+``nn.Linear``, which store (out, in), the bias of q/k/v in the
+projections) and ``SwiGLU`` (``wg``/``wu``/``wd``).  Attention is the
+plain form (einsum, mask, softmax in float32), the reference's order of
+operations, so the logits agree with it within float32 rounding.
+
+Every function here takes the positions and lengths it masks with as host
+``int``s or device tensors and builds its masks with ``torch.arange`` on
+the input's device: a decode step issues no host synchronize.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# ---------------------------------------------------------------- modules
+
+
+def empty_linear(d_in: int, d_out: int, *, bias: bool, device, dtype
+                 ) -> nn.Linear:
+    """An ``nn.Linear`` whose storage is allocated but not initialized
+    (``init`` or ``interop.params_from_numpy`` fills it)."""
+    return nn.utils.skip_init(nn.Linear, d_in, d_out, bias=bias,
+                              device=device, dtype=dtype)
+
+
+class Attention(nn.Module):
+    """GQA projections: ``wq`` (D → H·hd), ``wk``/``wv`` (D → KV·hd), with
+    a bias each where ``cfg.qkv_bias``, and ``wo`` (H·hd → D)."""
+
+    def __init__(self, cfg, *, device=None, dtype=torch.float32):
+        super().__init__()
+        d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        kw = dict(bias=cfg.qkv_bias, device=device, dtype=dtype)
+        self.wq = empty_linear(d, h * hd, **kw)
+        self.wk = empty_linear(d, kv * hd, **kw)
+        self.wv = empty_linear(d, kv * hd, **kw)
+        self.wo = empty_linear(h * hd, d, bias=False, device=device,
+                               dtype=dtype)
+
+
+class SwiGLU(nn.Module):
+    """``wg``/``wu`` (D → F), ``wd`` (F → D)."""
+
+    def __init__(self, d: int, f: int, *, device=None, dtype=torch.float32):
+        super().__init__()
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.wg = empty_linear(d, f, **kw)
+        self.wu = empty_linear(d, f, **kw)
+        self.wd = empty_linear(f, d, **kw)
+
+
+# --------------------------------------------------------------- normalize
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+# ------------------------------------------------------------------- RoPE
+
+
+def _freqs(half: int, theta: float, device) -> torch.Tensor:
+    return theta ** (-torch.arange(half, dtype=torch.float32, device=device)
+                     / half)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., S) int → (sin, cos) of shape (..., S, head_dim//2)."""
+    ang = positions[..., None].float() * _freqs(head_dim // 2, theta,
+                                                positions.device)
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
+               ) -> torch.Tensor:
+    """x (B, S, H, hd); sin/cos (B, S, hd//2) or (S, hd//2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if sin.dim() == 2:
+        sin, cos = sin[None], cos[None]
+    sin, cos = sin[:, :, None, :], cos[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections=(2, 1, 1)) -> tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE (Qwen2-VL): positions (B, 3, S) for (t, h, w); the rotary
+    spectrum is split into ``sections`` (proportional chunks, the rounding
+    remainder going to the last) so each band rotates by its own
+    coordinate.  For text the three coordinates are equal and this is
+    standard RoPE."""
+    half = head_dim // 2
+    total = sum(sections)
+    bounds, start = [], 0
+    for s in sections:
+        size = half * s // total
+        bounds.append((start, start + size))
+        start += size
+    bounds[-1] = (bounds[-1][0], half)
+    freqs = _freqs(half, theta, positions.device)
+    sins, coss = [], []
+    for i, (lo, hi) in enumerate(bounds):
+        ang = positions[:, i, :, None].float() * freqs[lo:hi]
+        sins.append(torch.sin(ang))
+        coss.append(torch.cos(ang))
+    return torch.cat(sins, -1), torch.cat(coss, -1)      # (B, S, half)
+
+
+# -------------------------------------------------------------- attention
+
+
+def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, KV, hd) → (B, S, KV·n_rep, hd) for GQA."""
+    if n_rep == 1:
+        return k
+    b, s, kv, hd = k.shape
+    return k[:, :, :, None, :].expand(b, s, kv, n_rep, hd).reshape(
+        b, s, kv * n_rep, hd)
+
+
+def _mask_logits(logits: torch.Tensor, *, causal: bool, window, offset,
+                 kv_len_valid=None) -> torch.Tensor:
+    """Causal / sliding-window masking of (B, H, Sq, Sk) logits: masked
+    entries become −1e30.
+
+    window: None/0 → full; w > 0 → sliding (kpos > qpos − w).
+    offset: absolute position of query row 0 (decode: the cache length).
+    kv_len_valid: keys at or beyond it are padding.
+    """
+    sq, sk = logits.shape[-2], logits.shape[-1]
+    dev = logits.device
+    qpos = torch.arange(sq, device=dev)[:, None] + offset
+    kpos = torch.arange(sk, device=dev)[None, :]
+    m = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        m &= kpos <= qpos
+    if window:
+        m &= kpos > qpos - window
+    if kv_len_valid is not None:
+        m &= kpos < kv_len_valid
+    return torch.where(m[None, None], logits, -1e30)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window=None, offset=0,
+              kv_len_valid=None, q_block: int = 0) -> torch.Tensor:
+    """Softmax attention.  q (B, Sq, H, hd), k/v (B, Sk, H, hd) (H already
+    GQA-repeated).  q_block > 0 goes over query blocks of that many rows
+    (peak activation (B, H, q_block, Sk) instead of (B, H, Sq, Sk))."""
+    scale = q.shape[-1] ** -0.5
+
+    def blk(qb, off):
+        logits = torch.einsum("bqhd,bkhd->bhqk", qb, k).float() * scale
+        logits = _mask_logits(logits, causal=causal, window=window,
+                              offset=off, kv_len_valid=kv_len_valid)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+    sq = q.shape[1]
+    if not q_block or sq <= q_block:
+        return blk(q, offset)
+    if sq % q_block:
+        raise ValueError(f"q_block {q_block} does not divide the {sq} "
+                         f"query rows")
+    return torch.cat([blk(q[:, i:i + q_block], offset + i)
+                      for i in range(0, sq, q_block)], dim=1)
+
+
+def _heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    return t.reshape(t.shape[0], t.shape[1], n, hd)
+
+
+def project_kv(x: torch.Tensor, attn: Attention, cfg, sin=None, cos=None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K/V projections only (the cache fill), RoPE on K."""
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    k = _heads(attn.wk(x), kv, hd)
+    v = _heads(attn.wv(x), kv, hd)
+    if sin is not None:
+        k = apply_rope(k, sin, cos)
+    return k, v
+
+
+def gqa_attention(x: torch.Tensor, attn: Attention, cfg, *, sin, cos,
+                  causal: bool = True, window=None, offset=0,
+                  kv_len_valid=None,
+                  kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
+                  q_block: int = 0) -> torch.Tensor:
+    """GQA attention over x (B, S, D).  kv_override: precomputed (k, v),
+    the KV cache in decode."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    q = _heads(attn.wq(x), h, hd)
+    if kv_override is None:
+        k, v = project_kv(x, attn, cfg, sin, cos)
+    else:
+        k, v = kv_override
+    if sin is not None:
+        q_sin, q_cos = sin, cos
+        if kv_override is not None and sin.shape[-2] != s:
+            # rope for the last s positions only
+            q_sin, q_cos = sin[..., -s:, :], cos[..., -s:, :]
+        q = apply_rope(q, q_sin, q_cos)
+    k = repeat_kv(k, h // k.shape[2])
+    v = repeat_kv(v, h // v.shape[2])
+    out = attention(q, k, v, causal=causal, window=window, offset=offset,
+                    kv_len_valid=kv_len_valid, q_block=q_block)
+    return attn.wo(out.reshape(b, s, h * hd))
+
+
+# ------------------------------------------------------------------- FFN
+
+
+def swiglu(x: torch.Tensor, ffn: SwiGLU) -> torch.Tensor:
+    """(silu(x·wg) ⊙ (x·wu)) · wd."""
+    return ffn.wd(F.silu(ffn.wg(x)) * ffn.wu(x))
+
+
+# ------------------------------------------------------------------ init
+
+
+def dense_init(t: torch.Tensor, generator: torch.Generator, fan_in: int,
+               scale: float | None = None) -> None:
+    """Fill ``t`` in place with normal · ``scale`` (fan_in^-0.5 unless
+    given), drawn from ``generator``: the reference's distribution, not
+    its bits."""
+    with torch.no_grad():
+        t.normal_(generator=generator).mul_(
+            scale if scale is not None else fan_in ** -0.5)
+
+
+def attn_params(attn: Attention, cfg, generator: torch.Generator) -> None:
+    """Draw ``attn``'s weights (zero biases)."""
+    d, hd = cfg.d_model, cfg.hd
+    for lin, fan_in in ((attn.wq, d), (attn.wk, d), (attn.wv, d),
+                        (attn.wo, cfg.n_heads * hd)):
+        dense_init(lin.weight, generator, fan_in)
+        if lin.bias is not None:
+            with torch.no_grad():
+                lin.bias.zero_()
+
+
+def swiglu_params(ffn: SwiGLU, generator: torch.Generator) -> None:
+    """Draw ``ffn``'s weights."""
+    d, f = ffn.wg.in_features, ffn.wg.out_features
+    for lin, fan_in in ((ffn.wg, d), (ffn.wu, d), (ffn.wd, f)):
+        dense_init(lin.weight, generator, fan_in)

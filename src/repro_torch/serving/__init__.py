@@ -1,15 +1,18 @@
 """The serving layer: the continuous-batching ``ServingEngine`` with its
-result cache, and the ``Retriever`` (``serving.scheduler``,
+result cache, the ``Retriever``, and the LM side: the decode ``Engine``
+and the ``rag_answer`` round trip (``serving.scheduler``,
 ``serving.cache``)."""
 
 from repro_torch.serving.cache import (CacheStats, ResultCache, query_key,
                                       query_keys)
-from repro_torch.serving.scheduler import (Request, Response, Retriever,
+from repro_torch.serving.scheduler import (Engine, RagResult, Request,
+                                           Response, Retriever, ServeStats,
                                            ServingEngine, ServingStats,
                                            TenantQoS, TokenBucket,
-                                           VirtualClock)
+                                           VirtualClock, rag_answer)
 
-__all__ = ["Retriever", "Request", "Response", "ServingEngine",
+__all__ = ["Engine", "RagResult", "Retriever", "ServeStats", "rag_answer",
+           "Request", "Response", "ServingEngine",
            "ServingStats", "TenantQoS", "TokenBucket", "VirtualClock",
            "CacheStats", "ResultCache", "query_key", "query_keys"]
 

@@ -1,5 +1,6 @@
 """Continuous-batching serving engine and ``Retriever`` over
-``anns.api.Database``.
+``anns.api.Database``; the LM side's decode ``Engine`` and the
+``rag_answer`` round trip (at the end of the module).
 
 ``Database.query`` answers one batch at a time.  A serving front end sees
 an open-loop stream of single-query requests with deadlines and tenants,
@@ -57,6 +58,7 @@ import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -69,7 +71,8 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.serving.cache import ResultCache, query_keys
 
 __all__ = ["Request", "Response", "TenantQoS", "TokenBucket",
-           "VirtualClock", "ServingEngine", "ServingStats", "Retriever"]
+           "VirtualClock", "ServingEngine", "ServingStats", "Retriever",
+           "Engine", "ServeStats", "RagResult", "rag_answer"]
 
 
 @dataclass(frozen=True)
@@ -656,3 +659,111 @@ class Retriever:
                             micro_batch=micro_batch, bucket=self.bucket)
         self.total_cost.merge(res.cost)
         return res
+
+
+# ----------------------------------------------------------- RAG serving
+# The LM-facing half of the serving layer: a batched greedy decode engine
+# and ``rag_answer``, the round trip that couples it to retrieval (embed
+# the prompt, search, feed the retrieved context to the LM).
+
+
+@dataclass
+class ServeStats:
+    steps: int = 0
+    tokens: int = 0
+    retrievals: int = 0
+
+
+class Engine:
+    """Batched greedy decode over a ``models.ModelApi`` model, with a KV
+    cache on the model's device."""
+
+    def __init__(self, api, params, *, batch: int, max_len: int,
+                 dtype=torch.float32):
+        self.api = api
+        self.params = params
+        self.batch = batch
+        self.max_len = max_len
+        self.cache = api.init_cache(params, batch, max_len, dtype)
+        self.stats = ServeStats()
+
+    def prefill(self, batch_inputs: dict) -> None:
+        if self.api.prefill is not None:
+            self.cache = self.api.prefill(self.params, batch_inputs,
+                                          self.cache)
+
+    def decode(self, tokens, steps: int) -> torch.Tensor:
+        """tokens (B, 1) seed → (B, steps) greedy continuations (int32, on
+        the model's device).  Greedy is ``argmax``, the first index on
+        ties.  No step reads a device value on the host."""
+        cur = torch.as_tensor(tokens).to(self.cache["k"].device)
+        out = []
+        with torch.inference_mode():
+            for _ in range(steps):
+                logits, self.cache = self.api.decode_step(self.params, cur,
+                                                          self.cache)
+                cur = torch.argmax(logits, dim=-1)[:, None].int()
+                out.append(cur[:, 0])
+                self.stats.steps += 1
+                self.stats.tokens += self.batch
+            return torch.stack(out, dim=1)
+
+
+class RagResult(NamedTuple):
+    """The RAG round trip's output: generated tokens, retrieved ids, the
+    retrieval's ledger, and whether QoS throttling degraded any of the
+    batch's retrievals (always False outside a ``ServingEngine``)."""
+
+    tokens: torch.Tensor  # (B, decode_steps) greedy continuations
+    ids: torch.Tensor     # (B, k) retrieved context ids
+    cost: QueryCost       # retrieval ledger of this call
+    degraded: bool        # any retrieval ran under a degraded QoS plan
+
+
+def rag_answer(engine: Engine, index, embed_fn, prompt_tokens, *,
+               k: int = 5, decode_steps: int = 8,
+               retriever: Retriever | None = None, micro_batch: int = 8,
+               plan: QueryPlan | None = None, serving=None) -> RagResult:
+    """One RAG round trip: embed the prompts, retrieve the top-k context
+    ids, prepend them (stub tokenization: ids mod vocab) and decode from
+    the last token (no prefill).
+
+    Retrieval goes through a default ``Retriever`` over ``index`` (with
+    ``plan`` as its plan, its micro-batch ``micro_batch`` unless the plan
+    sets one), through the caller's ``retriever``, or through a
+    ``ServingEngine`` (``serving``): its ledger then merges once per
+    engine batch, and ``degraded`` reports QoS degradation.  ``plan`` and
+    ``retriever`` exclude each other; ``serving`` goes alone."""
+    prompt_tokens = torch.as_tensor(prompt_tokens)
+    q = embed_fn(prompt_tokens)                       # (B, D) embeddings
+    if serving is not None:
+        if retriever is not None or plan is not None:
+            raise ValueError("pass serving= alone: a ServingEngine "
+                             "carries its own plan and QoS config")
+        resp = serving.serve(q, k=k)
+        ids = torch.from_numpy(np.stack([r.ids for r in resp]))
+        cost = QueryCost()
+        seen_batches = set()
+        for r in resp:
+            if r.cost is not None and r.batch not in seen_batches:
+                seen_batches.add(r.batch)
+                cost.merge(r.cost)
+        degraded = any(r.degraded for r in resp)
+    else:
+        if retriever is None:
+            if plan is not None and plan.micro_batch is None:
+                plan = dataclasses.replace(plan, micro_batch=micro_batch)
+            retriever = Retriever(index=index, micro_batch=micro_batch,
+                                  plan=plan)
+        elif plan is not None:
+            raise ValueError("pass plan= or retriever=, not both: a "
+                             "Retriever carries its own plan")
+        ids, cost = retriever.retrieve(q, k=k)
+        degraded = False
+    engine.stats.retrievals += q.shape[0]
+    # stub contextualization: retrieved ids become context tokens
+    ctx = (ids % engine.api.cfg.vocab).to(device=prompt_tokens.device,
+                                          dtype=torch.int32)
+    seed = torch.cat([ctx, prompt_tokens.int()], dim=1)[:, -1:]
+    gen = engine.decode(seed, decode_steps)
+    return RagResult(tokens=gen, ids=ids, cost=cost, degraded=degraded)
