@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port of FaTRQ on one NVIDIA GPU.
 
     python3 chip_smoke.py            # 1M x 768 index, 1000 queries, 4 shards,
-                                     # then qwen2.5-3b over a 1M x 2048 index
+                                     # then qwen2.5-3b over a 1M x 2048 index,
+                                     # then zamba2, xlstm and whisper
 
 Phases, each of which raises on failure:
 
@@ -184,13 +185,31 @@ Phases, each of which raises on failure:
    blocking copy among the CUDA runtime calls of two steps
    (``torch.profiler``); recall@5, the ledger,
    tokens/s, the phase's time and its peak memory (under 70 GB);
-10. print one ``kernels`` JSON line (the three kernels of the graph paths
+10. the other model families at full width, after the LM is freed
+   (``families_phase``): zamba2-1.2b (38 layers, d_model 2048),
+   xlstm-1.3b (48 layers, d_model 2048) and whisper-medium (24 + 24
+   layers, d_model 1024, 1500 frames), float32, random weights from
+   ``--seed``, one at a time: each model's parameter count equal to the
+   JAX package's init (``FAMILY_PARAMS``); 8 x 40 teacher-forced decode
+   steps (whisper's after ``prefill_encoder`` on seeded frames) equal to
+   one forward in float64 within 5e-3 (zamba2, xlstm) or 2e-3 (whisper),
+   every step with host synchronizes raising (at these widths xlstm's
+   float32 chunked forward is itself further than the bound from the
+   float64 one); one decode step at batch 8 timed beside its bound and
+   profiled; no blocking CUDA runtime call in
+   two ``Engine`` steps; ``rag_answer`` for zamba2 and xlstm over the
+   1M x 2048 index (8 requests of 32 tokens, k=5, 16 decode steps,
+   through a ``Retriever``): ids equal to ``db.query``'s, ``pq_adc`` and
+   the fused kernel launched; whisper's ``Engine.prefill`` and 16 decode
+   steps; the phase's time and peak memory (under 70 GB);
+11. print one ``kernels`` JSON line (the three kernels of the graph paths
    with a ``graph`` entry: their numbers at the graph shapes; ``pq_adc``
    and the fused kernel with ``streaming`` and ``tiered`` entries at the
    streaming IVF and tiered shapes, and ``serving`` entries at the
    padded bucket with the engine's launches; ``pq_adc`` and the fused
    kernel with ``rag`` entries at the RAG index's shape with the round
-   trip's launches), then the result line
+   trip's launches; ``launches_by_path`` also has ``rag_zamba2`` and
+   ``rag_xlstm``), then the result line
    ``{"ok": true,
    "device": {...}}`` last.
 
@@ -2337,6 +2356,14 @@ RAG_RECALL_SHARE = 0.9         # fatrq's recall@10 against baseline's
 RAG_RECALL1 = 0.99             # recall@1 of the RAG index's fatrq path
 
 
+# the other model families at full width, after the RAG phase: their
+# parameter counts as the JAX package's init has them (``jax.eval_shape``
+# at the published configs; tests/test_torch_ssm.py and
+# tests/test_torch_whisper.py hold these constants to it)
+FAMILY_PARAMS = {"zamba2-1.2b": 1_170_313_344, "xlstm-1.3b": 3_982_592_000,
+                 "whisper-medium": 846_077_952}
+
+
 def lm_bounds(model, cfg, batch: int, prompt: int, context: int
               ) -> tuple[tuple, tuple]:
     """The least time of a prefill of ``batch`` prompts of ``prompt``
@@ -2385,12 +2412,61 @@ def runtime_calls(torch, fn) -> dict:
     return out
 
 
-def rag_phase(torch, args, launches, reset_launches, read_launches) -> dict:
+@contextlib.contextmanager
+def no_host_sync(torch, label: str):
+    """Run the body with any host synchronize raising
+    (``torch.cuda.set_sync_debug_mode("error")``); fail naming ``label``
+    if one did."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    except RuntimeError as e:
+        fail(f"{label} synchronized the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def sync_free(torch, engine):
+    """``engine`` with its ``decode`` run under ``no_host_sync`` and timed
+    to a synchronize (the seconds summed in ``engine.decode_s``)."""
+    decode = engine.decode
+    engine.decode_s = 0.0
+
+    def checked(tokens, steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with no_host_sync(torch, "a decode step"):
+            out = decode(tokens, steps)
+        torch.cuda.synchronize()
+        engine.decode_s += time.perf_counter() - t
+        return out
+
+    engine.decode = checked
+    return engine
+
+
+def blocking_calls(torch, label: str, fn) -> None:
+    """Fail if the CUDA runtime calls of ``fn`` (``runtime_calls``)
+    include a synchronize or a blocking copy or memset."""
+    calls = runtime_calls(torch, fn)
+    blocking = {n: c for n, c in calls.items() if "Synchronize" in n or (
+        ("Memcpy" in n or "Memset" in n) and "Async" not in n)}
+    if blocking:
+        fail(f"{label} made blocking CUDA runtime calls {blocking}")
+    print(f"{label} runtime calls: {calls}; none blocks the host" if calls
+          else f"{label} runtime calls: not measured (the profiler "
+          f"recorded no CUDA runtime call)")
+
+
+def rag_phase(torch, args, launches, reset_launches, read_launches
+              ) -> tuple[dict, object]:
     """Phase 9: the RAG round trip at the full width of qwen2.5-3b over a
     1M x 2048 index (the LM's d_model).  Returns the ``rag`` entries of
     ``pq_adc`` and the fused kernel, measured at the round trip's own
-    shape (its 8 embedded prompts, k = 5); ``launches`` gains ``rag`` (the
-    ``Retriever`` form) and ``rag_serving`` (the ``ServingEngine`` form)."""
+    shape (its 8 embedded prompts, k = 5), and the index's ``Database``
+    (the LM is freed on return); ``launches`` gains ``rag`` (the
+    ``Retriever`` form) and ``rag_serving`` (the ``ServingEngine``
+    form)."""
     from repro_torch.anns import Database, PipelineConfig, QueryPlan, \
         recall_at_k
     from repro_torch.configs import ARCHS
@@ -2542,25 +2618,6 @@ def rag_phase(torch, args, launches, reset_launches, read_launches) -> dict:
             e = model.embed_tokens(tokens).mean(dim=1)
             return e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
 
-    class SyncFreeEngine(Engine):
-        """Decodes with any host synchronize raising, and times it."""
-
-        decode_s = 0.0
-
-        def decode(self, tokens, steps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                out = super().decode(tokens, steps)
-            except RuntimeError as e:
-                fail(f"a decode step synchronized the host: {e}")
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            torch.cuda.synchronize()
-            self.decode_s += time.perf_counter() - t
-            return out
-
     max_len = RAG_PROMPT + RAG_STEPS
     q = embed_fn(prompts)
     # the two kernels against their plain versions at the round trip's
@@ -2570,8 +2627,8 @@ def rag_phase(torch, args, launches, reset_launches, read_launches) -> dict:
     want = db.query(q, plan=dataclasses.replace(plan, k=RAG_K))
     out = {}
     for form in ("rag", "rag_serving"):
-        engine = SyncFreeEngine(api, model, batch=RAG_REQUESTS,
-                                max_len=max_len)
+        engine = sync_free(torch, Engine(api, model, batch=RAG_REQUESTS,
+                                         max_len=max_len))
         kw = ({"retriever": Retriever(index=db, backend="cuda",
                                       micro_batch=8)} if form == "rag" else
               {"serving": ServingEngine(db, plan=plan,
@@ -2608,15 +2665,8 @@ def rag_phase(torch, args, launches, reset_launches, read_launches) -> dict:
     # the CUDA runtime calls of two decode steps, from the profiler: no
     # synchronize and no blocking copy may be among them
     engine = Engine(api, model, batch=RAG_REQUESTS, max_len=max_len)
-    calls = runtime_calls(torch, lambda: engine.decode(
+    blocking_calls(torch, "rag decode of 2 steps", lambda: engine.decode(
         prompts[:, -1:].int(), 2))
-    blocking = {n: c for n, c in calls.items() if "Synchronize" in n or (
-        ("Memcpy" in n or "Memset" in n) and "Async" not in n)}
-    if blocking:
-        fail(f"two decode steps made blocking CUDA runtime calls {blocking}")
-    print(f"rag decode runtime calls of 2 steps: {calls}; none blocks the "
-          f"host" if calls else "rag decode runtime calls: not measured "
-          "(the profiler recorded no CUDA runtime call)")
     gt = brute_force_topk(index.x, q, RAG_K)
     print(f"rag: the Retriever and ServingEngine forms give equal ids and "
           f"tokens; recall@{RAG_K} of the retrievals against exact top-"
@@ -2629,7 +2679,253 @@ def rag_phase(torch, args, launches, reset_launches, read_launches) -> dict:
              f"{PEAK_GB} GB")
     adc["launches"] = launches["rag"]["pq_adc"]
     refine["launches"] = launches["rag"]["ternary_refine_fused"]
-    return {"pq_adc": adc, "ternary_refine_fused": refine}
+    return {"pq_adc": adc, "ternary_refine_fused": refine}, db
+
+
+FAMILY_ARCHS = ("zamba2-1.2b", "xlstm-1.3b", "whisper-medium")
+# decode ≡ forward, tests/test_models.py's bounds
+FAMILY_TOL = {"zamba2-1.2b": 5e-3, "xlstm-1.3b": 5e-3,
+              "whisper-medium": 2e-3}
+FAMILY_CHECK = RAG_PROMPT + LM_CHECK_STEPS   # teacher-forced decode steps
+FAMILY_RAG = {"zamba2-1.2b": "rag_zamba2", "xlstm-1.3b": "rag_xlstm"}
+
+
+def _cache_tensors(cache: dict, prefix: str = ""):
+    for key, value in cache.items():
+        if isinstance(value, dict):
+            yield from _cache_tensors(value, f"{prefix}{key}.")
+        elif key != "len":
+            yield prefix + key, value
+
+
+def family_step_bound(model, cfg, cache: dict, batch: int, pos: int
+                      ) -> tuple[float, str]:
+    """The least time of one decode step at batch ``batch`` with ``pos``
+    positions cached.  Bytes: every weight the step reads once (the
+    embedding rows and the one decoder position it gathers; not the
+    encoder, nor the cross-attention K/V projections that the prefill
+    applied), each recurrent state read and written, the self-attention
+    caches' ``pos`` + 1 rows read and one written, the cross K/V read.
+    Operations: 2 per matrix weight and sequence (zamba2's shared block
+    at each of its g positions), 4 per attention score over the positions
+    attended, 4 per recurrent state element."""
+    weight_bytes, macs = 0, 0
+    shared = 0
+    for name, p in model.named_parameters():
+        row = cfg.d_model * p.element_size()
+        if name == "embed":
+            weight_bytes += batch * row
+            continue
+        if name == "dec_pos":
+            weight_bytes += row
+            continue
+        if name.startswith("enc_") or ".xattn.wk." in name \
+                or ".xattn.wv." in name:
+            continue
+        weight_bytes += p.numel() * p.element_size()
+        if p.dim() >= 2:
+            macs += p.numel()
+            if name.startswith("shared_attn."):
+                shared += p.numel()
+    if cfg.family == "hybrid":
+        macs += (cfg.n_layers // cfg.attn_every - 1) * shared
+    state_bytes, ops = 0, 2.0 * batch * macs
+    for name, t in _cache_tensors(cache):
+        nbytes = t.numel() * t.element_size()
+        if name in ("k", "v", "attn_k", "attn_v"):
+            layers = t.shape[0]
+            state_bytes += nbytes * (pos + 2) / t.shape[2]
+            ops += 2 * batch * layers * cfg.n_heads * cfg.hd * (pos + 1)
+        elif name in ("xk", "xv"):
+            state_bytes += nbytes
+            ops += 2 * t.numel() // cfg.n_kv_heads * cfg.n_heads
+        else:
+            state_bytes += 2 * nbytes
+            ops += 4 * t.numel()
+    print(f"{cfg.name} decode step: weights read {weight_bytes / 1e9:.3f} "
+          f"GB, state and caches read and written {state_bytes / 1e9:.3f} "
+          f"GB")
+    return bound(f"{cfg.name} decode step", weight_bytes + state_bytes, ops)
+
+
+def families_phase(torch, args, db, launches, reset_launches,
+                   read_launches) -> None:
+    """Phase 10: zamba2-1.2b, xlstm-1.3b and whisper-medium at their
+    published widths and depths in float32 with random weights from
+    ``--seed``, one at a time: the parameter count equal to the JAX
+    package's (``FAMILY_PARAMS``); 8 x 40 teacher-forced decode steps
+    (whisper's after ``prefill_encoder`` on seeded frames (8, 1500, 1024))
+    equal to one forward in float64 within ``FAMILY_TOL``, every step with
+    host synchronizes raising (the float32 forward's distance to both
+    printed); one decode step at batch 8 timed (20 runs)
+    beside its bound (``family_step_bound``) and profiled once; no
+    blocking CUDA runtime call among two ``Engine`` steps; for zamba2 and
+    xlstm the RAG round trip over ``db`` (the 1M x 2048 index: 8 requests
+    of 32 tokens, k = 5, 16 decode steps, through a ``Retriever``): ids
+    equal to ``db.query``'s, ``pq_adc`` and the fused kernel launched
+    (``launches`` gains ``rag_zamba2`` and ``rag_xlstm``); for whisper
+    ``launch.serve``'s path, ``Engine.prefill`` of the frames and 16
+    ``Engine.decode`` steps at batch 8.  Then the phase's time and peak
+    memory (under 70 GB)."""
+    from repro_torch.anns import QueryPlan
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine, Retriever, rag_answer
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"families phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated (the RAG index)")
+    n, dev = RAG_REQUESTS, db.index.device
+    for name in FAMILY_ARCHS:
+        cfg = ARCHS[name]
+        api = build_model(cfg)
+        model, init_s = timed(torch, lambda: api.init(
+            torch.Generator(device=dev).manual_seed(args.seed)))
+        total = sum(p.numel() for p in model.parameters())
+        print(f"{name}: {cfg.n_layers} layers"
+              + (f" (+{cfg.n_enc_layers} encoder, {cfg.enc_frames} frames)"
+                 if cfg.enc_dec else "")
+              + f", d_model {cfg.d_model}, {cfg.n_heads} heads, vocab "
+              f"{cfg.vocab}: {total:,} parameters (JAX's init: "
+              f"{FAMILY_PARAMS[name]:,}), float32, drawn in {init_s:.1f} s")
+        if total != FAMILY_PARAMS[name]:
+            fail(f"{name} has {total} parameters, the JAX package's init "
+                 f"{FAMILY_PARAMS[name]}")
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+        toks = torch.randint(0, cfg.vocab, (n, FAMILY_CHECK), generator=gen,
+                             device=dev)
+        batch = {"tokens": toks}
+        if cfg.enc_dec:
+            batch["frames"] = torch.randn((n, cfg.enc_frames, cfg.d_model),
+                                          generator=gen, device=dev)
+        with torch.no_grad():
+            full, fwd_s = timed(torch, lambda: api.forward(model, batch)[0])
+            # the same forward with the weights and inputs in float64 (the
+            # gates the reference computes in float32 stay float32): the
+            # reference the decode is held to, since at these widths
+            # xlstm's float32 chunked forward is itself further from it
+            # than the bound (PERF.md §6)
+            model.double()
+            full64 = api.forward(model, {
+                k: v.double() if v.is_floating_point() else v
+                for k, v in batch.items()})[0]
+            model.float()
+        cache = api.init_cache(model, n, FAMILY_CHECK)
+        if cfg.enc_dec:
+            cache, pre_s = timed(torch, lambda: api.prefill(
+                model, {"frames": batch["frames"]}, cache))
+            print(f"{name} prefill_encoder of {n} x {cfg.enc_frames} "
+                  f"frames: {pre_s * 1e3:.1f} ms")
+        got = []
+        with no_host_sync(torch, f"a {name} decode step"):
+            for t in range(FAMILY_CHECK):
+                logits, cache = api.decode_step(model, toks[:, t:t + 1],
+                                                cache)
+                got.append(logits)
+        got = torch.stack(got, 1)
+        tol = FAMILY_TOL[name]
+        ok, err = close(got.double(), full64, tol, tol)
+        if not ok or not bool(torch.isfinite(got).all()):
+            fail(f"{name}: teacher-forced decode differs from the float64 "
+                 f"forward's logits (max err {err})")
+        err32 = close(got, full, tol, tol)[1]
+        fwd_err = close(full.double(), full64, tol, tol)[1]
+        print(f"{name}: {FAMILY_CHECK} teacher-forced decode steps at batch "
+              f"{n} equal one forward in float64 within {tol} (max err "
+              f"{err:.3g}, logits up to {float(full64.abs().max()):.3g}); "
+              f"the float32 forward ({fwd_s * 1e3:.1f} ms) is {fwd_err:.3g} "
+              f"from the float64 one and {err32:.3g} from the decode; no "
+              f"step synchronized the host")
+        del full, full64, got
+        step_tok = toks[:, RAG_PROMPT:RAG_PROMPT + 1]
+
+        def one_step():
+            """A decode step at position 32 again (a recurrent state just
+            advances)."""
+            cache["len"] = RAG_PROMPT
+            return api.decode_step(model, step_tok, cache)
+
+        step_ms = time_ms(one_step, 20)
+        b_ms, b_by = family_step_bound(model, cfg, cache, n, RAG_PROMPT)
+        print(f"{name} decode step (batch {n}, {RAG_PROMPT} positions "
+              f"before it): {step_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        device_breakdown(torch, f"{name} decode step", one_step)
+        del cache, toks, batch, one_step, step_tok, logits
+        gc.collect()
+
+        # the Engine: whisper prefills its encoder first, as launch.serve
+        max_len = RAG_PROMPT + RAG_STEPS
+        frames = torch.randn((n, cfg.enc_frames, cfg.d_model),
+                             generator=gen, device=dev) \
+            if cfg.enc_dec else None
+        seed = torch.zeros((n, 1), dtype=torch.int32, device=dev)
+        engine = Engine(api, model, batch=n, max_len=max_len)
+        if cfg.enc_dec:
+            engine.prefill({"frames": frames})
+        blocking_calls(torch, f"{name} Engine decode of 2 steps",
+                       lambda: engine.decode(seed, 2))
+        del engine
+        engine = sync_free(torch, Engine(api, model, batch=n,
+                                         max_len=max_len))
+        if name not in FAMILY_RAG:
+            engine.prefill({"frames": frames})
+            out = engine.decode(seed, RAG_STEPS)
+            if out.shape != (n, RAG_STEPS) or \
+                    engine.cache["len"] != RAG_STEPS:
+                fail(f"{name} Engine: tokens {tuple(out.shape)}, cache "
+                     f"length {engine.cache['len']}")
+            print(f"{name} Engine (launch.serve's path): prefill of {n} x "
+                  f"{cfg.enc_frames} frames, then {RAG_STEPS} decode steps "
+                  f"at batch {n}: {n * RAG_STEPS / engine.decode_s:.1f} "
+                  f"tokens/s, {engine.decode_s / RAG_STEPS * 1e3:.3f} ms a "
+                  f"step, no host synchronize")
+        else:
+            prompts = torch.randint(0, cfg.vocab, (n, RAG_PROMPT),
+                                    generator=gen, device=dev)
+
+            def embed_fn(tokens):
+                """Mean-pooled token embeddings, normalised (JAX
+                ``launch/serve.py``'s)."""
+                with torch.no_grad():
+                    e = model.embed_tokens(tokens).mean(dim=1)
+                    return e / torch.linalg.vector_norm(e, dim=-1,
+                                                        keepdim=True)
+
+            want = db.query(embed_fn(prompts),
+                            plan=QueryPlan(backend="cuda", k=RAG_K))
+            path = FAMILY_RAG[name]
+            reset_launches()
+            res, secs = timed(torch, lambda: rag_answer(
+                engine, db.index, embed_fn, prompts, k=RAG_K,
+                decode_steps=RAG_STEPS, retriever=Retriever(
+                    index=db, backend="cuda", micro_batch=8)))
+            launches[path] = read_launches()
+            for kernel in ("pq_adc", "ternary_refine_fused"):
+                if launches[path][kernel] == 0:
+                    fail(f"the {path} round trip never launched {kernel}")
+            ids = res.ids.to(want.ids.device)
+            if not torch.equal(ids, want.ids):
+                fail(f"{path}: the round trip's ids differ from db.query's "
+                     f"in {int((ids != want.ids).any(1).sum())} requests")
+            if res.tokens.shape != (n, RAG_STEPS):
+                fail(f"{path}: tokens {tuple(res.tokens.shape)}")
+            print(f"{path}: {n} requests of {RAG_PROMPT} tokens, k={RAG_K}, "
+                  f"{RAG_STEPS} decode steps: ids equal to db.query's bit "
+                  f"for bit; {secs * 1e3:.1f} ms round trip, decode "
+                  f"{engine.decode_s * 1e3:.1f} ms "
+                  f"({n * RAG_STEPS / engine.decode_s:.1f} tokens/s, "
+                  f"{engine.decode_s / RAG_STEPS * 1e3:.3f} ms a step, no "
+                  f"host synchronize); launches {launches[path]}")
+            del embed_fn, want, res, ids, prompts
+        del engine, model, api, frames
+        gc.collect()
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"families phase: {time.perf_counter() - t_phase:.1f} s, peak "
+          f"device memory {peak:.1f} GB")
+    if peak >= PEAK_GB:
+        fail(f"families phase: peak device memory {peak:.1f} GB reaches "
+             f"{PEAK_GB} GB")
 
 
 def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
@@ -3143,7 +3439,12 @@ def main() -> int:
         read_launches)
     gc.collect()
     torch.cuda.empty_cache()
-    rag = rag_phase(torch, args, launches, reset_launches, read_launches)
+    rag, db = rag_phase(torch, args, launches, reset_launches,
+                        read_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    families_phase(torch, args, db, launches, reset_launches, read_launches)
+    del db
     rows["pq_adc"]["rag"] = rag["pq_adc"]
     rows["ternary_refine_fused"]["rag"] = rag["ternary_refine_fused"]
     print("rag entries: pq_adc and ternary_refine_fused at the round "

@@ -13,15 +13,17 @@ port's graph cache so that both packages traverse one graph.
 ``tiered_from_numpy`` carries a JAX ``TieredIndex`` across: the inner
 index through ``index_from_numpy``, then its placement state as numpy.
 
-``params_from_numpy`` carries a JAX transformer's parameter tree
-(``jax.tree.map(np.asarray, api.init(key))``) into the port's
-``models.transformer.Transformer``.
+``params_from_numpy`` carries a JAX model's parameter tree
+(``jax.tree.map(np.asarray, api.init(key))``) into the port's model of
+the same family (``models.transformer.Transformer``,
+``models.ssm_lm.XLSTM`` / ``Zamba`` or ``models.whisper.Whisper``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.anns.pipeline import FaTRQIndex, PipelineConfig
 from repro_torch.anns.stages import keep_graph
@@ -33,7 +35,9 @@ from repro_torch.device import resolve_device
 from repro_torch.index.graph import GraphIndex, draw_start
 from repro_torch.index.ivf import IVFIndex
 from repro_torch.memory.placement import TieredConfig
+from repro_torch.models.ssm_lm import XLSTM, Zamba
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.whisper import Whisper
 from repro_torch.quant.pq import PQCodebook
 
 
@@ -93,50 +97,103 @@ def tiered_from_numpy(arrays: dict[str, np.ndarray], placement: dict,
     return ti
 
 
+def _put(param: torch.Tensor, value, *, linear: bool = False) -> None:
+    """Copy ``value`` into ``param``, transposed where it becomes an
+    ``nn.Linear`` weight; a shape mismatch raises."""
+    t = torch.from_numpy(np.array(value))
+    if linear:
+        t = t.T
+    if tuple(t.shape) != tuple(param.shape):
+        raise ValueError(f"a {tuple(t.shape)} weight for a "
+                         f"{tuple(param.shape)} parameter")
+    with torch.no_grad():
+        param.copy_(t)
+
+
+def _load(module: nn.Module, tree: dict, idx: tuple, done: set) -> None:
+    """Each leaf of ``tree`` at the stacked index ``idx`` into the
+    attribute of ``module`` of its name (recursing into sub-dicts); the
+    parameters written are added to ``done``."""
+    for name, value in tree.items():
+        target = getattr(module, name, None)
+        if target is None:
+            raise ValueError(f"{type(module).__name__} has no {name!r}")
+        if isinstance(value, dict):
+            _load(target, value, idx, done)
+            continue
+        param = target.weight if isinstance(target, nn.Linear) else target
+        _put(param, np.asarray(value)[idx],
+             linear=isinstance(target, nn.Linear))
+        done.add(id(param))
+
+
+def _family_from_numpy(model: nn.Module, tree: dict) -> None:
+    """The zamba2, xlstm and whisper trees: top-level leaves as they are,
+    then each layer stack from its stacked subtree, (g, m, …) for a stack
+    of groups and (n, …) for a stack of layers."""
+    done: set = set()
+    stacks = {name: value for name, value in tree.items()
+              if isinstance(getattr(model, name, None), nn.ModuleList)}
+    _load(model, {k: v for k, v in tree.items() if k not in stacks}, (),
+          done)
+    for name, sub in stacks.items():
+        for i, item in enumerate(getattr(model, name)):
+            layers = item if isinstance(item, nn.ModuleList) else [item]
+            for j, layer in enumerate(layers):
+                idx = (i, j) if isinstance(item, nn.ModuleList) else (i,)
+                _load(layer, sub, idx, done)
+    missing = [n for n, p in model.named_parameters() if id(p) not in done]
+    if missing:
+        raise ValueError(f"the tree has no value for {missing[:4]}")
+
+
 def params_from_numpy(cfg, tree: dict, *, device=None,
-                      dtype=torch.float32) -> Transformer:
-    """The port's model of ``cfg`` with a JAX transformer's weights, on
-    ``device`` (the GPU unless given).  ``tree`` is the JAX parameter tree
-    as numpy: ``embed``, ``final_norm``, optional ``lm_head`` and
-    ``blocks`` with a leading layer axis (``ln1``, ``ln2``,
+                      dtype=torch.float32) -> nn.Module:
+    """The port's model of ``cfg`` with a JAX parameter tree's weights,
+    on ``device`` (the GPU unless given).  ``tree`` is the JAX tree as
+    numpy, dispatched on ``cfg`` as ``models.build_model`` does.
+
+    The transformer's: ``embed``, ``final_norm``, optional ``lm_head``
+    and ``blocks`` with a leading layer axis (``ln1``, ``ln2``,
     ``attn.wq/wk/wv/wo[/bq/bk/bv]``, ``ffn.wg/wu/wd`` or
-    ``moe.router/wg/wu/wd``).  JAX stores a projection (in, out) and an
-    ``nn.Linear`` (out, in), so those are transposed; the experts' weights
-    keep JAX's layout."""
+    ``moe.router/wg/wu/wd``).  zamba2's: ``groups`` stacked (g, per, …),
+    ``shared_attn``, an optional ``tail`` stacked (tail, …).  xlstm's:
+    ``mlstm_blocks`` stacked (g, m, …), ``slstm_blocks`` (g, …).
+    whisper's: ``enc_blocks`` and ``dec_blocks`` stacked by layer,
+    ``enc_pos``, ``dec_pos``.  JAX stores a projection (in, out) and an
+    ``nn.Linear`` (out, in), so those are transposed; every other leaf
+    (the experts' weights, ``conv``, ``r_gates``) keeps JAX's layout.  A
+    shape mismatch, a leaf without a parameter and a parameter without a
+    leaf raise."""
     dev = resolve_device(device)
+    if cfg.enc_dec or cfg.family in ("ssm", "hybrid"):
+        cls = Whisper if cfg.enc_dec else \
+            XLSTM if cfg.family == "ssm" else Zamba
+        model = cls(cfg, device=dev, dtype=dtype)
+        _family_from_numpy(model, tree)
+        return model
     model = Transformer(cfg, device=dev, dtype=dtype)
-
-    def put(param: torch.Tensor, value, *, linear: bool = False) -> None:
-        t = torch.from_numpy(np.array(value))
-        if linear:
-            t = t.T
-        if tuple(t.shape) != tuple(param.shape):
-            raise ValueError(f"a {tuple(t.shape)} weight for a "
-                             f"{tuple(param.shape)} parameter")
-        with torch.no_grad():
-            param.copy_(t)
-
-    put(model.embed, tree["embed"])
-    put(model.final_norm, tree["final_norm"])
+    _put(model.embed, tree["embed"])
+    _put(model.final_norm, tree["final_norm"])
     if model.lm_head is not None:
-        put(model.lm_head.weight, tree["lm_head"], linear=True)
+        _put(model.lm_head.weight, tree["lm_head"], linear=True)
     blocks = tree["blocks"]
     for i, blk in enumerate(model.blocks):
-        put(blk.ln1, blocks["ln1"][i])
-        put(blk.ln2, blocks["ln2"][i])
+        _put(blk.ln1, blocks["ln1"][i])
+        _put(blk.ln2, blocks["ln2"][i])
         attn = blocks["attn"]
         for name in ("wq", "wk", "wv", "wo"):
-            put(getattr(blk.attn, name).weight, attn[name][i], linear=True)
+            _put(getattr(blk.attn, name).weight, attn[name][i], linear=True)
         if cfg.qkv_bias:
             for name in ("q", "k", "v"):
-                put(getattr(blk.attn, f"w{name}").bias, attn[f"b{name}"][i])
+                _put(getattr(blk.attn, f"w{name}").bias, attn[f"b{name}"][i])
         if cfg.is_moe:
             moe = blocks["moe"]
-            put(blk.moe.router.weight, moe["router"][i], linear=True)
+            _put(blk.moe.router.weight, moe["router"][i], linear=True)
             for name in ("wg", "wu", "wd"):
-                put(getattr(blk.moe, name), moe[name][i])
+                _put(getattr(blk.moe, name), moe[name][i])
         else:
             for name in ("wg", "wu", "wd"):
-                put(getattr(blk.ffn, name).weight, blocks["ffn"][name][i],
-                    linear=True)
+                _put(getattr(blk.ffn, name).weight, blocks["ffn"][name][i],
+                     linear=True)
     return model

@@ -1,5 +1,6 @@
 """Serving launcher: batched decode with optional FaTRQ-RAG retrieval, on
-the reduced configuration of ``--arch``.
+the reduced configuration of ``--arch`` (any of the ten; an
+encoder-decoder first encodes seeded random frames into its cache).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --batch 4 --steps 16 [--rag] [--device cpu]
@@ -42,6 +43,11 @@ def main(argv=None) -> None:
     api = build_model(cfg)
     model = api.init(torch.Generator(device=dev).manual_seed(0))
     engine = Engine(api, model, batch=args.batch, max_len=args.max_len)
+    if cfg.enc_dec:
+        frames = torch.randn((args.batch, cfg.enc_frames, cfg.d_model),
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(1), device=dev)
+        engine.prefill({"frames": frames})
 
     seed = torch.zeros((args.batch, 1), dtype=torch.int32, device=dev)
     t0 = time.perf_counter()

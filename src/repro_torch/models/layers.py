@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.device import resolve_device
+
 # ---------------------------------------------------------------- modules
 
 
@@ -229,6 +231,16 @@ def swiglu(x: torch.Tensor, ffn: SwiGLU) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ init
+
+
+def init_generator(generator: torch.Generator | None, device
+                   ) -> torch.Generator:
+    """``generator``, or with none one of seed 0 on ``device`` (the GPU
+    unless given): where a model's ``init`` draws its weights."""
+    if generator is None:
+        generator = torch.Generator(device=resolve_device(device)) \
+            .manual_seed(0)
+    return generator
 
 
 def dense_init(t: torch.Tensor, generator: torch.Generator, fan_in: int,

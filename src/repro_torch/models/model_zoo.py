@@ -1,5 +1,5 @@
-"""One model API over the architecture families (the port of
-``repro.models.model_zoo``, transformer families only so far).
+"""One model API over the four architecture families (the port of
+``repro.models.model_zoo``).
 
     api = build_model(cfg)
     model = api.init(generator)                       # or device=
@@ -9,9 +9,13 @@
     logits, cache = api.decode_step(model, tokens, cache)
 
 ``batch`` is a dict: ``tokens`` for LMs, optionally ``embeds`` (VLM patch
-embeddings) and ``positions`` (M-RoPE coordinates).  The model is an
-``nn.Module`` (``transformer.Transformer``); the functions run where its
-weights lie.
+embeddings) and ``positions`` (M-RoPE coordinates), and ``frames``
+(precomputed audio frame embeddings) for the encoder-decoder, whose
+``prefill`` encodes them into the cache.  The model is an ``nn.Module``
+(``transformer.Transformer``, ``ssm_lm.XLSTM``, ``ssm_lm.Zamba`` or
+``whisper.Whisper``, each with ``embed`` and ``embed_tokens``); the
+functions run where its weights lie.  ``forward`` takes ``remat=`` (no
+effect) and ``last_only=`` as the reference's does.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import ssm_lm, transformer, whisper
 
 
 @dataclass(frozen=True)
@@ -35,25 +39,55 @@ class ModelApi:
     prefill: Callable | None = None   # (model, batch, cache) → cache
 
 
-def _not_ported(cfg: ArchConfig, modules: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{cfg.name} ({cfg.family}) needs {modules}, which the PyTorch "
-        f"port does not have yet")
-
-
 def build_model(cfg: ArchConfig) -> ModelApi:
-    """The API of ``cfg``'s family: the transformer for dense, MoE and
-    VLM architectures.  Encoder-decoder (whisper), ``ssm`` (xlstm) and
-    ``hybrid`` (zamba2) raise ``NotImplementedError`` naming the modules
-    still to port."""
+    """The API of ``cfg``'s family, dispatched as the reference does:
+    encoder-decoder → whisper, ``ssm`` → xlstm, ``hybrid`` → zamba2, every
+    other family (dense, MoE, VLM) → the transformer.  The SSM families
+    have no prefill (``prefill=None``), as in the reference."""
     if cfg.enc_dec:
-        raise _not_ported(cfg, "repro_torch.models.whisper")
+        return ModelApi(
+            cfg=cfg,
+            init=lambda generator=None, dtype=torch.float32, *, device=None:
+                whisper.init(cfg, generator=generator, device=device,
+                             dtype=dtype),
+            forward=lambda model, batch, **kw: whisper.forward(
+                model, batch["frames"], batch["tokens"], cfg, **kw),
+            init_cache=lambda model, b, s, dtype=torch.float32:
+                whisper.init_cache(cfg, b, s, dtype,
+                                   device=model.embed.device),
+            decode_step=lambda model, t, c: whisper.decode_step(model, t, c,
+                                                                cfg),
+            prefill=lambda model, batch, cache: whisper.prefill_encoder(
+                model, batch["frames"], cfg, cache),
+        )
     if cfg.family == "ssm":
-        raise _not_ported(cfg, "repro_torch.models.ssm_lm and "
-                          "repro_torch.models.xlstm")
+        return ModelApi(
+            cfg=cfg,
+            init=lambda generator=None, dtype=torch.float32, *, device=None:
+                ssm_lm.xlstm_init(cfg, generator=generator, device=device,
+                                  dtype=dtype),
+            forward=lambda model, batch, **kw: ssm_lm.xlstm_forward(
+                model, batch.get("tokens"), cfg, **kw),
+            init_cache=lambda model, b, s, dtype=torch.float32:
+                ssm_lm.xlstm_init_cache(cfg, b, dtype,
+                                        device=model.embed.device),
+            decode_step=lambda model, t, c: ssm_lm.xlstm_decode_step(
+                model, t, c, cfg),
+        )
     if cfg.family == "hybrid":
-        raise _not_ported(cfg, "repro_torch.models.ssm_lm and "
-                          "repro_torch.models.mamba2")
+        return ModelApi(
+            cfg=cfg,
+            init=lambda generator=None, dtype=torch.float32, *, device=None:
+                ssm_lm.zamba_init(cfg, generator=generator, device=device,
+                                  dtype=dtype),
+            forward=lambda model, batch, **kw: ssm_lm.zamba_forward(
+                model, batch.get("tokens"), cfg, **kw),
+            init_cache=lambda model, b, s, dtype=torch.float32:
+                ssm_lm.zamba_init_cache(cfg, b, s, dtype,
+                                        device=model.embed.device),
+            decode_step=lambda model, t, c: ssm_lm.zamba_decode_step(
+                model, t, c, cfg),
+        )
 
     def fwd(model, batch, **kw):
         return transformer.forward(model, batch.get("tokens"), cfg,

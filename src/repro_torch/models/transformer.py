@@ -100,9 +100,7 @@ def init(cfg, *, generator: torch.Generator | None = None, device=None,
     embeddings, ones for the norms, zeros for the biases, the reference's
     distributions.  With no generator, one of seed 0 on ``device`` (the
     GPU unless given)."""
-    if generator is None:
-        generator = torch.Generator(device=resolve_device(device)) \
-            .manual_seed(0)
+    generator = L.init_generator(generator, device)
     model = Transformer(cfg, device=generator.device, dtype=dtype)
     L.dense_init(model.embed, generator, cfg.vocab, 0.02)
     for blk in model.blocks:

@@ -675,8 +675,9 @@ class ServeStats:
 
 
 class Engine:
-    """Batched greedy decode over a ``models.ModelApi`` model, with a KV
-    cache on the model's device."""
+    """Batched greedy decode over a ``models.ModelApi`` model, with its
+    family's cache (a KV cache, a recurrent state or both) on the model's
+    device."""
 
     def __init__(self, api, params, *, batch: int, max_len: int,
                  dtype=torch.float32):
@@ -684,6 +685,7 @@ class Engine:
         self.params = params
         self.batch = batch
         self.max_len = max_len
+        self.device = next(params.parameters()).device
         self.cache = api.init_cache(params, batch, max_len, dtype)
         self.stats = ServeStats()
 
@@ -696,7 +698,7 @@ class Engine:
         """tokens (B, 1) seed → (B, steps) greedy continuations (int32, on
         the model's device).  Greedy is ``argmax``, the first index on
         ties.  No step reads a device value on the host."""
-        cur = torch.as_tensor(tokens).to(self.cache["k"].device)
+        cur = torch.as_tensor(tokens).to(self.device)
         out = []
         with torch.inference_mode():
             for _ in range(steps):

@@ -334,13 +334,6 @@ def test_top_k_stable_lower_index_first():
 # --------------------------------------------------------- zoo and init
 
 
-@pytest.mark.parametrize("name", ["zamba2-1.2b", "xlstm-1.3b",
-                                  "whisper-medium"])
-def test_build_model_not_ported_raises(name):
-    with pytest.raises(NotImplementedError, match="port"):
-        build_model(ARCHS[name].reduced())
-
-
 def test_init_without_device_raises_without_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     api = build_model(ARCHS["qwen2.5-3b"].reduced())
