@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # 1M x 768 index, 1000 queries, 4 shards,
                                      # then qwen2.5-3b over a 1M x 2048 index,
-                                     # then zamba2, xlstm and whisper
+                                     # then zamba2, xlstm and whisper, then
+                                     # qwen2.5-3b training
 
 Phases, each of which raises on failure:
 
@@ -80,6 +81,13 @@ Phases, each of which raises on failure:
 5. the plain ``reference`` backend on the card over a subset of queries
    must give the same ids and ledger as the ``cuda`` backend, unsharded
    and sharded, on both fronts;
+   then the paper's storage and distortion comparators (§V-C, Fig. 7;
+   ``baselines_phase``) on the index: bytes per record of FaTRQ (162),
+   SQ-4 (392), SQ-3 (296), INT8 (776) and a 2-level RQ (M = 96: 192),
+   which must be those; residual SQ's error falling from 3 to 4 to 8 bits
+   and RQ's (trained on every row, 8 iterations a level) with each level;
+   the normalized distortion against each query's exact top-100 of INT8,
+   PQ + per-record 3-bit SQ residuals, PQ + FaTRQ and the 2-level RQ;
    then the serving path: each query-side op of the IVF and graph paths
    on one query alone and inside a 64-row bucket padded from 37, printed
    as bit-equal or not; ``pq_adc`` and the fused kernel on that padded
@@ -202,7 +210,19 @@ Phases, each of which raises on failure:
    through a ``Retriever``): ids equal to ``db.query``'s, ``pq_adc`` and
    the fused kernel launched; whisper's ``Engine.prefill`` and 16 decode
    steps; the phase's time and peak memory (under 70 GB);
-11. print one ``kernels`` JSON line (the three kernels of the graph paths
+11. training (``train_phase``), after the families' models and the RAG
+   index are freed: qwen2.5-3b at its published configuration (36
+   layers, d_model 2048, float32 with TF32 off, weights from ``--seed``)
+   trained by ``train`` for 6 steps of 8 x 128 tokens on one fixed
+   batch with remat: every loss finite, none skipped, the last two below
+   the first two; the median step time beside its bound, tokens/s, peak
+   memory and one profiled step's device busy and idle share; at 2
+   layers one step's loss and gradients against a float64 copy (1e-5,
+   1e-3), remat against none (1e-6) and ``compress_grads`` (within 1 ulp,
+   ~4x fewer wire bytes); on the reduced model a run resumed from its
+   step-2 checkpoint equal to the uninterrupted run within 1e-6, and
+   ``restore`` putting every leaf on the card;
+12. print one ``kernels`` JSON line (the three kernels of the graph paths
    with a ``graph`` entry: their numbers at the graph shapes; ``pq_adc``
    and the fused kernel with ``streaming`` and ``tiered`` entries at the
    streaming IVF and tiered shapes, and ``serving`` entries at the
@@ -224,9 +244,11 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -2928,6 +2950,318 @@ def families_phase(torch, args, db, launches, reset_launches,
              f"{PEAK_GB} GB")
 
 
+# ---- training (phase 11) and the baseline quantizers (in phase 5)
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 128, 6, 3e-4
+TRAIN_PASSES = 11              # bytes of the bound: params read 3 times,
+#                                grads written once, AdamW's 7 passes
+F64_LOSS_RTOL = 1e-5           # float32 step against a float64 copy
+F64_GRAD_RTOL = 1e-3           # |g32 − g64| / |g64| over every gradient
+REMAT_RTOL = 1e-6              # remat=True against remat=False
+RESUME_RTOL = 1e-6             # resumed losses against uninterrupted ones
+
+
+def grad_norm(torch, grads) -> float:
+    """The global L2 norm of a list of tensors, in float64."""
+    return float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.double()) for g in grads])))
+
+
+def rel_dist(torch, a: list, b: list) -> float:
+    """|a − b| / |b| over every tensor of the lists, in float64."""
+    return grad_norm(torch, [x.double() - y.double() for x, y in zip(a, b)]) \
+        / grad_norm(torch, b)
+
+
+def grads_of(torch, api, model, batch, loss_fn, **kw):
+    """(loss as a float, every parameter's gradient) of one backward."""
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(api, model, batch, **kw)
+    loss.backward()
+    grads = [p.grad for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def ce_loss64(api, model, batch):
+    """``loss_fn``'s cross-entropy with the logits kept in their own
+    dtype (``loss_fn`` casts them to float32): the float64 reference."""
+    import torch
+    logits, aux = api.forward(model, batch)
+    lse = torch.logsumexp(logits, dim=-1)
+    label = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
+    return (lse - label).mean() + 0.01 * aux
+
+
+def train_phase(torch, args, dev="cuda") -> None:
+    """Phase 11: training, after every earlier phase's tensors are freed.
+
+    1. qwen2.5-3b at its published configuration (36 layers, d_model 2048,
+       3,085,697,024 parameters, tied embeddings), float32 with TF32 off,
+       weights from ``--seed``: ``train`` for 6 steps of batch 8 x 128
+       tokens at lr 3e-4 on one fixed batch (``extra_batch``; fresh
+       uniform tokens sit at the entropy floor), remat on.  Every loss
+       finite, no step skipped, the mean of the last two losses below the
+       first two's; the median step time over steps 2-5 beside the bound
+       max(8·N·T FLOPs / 67 TFLOP/s, 11·4N bytes / 3.35 TB/s), tokens/s,
+       peak memory, and one profiled step's device busy and idle share.
+    2. The same widths at 2 layers: one step's loss and gradients against
+       a float64 copy of the weights and batch (loss within a relative
+       1e-5, the gradients' global distance within 1e-3), ``remat=True``
+       against ``remat=False`` (1e-6 each), and ``compress_grads`` on
+       those gradients (sent + err within 1 ulp of the gradient,
+       ``wire_bytes`` about 4x smaller).
+    3. The reduced qwen2.5-3b: 4 steps with a checkpoint every 2, and a
+       run to step 2 resumed to step 4, whose losses must equal the
+       uninterrupted run's within a relative 1e-6; ``restore`` puts every
+       leaf on the card, from a like tree on the card or on the CPU."""
+    import copy
+    import tempfile
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import make_token_batch
+    from repro_torch.models import build_model, loss_fn
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import compression
+    from repro_torch.train.loop import TrainConfig, make_step_fn, train
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    print(f"train phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"still allocated from the earlier phases")
+    cfg = ARCHS[RAG_ARCH]
+    api = build_model(cfg)
+    model = api.init(torch.Generator(device=dev).manual_seed(args.seed))
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    fixed = make_token_batch(torch.Generator().manual_seed(args.seed + 7),
+                             TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, device=dev)
+    stamps = []
+
+    def extra(gen):
+        stamps.append(time.perf_counter())
+        return fixed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tc = TrainConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                         seq_len=TRAIN_SEQ, lr=TRAIN_LR, ckpt_every=0,
+                         ckpt_dir=tmp, seed=args.seed)
+        state = train(api, tc, model=model, resume=False, extra_batch=extra)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    losses = state.losses
+    if len(losses) != TRAIN_STEPS or state.skipped or not all(
+            math.isfinite(v) for v in losses):
+        fail(f"train: losses {losses}, {state.skipped} skipped")
+    first, last = sum(losses[:2]) / 2, sum(losses[-2:]) / 2
+    if not last < first:
+        fail(f"train: the loss did not fall on a fixed batch ({losses})")
+    steps_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    step_s = statistics.median(steps_s[2:])
+    b_ms, b_by = bound("train step", TRAIN_PASSES * 4 * n_params,
+                       8 * n_params * tokens)
+    print(f"train {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params:,} parameters, float32 (TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}), batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, lr {TRAIN_LR}, remat: losses "
+          f"{[round(v, 6) for v in losses]} (mean of the first two "
+          f"{first:.6f}, of the last two {last:.6f}), {state.skipped} "
+          f"skipped, {state.stragglers} stragglers")
+    print(f"train step: {step_s * 1e3:.3f} ms (median of steps 2-5 of "
+          f"{[round(s * 1e3, 3) for s in steps_s]} ms), bound "
+          f"{b_ms:.3f} ms ({b_by}); {tokens / step_s:.1f} tokens/s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    step_fn = make_step_fn(api, tc)
+
+    def one_step():
+        float(step_fn(model, state.opt, fixed)[0])
+
+    device_breakdown(torch, "train step", one_step)
+    print(f"train phase peak device memory (full model): "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del model, state, fixed, one_step, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the same widths at 2 layers: float64, remat, compression
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    api2 = build_model(cfg2)
+    m32 = api2.init(torch.Generator(device=dev).manual_seed(args.seed))
+    batch = make_token_batch(torch.Generator().manual_seed(args.seed + 8),
+                             TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, device=dev)
+    loss32, g32 = grads_of(torch, api2, m32, batch, loss_fn)
+    m64 = copy.deepcopy(m32).double()
+    loss64, g64 = grads_of(torch, api2, m64, batch, ce_loss64)
+    del m64
+    loss_err = abs(loss32 - loss64) / abs(loss64)
+    grad_err = rel_dist(torch, g32, g64)
+    del g64
+    print(f"train step at 2 layers ({sum(p.numel() for p in m32.parameters()):,}"
+          f" parameters): float32 against a float64 copy of the weights "
+          f"and batch: loss {loss32:.8f} against {loss64:.8f} (relative "
+          f"{loss_err:.3g}, limit {F64_LOSS_RTOL}), gradients' global "
+          f"distance {grad_err:.3g} (limit {F64_GRAD_RTOL})")
+    if not (loss_err <= F64_LOSS_RTOL and grad_err <= F64_GRAD_RTOL):
+        fail("train: the float32 step is too far from the float64 one")
+    loss_n, g_n = grads_of(torch, api2, m32, batch, loss_fn, remat=False)
+    remat_loss = abs(loss32 - loss_n) / abs(loss_n)
+    remat_err = rel_dist(torch, g32, g_n)
+    remat_max = max(float((a - b).abs().max()) for a, b in zip(g32, g_n))
+    del g_n
+    print(f"train step at 2 layers: remat=True against remat=False: loss "
+          f"relative {remat_loss:.3g}, gradients' global distance "
+          f"{remat_err:.3g} (limit {REMAT_RTOL}), max abs {remat_max:.3g}")
+    if not (remat_loss <= REMAT_RTOL and remat_err <= REMAT_RTOL):
+        fail("train: remat changes the loss or the gradients")
+    grads = dict(zip((n for n, _ in m32.named_parameters()), g32))
+    sent, err = compression.compress_grads(grads, None)
+    worst = 0.0
+    for name, g in grads.items():
+        ulp = torch.nextafter(g.abs(), torch.full_like(g, math.inf)) \
+            - g.abs()
+        off = ((sent[name] + err[name] - g).abs() / ulp)
+        worst = max(worst, float(off.max()))
+    wire = compression.wire_bytes(grads, compressed=True)
+    wire32 = compression.wire_bytes(grads, compressed=False)
+    print(f"compress_grads at 2 layers: sent + err within {worst:.3g} ulp "
+          f"of the gradients; wire bytes {wire:,} against {wire32:,} in "
+          f"float32 ({wire32 / wire:.3f}x fewer)")
+    if worst > 1.0 or wire32 / wire < 3.9:
+        fail("train: compress_grads is not error-feedback exact or not ~4x")
+    del m32, g32, grads, sent, err, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the reduced model: checkpoint and resume on the card
+    api_r = build_model(cfg.reduced())
+    with tempfile.TemporaryDirectory() as tmp:
+        tc = TrainConfig(steps=4, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                         lr=TRAIN_LR, ckpt_every=2,
+                         ckpt_dir=os.path.join(tmp, "a"), seed=args.seed)
+        whole = train(api_r, tc, resume=False, device=dev)
+        cut = dataclasses.replace(tc, steps=2,
+                                  ckpt_dir=os.path.join(tmp, "b"))
+        train(api_r, cut, resume=False, device=dev)
+        resumed = train(api_r, dataclasses.replace(cut, steps=4),
+                        resume=True, device=dev)
+        errs = [abs(a - b) / abs(b)
+                for a, b in zip(resumed.losses, whole.losses[2:])]
+        if resumed.step != 4 or len(resumed.losses) != 2 or \
+                max(errs) > RESUME_RTOL:
+            fail(f"train: the resumed losses {resumed.losses} differ from "
+                 f"the uninterrupted run's {whole.losses[2:]}")
+        like = {"params": resumed.params, "opt": resumed.opt}
+        on_card = ckpt.restore(cut.ckpt_dir, 2, like)
+        cpu_like = {"params": {n: p.detach().cpu()
+                               for n, p in resumed.params.items()},
+                    "opt": resumed.opt}
+        moved = ckpt.restore(cut.ckpt_dir, 2, cpu_like, device=dev)
+        leaves = [t for tree in (on_card, moved) for t in
+                  ckpt._flatten(tree).values() if isinstance(t, torch.Tensor)]
+        if not all(t.device.type == torch.device(dev).type for t in leaves):
+            fail("train: restore left a leaf off the card")
+    print(f"train checkpoint round trip ({cfg.name} reduced, on the card): "
+          f"losses of a run resumed at step 2 {resumed.losses} equal the "
+          f"uninterrupted run's {whole.losses[2:]} within {max(errs):.3g} "
+          f"(limit {RESUME_RTOL}); restore put all {len(leaves)} leaves on "
+          f"the card")
+    print(f"train phase: {time.perf_counter() - t_phase:.1f} s, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+BASELINE_BYTES = {"fatrq": 162, "sq4": 392, "sq3": 296, "int8": 776,
+                  "rq2": 192}           # bytes per 768-d record
+RQ_LEVELS, RQ_ITERS = 2, 8
+
+
+def norm_mse(torch, est, true) -> float:
+    """``bench_distortion.py``'s distortion: the mean squared error
+    relative to the mean true distance."""
+    return float((((est - true) / true.mean()) ** 2).mean())
+
+
+def baselines_phase(torch, args, index, ds) -> None:
+    """The storage and distortion comparators of the paper's §V-C and
+    Fig. 7 (``benchmarks/bench_storage.py``, ``bench_distortion.py``) on
+    the 1M x 768 index: bytes per record of FaTRQ, SQ-4, SQ-3, INT8 and a
+    2-level RQ (M = 96, K = 256); the normalized distortion against each
+    query's exact top-100 of INT8, PQ + per-record 3-bit SQ residuals,
+    PQ + FaTRQ (one ternary level, calibrated) and the 2-level RQ.  RQ's
+    error must fall with each level, SQ's from 3 to 4 to 8 bits."""
+    from repro_torch.core import packing, residual_ip_estimate, unpack_level
+    from repro_torch.core.calibration import build_features, predict
+    from repro_torch.device import chunks
+    from repro_torch.quant import pq as pq_mod
+    from repro_torch.quant import rq, sq
+    from repro_torch.quant.kmeans import random_init
+    t_phase = time.perf_counter()
+    x, trq = index.x, index.trq
+    n, d = x.shape
+    m = index.codebook.m
+    got = {"fatrq": packing.storage_bytes(d),
+           "sq4": sq.sq_bytes_per_record(d, 4),
+           "sq3": sq.sq_bytes_per_record(d, 3),
+           "int8": sq.sq_bytes_per_record(d, 8),
+           "rq2": RQ_LEVELS * m}
+    print(f"baselines: bytes per {d}-d record {got}")
+    if got != BASELINE_BYTES:
+        fail(f"baselines: bytes per record {got}, expected "
+             f"{BASELINE_BYTES}")
+    x_c = pq_mod.decode(index.codebook, index.pq_codes)
+    delta = x - x_c
+    sq_err = {}
+    for bits in (3, 4, 8):                  # in row chunks: 3 GB a copy
+        total = 0.0
+        for a, b in chunks(n, 1 << 17):
+            rec = sq.sq_decode(sq.sq_encode(delta[a:b], bits))
+            total += float(((rec - delta[a:b]) ** 2).sum())
+        sq_err[bits] = total / n
+    gen = torch.Generator(device=x.device).manual_seed(args.seed + 9)
+    init = torch.stack([torch.stack([random_init(n, 256, gen)
+                                     for _ in range(m)])
+                        for _ in range(RQ_LEVELS)])
+    (rqc, _), rq_s = timed(torch, lambda: rq.train(
+        x, m, 256, RQ_LEVELS, RQ_ITERS, init_idx=init))
+    codes = rq.encode(rqc, x)
+    rq_err = [float((x ** 2).sum(-1).mean())] + [
+        float(((rq.decode(rqc, codes, through_level=lv) - x) ** 2)
+              .sum(-1).mean()) for lv in range(1, RQ_LEVELS + 1)]
+    print(f"baselines: residual SQ mean squared error by bits "
+          f"{ {b: round(e, 6) for b, e in sq_err.items()} }; RQ ({m} x 256 "
+          f"a level, {RQ_ITERS} iterations, trained on all {n:,} rows in "
+          f"{rq_s:.1f} s) error through 0, 1, 2 levels "
+          f"{[round(e, 6) for e in rq_err]}")
+    if not sq_err[3] > sq_err[4] > sq_err[8]:
+        fail(f"baselines: SQ error does not fall with the bits {sq_err}")
+    if not all(a > b for a, b in zip(rq_err, rq_err[1:])):
+        fail(f"baselines: RQ error does not fall with each level {rq_err}")
+
+    # distortion against each query's exact top-100
+    q, idx = ds.queries, ds.gt.long()
+    rows = x[idx]                                        # (Q, 100, D)
+    true = ((rows - q[:, None]) ** 2).sum(-1)
+    xc_rows = x_c[idx]
+    d0 = ((xc_rows - q[:, None]) ** 2).sum(-1)
+    sc = trq.scalars.take(idx)
+    d_ip = residual_ip_estimate(q, unpack_level(trq, 0, idx), sc.norm,
+                                sc.rho)
+    est = {"pq_fatrq": predict(trq.model, build_features(
+        d0, d_ip, sc.delta_sq, sc.cross))}
+    sq3 = sq.sq_decode(sq.sq_encode(delta[idx], 3))
+    est["pq_sq3"] = ((xc_rows + sq3 - q[:, None]) ** 2).sum(-1)
+    int8 = sq.sq_decode(sq.int8_encode(rows))
+    est["int8"] = ((int8 - q[:, None]) ** 2).sum(-1)
+    rq_rows = rq.decode(rqc, codes[idx.reshape(-1)]).reshape(rows.shape)
+    est["rq2"] = ((rq_rows - q[:, None]) ** 2).sum(-1)
+    dist = {k: norm_mse(torch, v, true) for k, v in est.items()}
+    for k, v in est.items():
+        if not bool(torch.isfinite(v).all()):
+            fail(f"baselines: non-finite {k} estimates")
+    print(f"baselines: normalized distortion against the exact top-100 of "
+          f"{q.shape[0]} queries {dist} ({time.perf_counter() - t_phase:.1f}"
+          f" s in all)")
+
+
 def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
                 reset_launches, read_launches) -> tuple[dict, dict]:
     """Phases 2 to 8 over the 1M x 768 index.  Returns each kernel's row
@@ -3277,6 +3611,10 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
         print(f"{label}: the reference backend on {sub.shape[0]} queries "
               f"gives the cuda backend's ids and ledger")
 
+    # ---- the paper's storage and distortion comparators on the index
+    baselines_phase(torch, args, index, ds)
+    gc.collect()
+
     # ---- the serving path over the same index
     t = time.perf_counter()
     v_adc, v_refine = serving_phase(torch, args, cfg, db, ds, launches,
@@ -3445,6 +3783,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     families_phase(torch, args, db, launches, reset_launches, read_launches)
     del db
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_phase(torch, args)
     rows["pq_adc"]["rag"] = rag["pq_adc"]
     rows["ternary_refine_fused"]["rag"] = rag["ternary_refine_fused"]
     print("rag entries: pq_adc and ternary_refine_fused at the round "

@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.anns import registry
 from repro_torch.anns import stages as stages_mod
-from repro_torch.anns.stages import Counters
+from repro_torch.anns.stages import Counters, FrontStage, RefineBackend
 from repro_torch.index.graph import GraphIndex
 from repro_torch.memory import QueryCost, Tier
 from repro_torch.memory.placement import TIER_COLD, TIER_HOT
@@ -140,8 +140,8 @@ class SearchExecutor:
     which quacks like one)."""
 
     index: "FaTRQIndex"               # noqa: F821 - import cycle via pipeline
-    front: object
-    backend: object
+    front: FrontStage
+    backend: RefineBackend
     micro_batch: int | None = None
     refine_budget: int | None = None
 

@@ -63,6 +63,11 @@ class BackendSpec:
     name: str
     make: Callable
 
+    @property
+    def layouts(self) -> tuple[str, ...]:
+        """Every backend runs on every layout."""
+        return LAYOUTS
+
 
 _FRONTS: dict[str, FrontSpec] = {}
 _BACKENDS: dict[str, BackendSpec] = {}
@@ -102,7 +107,7 @@ def register_sharded_front(name: str, hooks: ShardedFrontHooks) -> None:
 def sharded_front(name: str) -> ShardedFrontHooks:
     """The sharded layout's hooks for ``name``; a front that declares the
     layout without hooks is a wiring bug, not a plan error."""
-    spec = _FRONTS[name]
+    spec = front_spec(name)
     if spec.sharded is None:
         raise KeyError(f"front {name!r} has no sharded-front hooks "
                        f"registered (declared layouts: {spec.layouts})")
@@ -120,6 +125,21 @@ def front_names() -> tuple[str, ...]:
 
 def backend_names() -> tuple[str, ...]:
     return tuple(_BACKENDS)
+
+
+def front_spec(name: str) -> FrontSpec:
+    """The registered front ``name``; ``PlanError`` if there is none."""
+    if name not in _FRONTS:
+        raise _not_ported("front", name, _FRONTS)
+    return _FRONTS[name]
+
+
+def backend_spec(name: str) -> BackendSpec:
+    """The registered refine backend ``name``; ``PlanError`` if there is
+    none."""
+    if name not in _BACKENDS:
+        raise _not_ported("backend", name, _BACKENDS)
+    return _BACKENDS[name]
 
 
 def _not_ported(kind: str, name: str, have) -> PlanError:
@@ -143,18 +163,16 @@ def _pair_error(name: str, supported: tuple[str, ...],
 def _front(name: str, layout: str) -> FrontSpec:
     if layout not in LAYOUTS:
         raise _not_ported("layout", layout, LAYOUTS)
-    if name not in _FRONTS:
-        raise _not_ported("front", name, _FRONTS)
-    if layout not in _FRONTS[name].layouts:
-        raise _pair_error(name, _FRONTS[name].layouts, layout)
-    return _FRONTS[name]
+    spec = front_spec(name)
+    if layout not in spec.layouts:
+        raise _pair_error(name, spec.layouts, layout)
+    return spec
 
 
 def validate_combo(front: str, backend: str, layout: str) -> None:
     """Raise ``PlanError`` unless the port runs (front, backend, layout)."""
     _front(front, layout)
-    if backend not in _BACKENDS:
-        raise _not_ported("backend", backend, _BACKENDS)
+    backend_spec(backend)
 
 
 def make_front(name: str, layout: str, index, **opts):
@@ -162,6 +180,4 @@ def make_front(name: str, layout: str, index, **opts):
 
 
 def make_backend(name: str, **opts):
-    if name not in _BACKENDS:
-        raise _not_ported("backend", name, _BACKENDS)
-    return _BACKENDS[name].make(**opts)
+    return backend_spec(name).make(**opts)

@@ -40,6 +40,7 @@ from repro_torch.core.trq import TRQCodes
 from repro_torch.device import row_sum
 from repro_torch.index import graph as graph_mod
 from repro_torch.index import ivf as ivf_mod
+from repro_torch.index.ivf import rank_centroid_lists
 from repro_torch.kernels.pq_adc import pq_adc
 from repro_torch.kernels.ternary_refine import RefineStores, \
     ternary_refine_fused, ternary_refine_fused_bounds
@@ -101,6 +102,25 @@ class FrontStage(Protocol):
                   layout: RecordLayout) -> None: ...
 
 
+class RefineBackend(Protocol):
+    """FaTRQ refinement over a candidate batch: ``refine`` on one index,
+    ``bounds`` (every level's est and interval, no pruning) and
+    ``refine_sharded`` (one alive chain over the stacked shards, with
+    thresholds pooled across them; ``anns.sharding``)."""
+
+    name: str
+
+    def refine(self, queries: torch.Tensor, cand: Candidates, trq: TRQCodes,
+               *, k: int, bound: str, z: float) -> Refined: ...
+
+    def bounds(self, queries: torch.Tensor, cand: Candidates, trq: TRQCodes,
+               *, bound: str, z: float): ...
+
+    def refine_sharded(self, queries: torch.Tensor,
+                       cands: list[Candidates], trqs, *, k: int, bound: str,
+                       z: float) -> Refined: ...
+
+
 def _smallest(v: torch.Tensor, k: int) -> torch.Tensor:
     """Positions of the k smallest per row, lower position first on ties."""
     return torch.sort(v, dim=-1, stable=True).indices[..., :k]
@@ -113,14 +133,6 @@ def fold_ivf_front_cost(cost: QueryCost, counts: dict[str, int],
                         layout: RecordLayout) -> None:
     """IVF front traffic: PQ codes + LUT live in fast memory (HBM)."""
     cost.record("coarse", Tier.HBM, counts["front_cand"], layout.fast_bytes)
-
-
-def rank_centroid_lists(centroids: torch.Tensor, queries: torch.Tensor, *,
-                        nprobe: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Squared-L2 centroid ranking → (distances (Q, nlist), the nprobe
-    nearest list ids (Q, nprobe))."""
-    d = ((queries[:, None, :] - centroids[None]) ** 2).sum(-1)
-    return d, _smallest(d, nprobe)
 
 
 def adc_score(codebook: pq_mod.PQCodebook, pq_codes: torch.Tensor,

@@ -39,3 +39,22 @@ def compute_scalars(x: torch.Tensor, x_c: torch.Tensor,
         rho = torch.zeros_like(norm)
     return RecordScalars(delta_sq=delta_sq.float(), cross=cross.float(),
                          rho=rho.float(), norm=norm.float())
+
+
+def exact_distance_sq(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """||x − q||² on the trailing axis (ground truth, the final rerank)."""
+    diff = x - q
+    return (diff * diff).sum(-1)
+
+
+def first_order(d0: torch.Tensor, scalars: RecordScalars) -> torch.Tensor:
+    """d̂₁ = d̂₀ + ||δ||² + 2⟨x_c,δ⟩: no query-time I/O beyond the
+    scalars (the precomputed cross term is free and tighter than the
+    paper's first d̂₀ + ||δ||²)."""
+    return d0 + scalars.delta_sq + 2.0 * scalars.cross
+
+
+def decomposed_distance_sq(d0: torch.Tensor, scalars: RecordScalars,
+                           q_dot_delta: torch.Tensor) -> torch.Tensor:
+    """The exact identity given the true ⟨q, δ⟩."""
+    return d0 + scalars.delta_sq + 2.0 * scalars.cross - 2.0 * q_dot_delta

@@ -139,3 +139,13 @@ def refine_level(q: torch.Tensor, d0: torch.Tensor, scalars: RecordScalars,
     tau = topk_threshold(hi, prev_alive, k)
     alive = prev_alive & (lo <= tau[..., None])
     return ProgressiveState(est=est, lo=lo, alive=alive, tau=tau)
+
+
+def refine_batch(q: torch.Tensor, d0: torch.Tensor, scalars: RecordScalars,
+                 codes: torch.Tensor, model: calib.CalibrationModel, *,
+                 k: int, bound: str = "cauchy", z: float = 3.0
+                 ) -> ProgressiveState:
+    """One refinement level from every candidate alive (the paper's
+    second-order operating point); the multi-level stack is
+    ``trq.progressive_search``."""
+    return refine_level(q, d0, scalars, codes, model, k=k, bound=bound, z=z)

@@ -40,3 +40,10 @@ def unpack_ternary(packed: torch.Tensor, d: int) -> torch.Tensor:
     trits = digits.reshape(*packed.shape[:-1],
                            packed.shape[-1] * TRITS_PER_BYTE)
     return (trits[..., :d] - 1).to(torch.int8)
+
+
+def storage_bytes(d: int, *, n_scalars: int = 2, scalar_bytes: int = 4
+                  ) -> int:
+    """Per-record far-memory footprint (the paper: 768 → 154 + 8 = 162
+    B)."""
+    return packed_size(d) + n_scalars * scalar_bytes

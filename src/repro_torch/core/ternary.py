@@ -82,3 +82,27 @@ def ternary_inner(code: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     k = c.abs().sum(-1)
     raw = (c * q).sum(-1)
     return raw / torch.sqrt(torch.clamp(k, min=1.0))
+
+
+def brute_force_optimal(delta) -> torch.Tensor:
+    """Exhaustive 3^D search of the best code for one residual (tiny D
+    only), in float64 numpy as the reference's: the test oracle of
+    ``ternary_encode``'s optimality.  Returns the int8 code (D,)."""
+    import itertools
+
+    import numpy as np
+
+    delta = np.asarray(delta, dtype=np.float64)
+    d = delta.shape[-1]
+    if delta.ndim != 1 or d > 12:
+        raise ValueError("the oracle takes one residual of at most 12 dims")
+    best, best_ip = None, -np.inf
+    for c in itertools.product((-1, 0, 1), repeat=d):
+        c = np.array(c, dtype=np.float64)
+        k = (c != 0).sum()
+        if k == 0:
+            continue
+        ip = float(c @ delta) / np.sqrt(k)
+        if ip > best_ip:
+            best_ip, best = ip, c
+    return torch.from_numpy(best.astype(np.int8))

@@ -148,6 +148,21 @@ def unpack_level(codes: TRQCodes, level: int,
     return packing.unpack_ternary(packed, codes.dim)
 
 
+def estimate_q_dot_delta(q: torch.Tensor, codes: TRQCodes,
+                         idx: torch.Tensor | None = None, *,
+                         through_level: int | None = None) -> torch.Tensor:
+    """Σ_ℓ ⟨δ_ℓ, e_cℓ⟩·⟨q, e_cℓ⟩, the stacked estimate of ⟨q, δ⟩ over the
+    first ``through_level`` levels (every level unless given), for the
+    records ``idx`` (every record unless given); exact as L → D."""
+    through = codes.num_levels if through_level is None else through_level
+    total = 0.0
+    for lv in range(through):
+        proj = codes.levels[lv].proj
+        align = ternary_inner(unpack_level(codes, lv, idx), q)
+        total = total + (proj if idx is None else proj[idx]) * align
+    return total
+
+
 def calibrate(codes: TRQCodes, q_samples: torch.Tensor, x: torch.Tensor,
               x_c: torch.Tensor, pair_idx: torch.Tensor) -> TRQCodes:
     """Fit the OLS calibration model on (query, record) pairs: row p of

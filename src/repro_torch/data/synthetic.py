@@ -97,3 +97,20 @@ def make_dataset(*, n: int = 20_000, d: int = 128, n_queries: int = 128,
     q = x[pick] + query_noise * noise / d ** 0.5
     q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
     return Dataset(x=x, queries=q, gt=brute_force_topk(x, q, k_gt))
+
+
+def split_tokens(tokens: torch.Tensor) -> dict[str, torch.Tensor]:
+    """A (B, S+1) token draw → ``{"tokens": (B, S), "labels": (B, S)}``,
+    each label the next token."""
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+def make_token_batch(generator: torch.Generator, batch: int, seq_len: int,
+                     vocab: int, *, device=None) -> dict[str, torch.Tensor]:
+    """A synthetic LM training batch (tokens + next-token labels) on
+    ``device`` (the GPU unless given).  The (B, S+1) int64 draw is made on
+    ``generator``, a CPU generator, and then moved, so a run on the CPU
+    and one on the GPU see the same tokens."""
+    toks = torch.randint(0, vocab, (batch, seq_len + 1), generator=generator,
+                         dtype=torch.int64)
+    return split_tokens(toks.to(resolve_device(device)))

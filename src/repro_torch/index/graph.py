@@ -170,6 +170,13 @@ def search(index: GraphIndex, x: torch.Tensor, queries: torch.Tensor, *,
     return torch.gather(ids, 1, order).contiguous()
 
 
+def search_batch(index: GraphIndex, x: torch.Tensor, qs: torch.Tensor, *,
+                 iters: int = 24, beam: int = 64) -> torch.Tensor:
+    """``search`` of every query (the reference's per-query ``vmap``):
+    each beam (Q, beam), nearest first."""
+    return search(index, x, qs, iters=iters, beam=beam)
+
+
 # ----------------------------------------------------- online maintenance
 
 #: queries per beam search of ``insert_nodes`` (bounds the per-hop

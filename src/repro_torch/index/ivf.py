@@ -61,6 +61,29 @@ def build(x: torch.Tensor, nlist: int, *, init_idx: torch.Tensor,
                     list_len=torch.from_numpy(lens).to(x.device))
 
 
+def rank_centroid_lists(centroids: torch.Tensor, queries: torch.Tensor, *,
+                        nprobe: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Squared-L2 centroid ranking → (distances (Q, nlist), the nprobe
+    nearest list ids (Q, nprobe), the lower list first on ties as
+    ``lax.top_k``: a stable sort)."""
+    d = ((queries[:, None, :] - centroids[None]) ** 2).sum(-1)
+    return d, torch.sort(d, dim=-1, stable=True).indices[..., :nprobe]
+
+
+def probe_batch(index: IVFIndex, qs: torch.Tensor, *, nprobe: int
+                ) -> torch.Tensor:
+    """Candidate ids of queries qs (Q, D): the members of each query's
+    ``nprobe`` nearest lists (``rank_centroid_lists``), (Q, nprobe·cap)
+    int32 with -1 pads."""
+    _, top = rank_centroid_lists(index.centroids, qs, nprobe=nprobe)
+    return index.lists[top].reshape(qs.shape[0], -1)
+
+
+def probe(index: IVFIndex, q: torch.Tensor, *, nprobe: int) -> torch.Tensor:
+    """``probe_batch`` for one query q (D,) → (nprobe·cap,)."""
+    return probe_batch(index, q[None], nprobe=nprobe)[0]
+
+
 def assign_lists(index: IVFIndex, x: torch.Tensor) -> torch.Tensor:
     """Which inverted list each vector belongs to (nearest centroid)."""
     return assign(x, index.centroids)

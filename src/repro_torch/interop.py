@@ -16,7 +16,8 @@ index through ``index_from_numpy``, then its placement state as numpy.
 ``params_from_numpy`` carries a JAX model's parameter tree
 (``jax.tree.map(np.asarray, api.init(key))``) into the port's model of
 the same family (``models.transformer.Transformer``,
-``models.ssm_lm.XLSTM`` / ``Zamba`` or ``models.whisper.Whisper``).
+``models.ssm_lm.XLSTM`` / ``Zamba`` or ``models.whisper.Whisper``), and
+``adamw_from_numpy`` a JAX ``AdamWState`` into the port's.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from repro_torch.models.ssm_lm import XLSTM, Zamba
 from repro_torch.models.transformer import Transformer
 from repro_torch.models.whisper import Whisper
 from repro_torch.quant.pq import PQCodebook
+from repro_torch.train.optimizer import AdamWState
 
 
 def index_from_numpy(arrays: dict[str, np.ndarray], config: PipelineConfig,
@@ -197,3 +199,22 @@ def params_from_numpy(cfg, tree: dict, *, device=None,
                 _put(getattr(blk.ffn, name).weight, blocks["ffn"][name][i],
                      linear=True)
     return model
+
+
+def adamw_from_numpy(cfg, model: nn.Module, opt) -> AdamWState:
+    """The port's ``AdamWState`` for ``model`` from a JAX one as numpy
+    (``jax.tree.map(np.asarray, state)``): ``mu`` and ``nu`` are
+    parameter-shaped trees, so each goes through ``params_from_numpy``
+    into a shadow model on ``model``'s device and is read back by
+    parameter name; ``step`` becomes a host int."""
+    def moments(tree) -> dict:
+        shadow = params_from_numpy(cfg, tree, device=model.embed.device,
+                                   dtype=torch.float32)
+        return {name: p.detach() for name, p in shadow.named_parameters()}
+
+    mu, nu = moments(opt.mu), moments(opt.nu)
+    names = [name for name, _ in model.named_parameters()]
+    if list(mu) != names:
+        raise ValueError("the optimizer state's parameters are not the "
+                         "model's")
+    return AdamWState(step=int(opt.step), mu=mu, nu=nu)

@@ -1,3 +1,3 @@
-from repro_torch.models.model_zoo import ModelApi, build_model
+from repro_torch.models.model_zoo import ModelApi, build_model, loss_fn
 
-__all__ = ["ModelApi", "build_model"]
+__all__ = ["ModelApi", "build_model", "loss_fn"]

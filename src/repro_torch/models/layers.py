@@ -18,8 +18,23 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+
+# ------------------------------------------------------------------ remat
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``remat`` is set
+    and autograd records the call: only ``args`` are kept for the backward
+    pass, which runs ``fn`` again for the rest (where the reference wraps
+    the layer in ``jax.checkpoint``).  Under ``no_grad`` or
+    ``inference_mode`` it is the plain call."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
 
 # ---------------------------------------------------------------- modules
 

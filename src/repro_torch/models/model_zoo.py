@@ -14,8 +14,11 @@ embeddings) and ``positions`` (M-RoPE coordinates), and ``frames``
 ``prefill`` encodes them into the cache.  The model is an ``nn.Module``
 (``transformer.Transformer``, ``ssm_lm.XLSTM``, ``ssm_lm.Zamba`` or
 ``whisper.Whisper``, each with ``embed`` and ``embed_tokens``); the
-functions run where its weights lie.  ``forward`` takes ``remat=`` (no
-effect) and ``last_only=`` as the reference's does.
+functions run where its weights lie.  ``forward`` takes ``remat=`` and
+``last_only=`` as the reference's does: with ``remat`` (the default) each
+layer's activations are recomputed in the backward pass, when autograd
+records one.  ``loss_fn`` is the training loss over a batch with
+``labels``.
 """
 
 from __future__ import annotations
@@ -111,3 +114,17 @@ def build_model(cfg: ArchConfig) -> ModelApi:
                                                                 cfg),
         prefill=prefill,
     )
+
+
+def loss_fn(api: ModelApi, model, batch: dict, *, aux_weight: float = 0.01,
+            **kw) -> torch.Tensor:
+    """Next-token cross-entropy (+ ``aux_weight`` · the MoE aux loss), a
+    0-d float32 tensor.  The label logit is gathered, where the reference
+    contracts a one-hot: the one-hot adds exact zeros to it, so the two
+    are the same float sum, and no (B, S, V) one-hot is built."""
+    logits, aux = api.forward(model, batch, **kw)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1,
+                               batch["labels"].long()[..., None])[..., 0]
+    return (lse - label_logit).mean() + aux_weight * aux

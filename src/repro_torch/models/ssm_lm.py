@@ -125,13 +125,18 @@ def xlstm_forward(model: XLSTM, tokens, cfg, *, embeds=None,
                   remat: bool = True, last_only: bool = False
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) (or ``embeds`` (B, S, D)) → (logits (B, S, V), a zero
-    aux loss).  ``remat`` has no effect (it belongs to training)."""
-    del remat
+    aux loss).  ``remat``: each mLSTM layer is recomputed in the backward
+    pass, as the reference checkpoints it (the sLSTM layers are not); it
+    changes nothing where autograd records no graph."""
     x = model.embed_tokens(tokens) if embeds is None else embeds
+
+    def m_layer(layer, x):
+        return x + xlstm.mlstm_forward(rms_norm(x, layer.ln, cfg.norm_eps),
+                                       layer.mlstm, cfg)
+
     for group, slayer in zip(model.mlstm_blocks, model.slstm_blocks):
         for layer in group:
-            x = x + xlstm.mlstm_forward(rms_norm(x, layer.ln, cfg.norm_eps),
-                                        layer.mlstm, cfg)
+            x = L.remat_call(remat, m_layer, layer, x)
         x = x + xlstm.slstm_forward(rms_norm(x, slayer.ln, cfg.norm_eps),
                                     slayer.slstm, cfg)
     if last_only:
@@ -238,10 +243,16 @@ def _zamba_attn(x, sp: SharedAttention, cfg, *, sin, cos, q_block=0):
     return x + L.swiglu(rms_norm(x, sp.ln2, cfg.norm_eps), sp.ffn)
 
 
-def _mamba_layers(x, layers, cfg):
+def _mamba_layer(layer, x, cfg):
+    return x + mamba2.mamba_forward(rms_norm(x, layer.ln, cfg.norm_eps),
+                                    layer.mamba, cfg)
+
+
+def _mamba_layers(x, layers, cfg, remat: bool):
+    """Each Mamba-2 layer in turn, recomputed in the backward pass under
+    ``remat`` (the reference checkpoints each one)."""
     for layer in layers:
-        x = x + mamba2.mamba_forward(rms_norm(x, layer.ln, cfg.norm_eps),
-                                     layer.mamba, cfg)
+        x = L.remat_call(remat, _mamba_layer, layer, x, cfg)
     return x
 
 
@@ -249,16 +260,16 @@ def zamba_forward(model: Zamba, tokens, cfg, *, embeds=None,
                   remat: bool = True, last_only: bool = False
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """As ``xlstm_forward``, for zamba2 (RoPE over positions 0..S−1 in
-    the shared attention)."""
-    del remat
+    the shared attention); ``remat`` recomputes each Mamba-2 layer in the
+    backward pass (not the shared attention block), as the reference."""
     x = model.embed_tokens(tokens) if embeds is None else embeds
     sin, cos = L.rope_angles(torch.arange(x.shape[1], device=x.device),
                              cfg.hd, cfg.rope_theta)
     for group in model.groups:
-        x = _zamba_attn(_mamba_layers(x, group, cfg), model.shared_attn,
-                        cfg, sin=sin, cos=cos)
+        x = _zamba_attn(_mamba_layers(x, group, cfg, remat),
+                        model.shared_attn, cfg, sin=sin, cos=cos)
     if model.tail is not None:
-        x = _mamba_layers(x, model.tail, cfg)
+        x = _mamba_layers(x, model.tail, cfg, remat)
     if last_only:
         x = x[:, -1:]
     return model.head(x, cfg), torch.zeros((), dtype=torch.float32,

@@ -144,20 +144,25 @@ def forward(model: Transformer, tokens, cfg, *, embeds=None,
             last_only: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) int (or embeds (B, S, D) for stubbed frontends) →
     (logits (B, S, V), aux_loss).  last_only: the LM head on the final
-    position only (B, 1, V).  ``remat`` is accepted for the reference's
-    signature and has no effect (it belongs to training)."""
-    del remat
+    position only (B, 1, V).  ``remat``: each whole block is recomputed in
+    the backward pass (only its input is kept), as the reference's
+    ``jax.checkpoint`` of the block; it changes nothing where autograd
+    records no graph."""
     x = _inputs(model, tokens, embeds)
     b, s = x.shape[0], x.shape[1]
     sin, cos = _angles(cfg, positions, b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for blk in model.blocks:
+
+    def block(blk, x):
         h = L.gqa_attention(L.rms_norm(x, blk.ln1, cfg.norm_eps), blk.attn,
                             cfg, sin=sin, cos=cos, causal=True,
                             window=blk.window, q_block=q_block)
         x = x + h
         f, a = blk.ffn_out(L.rms_norm(x, blk.ln2, cfg.norm_eps), cfg)
-        x = x + f
+        return x + f, a
+
+    for blk in model.blocks:
+        x, a = L.remat_call(remat, block, blk, x)
         if a is not None:
             aux = aux + a
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)

@@ -116,35 +116,44 @@ def _mlp(x: torch.Tensor, mlp: MLP) -> torch.Tensor:
     return mlp.wo(F.gelu(mlp.wi(x), approximate="tanh"))
 
 
-def encode(model: Whisper, frames: torch.Tensor, cfg) -> torch.Tensor:
+def _enc_layer(blk, x, cfg):
+    x = x + L.gqa_attention(rms_norm(x, blk.ln1, cfg.norm_eps), blk.attn,
+                            cfg, sin=None, cos=None, causal=False)
+    return x + _mlp(rms_norm(x, blk.ln2, cfg.norm_eps), blk.mlp)
+
+
+def _dec_layer(blk, x, enc, cfg):
+    x = x + L.gqa_attention(rms_norm(x, blk.ln1, cfg.norm_eps), blk.attn,
+                            cfg, sin=None, cos=None, causal=True)
+    kx, vx = L.project_kv(enc, blk.xattn, cfg)
+    x = x + L.gqa_attention(rms_norm(x, blk.lnx, cfg.norm_eps), blk.xattn,
+                            cfg, sin=None, cos=None, causal=False,
+                            kv_override=(kx, vx))
+    return x + _mlp(rms_norm(x, blk.ln2, cfg.norm_eps), blk.mlp)
+
+
+def encode(model: Whisper, frames: torch.Tensor, cfg, *,
+           remat: bool = True) -> torch.Tensor:
     """frames (B, T_f, D) precomputed frame embeddings (the frontend stub)
-    → the normed encoder output (B, T_f, D)."""
+    → the normed encoder output (B, T_f, D); ``remat`` recomputes each
+    layer in the backward pass."""
     x = frames + model.enc_pos[None, :frames.shape[1]]
     for blk in model.enc_blocks:
-        x = x + L.gqa_attention(rms_norm(x, blk.ln1, cfg.norm_eps),
-                                blk.attn, cfg, sin=None, cos=None,
-                                causal=False)
-        x = x + _mlp(rms_norm(x, blk.ln2, cfg.norm_eps), blk.mlp)
+        x = L.remat_call(remat, _enc_layer, blk, x, cfg)
     return rms_norm(x, model.enc_norm, cfg.norm_eps)
 
 
 def forward(model: Whisper, frames, tokens, cfg, *, remat: bool = True,
             last_only: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """The teacher-forced pass → (logits (B, S, V), a zero aux loss).
-    ``remat`` has no effect (it belongs to training)."""
-    del remat
-    enc = encode(model, frames, cfg)
+    ``remat``: each encoder and decoder layer is recomputed in the
+    backward pass, as the reference checkpoints them; it changes nothing
+    where autograd records no graph."""
+    enc = encode(model, frames, cfg, remat=remat)
     s = tokens.shape[1]
     x = model.embed_tokens(tokens) + model.dec_pos[None, :s]
     for blk in model.dec_blocks:
-        x = x + L.gqa_attention(rms_norm(x, blk.ln1, cfg.norm_eps),
-                                blk.attn, cfg, sin=None, cos=None,
-                                causal=True)
-        kx, vx = L.project_kv(enc, blk.xattn, cfg)
-        x = x + L.gqa_attention(rms_norm(x, blk.lnx, cfg.norm_eps),
-                                blk.xattn, cfg, sin=None, cos=None,
-                                causal=False, kv_override=(kx, vx))
-        x = x + _mlp(rms_norm(x, blk.ln2, cfg.norm_eps), blk.mlp)
+        x = L.remat_call(remat, _dec_layer, blk, x, enc, cfg)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
@@ -172,7 +181,7 @@ def prefill_encoder(model: Whisper, frames, cfg, cache: dict) -> dict:
     if tuple(frames.shape[:2]) != tuple(xk.shape[1:3]):
         raise ValueError(f"frames of shape {tuple(frames.shape)} for a "
                          f"cache of {xk.shape[1]} x {xk.shape[2]} frames")
-    enc = encode(model, frames, cfg)
+    enc = encode(model, frames, cfg, remat=False)
     for i, blk in enumerate(model.dec_blocks):
         xk[i], xv[i] = L.project_kv(enc, blk.xattn, cfg)
     return cache

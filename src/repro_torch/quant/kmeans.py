@@ -98,3 +98,9 @@ def kmeans(x: torch.Tensor, k: int, iters: int = 25, *,
            init_idx: torch.Tensor) -> torch.Tensor:
     """Train k centroids on x (N, D) from rows ``init_idx`` (k,)."""
     return kmeans_batched(x[None], k, iters, init_idx[None])[0]
+
+
+def quantization_error(x: torch.Tensor, centroids: torch.Tensor
+                       ) -> torch.Tensor:
+    """Mean squared L2 distortion of the codebook on x (N, D), 0-d."""
+    return ((x - centroids[assign(x, centroids)]) ** 2).sum(-1).mean()

@@ -78,3 +78,8 @@ def adc_distances(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """Score codes (..., N, M) against LUTs (..., M, K) → (..., N)."""
     idx = codes.long().transpose(-1, -2)                      # (..., M, N)
     return torch.gather(table, -1, idx).sum(-2)
+
+
+def reconstruction_error(cb: PQCodebook, x: torch.Tensor) -> torch.Tensor:
+    """Mean squared L2 error of x (N, D) through encode and decode, 0-d."""
+    return ((x - decode(cb, encode(cb, x))) ** 2).sum(-1).mean()

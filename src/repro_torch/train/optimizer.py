@@ -1,0 +1,69 @@
+"""AdamW over a model's named parameters (the port of
+``repro.train.optimizer``).
+
+The state holds one float32 ``mu`` and ``nu`` per parameter, keyed by its
+name in ``named_parameters()``.  ``update`` follows the reference's
+arithmetic: the global-norm clip, then the moments, the bias corrections
+from the float32 step, and the decoupled weight decay on the float32
+parameter.  It works in place, one parameter at a time, so at the full
+width of a 3B model it never holds a second copy of all the gradients or
+parameters: the largest temporary is one parameter's size.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+
+class AdamWState(NamedTuple):
+    step: int               # updates applied (a host int: no device read)
+    mu: dict                # name → float32 first moment
+    nu: dict                # name → float32 second moment
+
+
+def init(model: nn.Module) -> AdamWState:
+    """Zero moments beside each parameter of ``model``, on its device."""
+    def zeros():
+        return {name: torch.zeros_like(p, dtype=torch.float32)
+                for name, p in model.named_parameters()}
+    return AdamWState(step=0, mu=zeros(), nu=zeros())
+
+
+def global_norm(grads: dict) -> torch.Tensor:
+    """sqrt(Σ g²) over every gradient, a 0-d float32 device tensor."""
+    norms = torch._foreach_norm([g.float() for g in grads.values()])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+@torch.no_grad()
+def update(grads: dict, state: AdamWState, params: dict, *,
+           lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
+           eps: float = 1e-8, weight_decay: float = 0.1,
+           grad_clip: float = 1.0) -> tuple[dict, AdamWState]:
+    """One AdamW step on ``params`` (name → tensor) from ``grads`` (name →
+    tensor, the same names).  ``params``, ``state.mu`` and ``state.nu``
+    are written in place and the gradients are scaled in place by the
+    clip; returns ``(params, state with step + 1)``, the reference's
+    shape.  Reads no device value on the host."""
+    step = state.step + 1
+    scale = torch.clamp(grad_clip / torch.clamp(global_norm(grads),
+                                                min=1e-12), max=1.0)
+    f32 = np.float32
+    bc1 = float(f32(1) - f32(b1) ** f32(step))
+    bc2 = float(f32(1) - f32(b2) ** f32(step))
+    for name, p in params.items():
+        g, m, v = grads[name].float(), state.mu[name], state.nu[name]
+        g.mul_(scale)
+        m.mul_(b1).add_(g, alpha=1 - b1)
+        v.mul_(b2).addcmul_(g, g, value=1 - b2)
+        u = torch.div(m, bc1).div_(v.div(bc2).sqrt_().add_(eps))
+        pf = p.float()                  # p itself when it is float32
+        u.add_(pf, alpha=weight_decay)
+        pf.sub_(u, alpha=lr)
+        if pf is not p:
+            p.copy_(pf)
+    return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
