@@ -170,6 +170,20 @@ Phases, each of which raises on failure:
    again; then over a ``TieredIndex`` on Zipfian queries around a
    ``rebalance_tiers()``.  Each mutation must purge the cache and every
    response after it equal a fresh sequential ``db.query``;
+   then the sharded search across processes (``mesh_phase``): a one-rank
+   NCCL group (``make_search_mesh(1)``) whose ``QueryPlan(shards=1,
+   backend="cuda")`` answers with ``mesh=`` must equal the stacked
+   ``shards=1`` answers bit for bit (ids, distances, ledger, modelled
+   breakdown) on both fronts, timed against them in turns; then
+   ``--shards`` gloo ranks spawned on the one card, one shard each, the
+   IVF front placed by ``Database.query(..., mesh=)`` itself over the
+   index the parent saved and the graph front by ``ShardedIndex.place``
+   from the parent's stacked partition (mapped from a file, so each rank
+   reads only its block): every rank's answers must equal the stacked
+   ``shards=--shards`` results of phase 4 bit for bit, with ``pq_adc``
+   and the bounds kernel launched on every rank; each rank's launches,
+   times and peak memory, and the phase's wall time (gloo on one card:
+   not a multi-GPU throughput);
 9. the RAG round trip at the full width of qwen2.5-3b (36 layers,
    d_model 2048, 3,085,697,024 parameters in float32), after every
    earlier phase's tensors are freed: a 1M x 2048 index (``make_dataset``,
@@ -222,6 +236,11 @@ Phases, each of which raises on failure:
    ~4x fewer wire bytes); on the reduced model a run resumed from its
    step-2 checkpoint equal to the uninterrupted run within 1e-6, and
    ``restore`` putting every leaf on the card;
+   then the four examples (``examples/*_torch.py``) at their defaults,
+   each timed: FaTRQ's recall@10 within 0.1 of the baseline's with fewer
+   SSD fetches, a modelled saving after ``rebalance_tiers()``, the RAG
+   ids equal to ``db.query``'s, and the training loss (mean of the last
+   20 steps) below the first 20 steps' on the random tokens;
 12. print one ``kernels`` JSON line (the three kernels of the graph paths
    with a ``graph`` entry: their numbers at the graph shapes; ``pq_adc``
    and the fused kernel with ``streaming`` and ``tiered`` entries at the
@@ -229,7 +248,9 @@ Phases, each of which raises on failure:
    padded bucket with the engine's launches; ``pq_adc`` and the fused
    kernel with ``rag`` entries at the RAG index's shape with the round
    trip's launches; ``launches_by_path`` also has ``rag_zamba2`` and
-   ``rag_xlstm``), then the result line
+   ``rag_xlstm``, and the mesh phase's runs, one a rank; ``pq_adc`` and
+   the bounds kernel have a ``mesh`` entry with those launches), then the
+   result line
    ``{"ok": true,
    "device": {...}}`` last.
 
@@ -251,6 +272,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2467,12 +2489,17 @@ def sync_free(torch, engine):
     return engine
 
 
+def blocking_of(calls: dict) -> dict:
+    """The synchronizes and blocking copies or memsets among ``calls``."""
+    return {n: c for n, c in calls.items() if "Synchronize" in n or (
+        ("Memcpy" in n or "Memset" in n) and "Async" not in n)}
+
+
 def blocking_calls(torch, label: str, fn) -> None:
     """Fail if the CUDA runtime calls of ``fn`` (``runtime_calls``)
     include a synchronize or a blocking copy or memset."""
     calls = runtime_calls(torch, fn)
-    blocking = {n: c for n, c in calls.items() if "Synchronize" in n or (
-        ("Memcpy" in n or "Memset" in n) and "Async" not in n)}
+    blocking = blocking_of(calls)
     if blocking:
         fail(f"{label} made blocking CUDA runtime calls {blocking}")
     print(f"{label} runtime calls: {calls}; none blocks the host" if calls
@@ -3262,6 +3289,370 @@ def baselines_phase(torch, args, index, ds) -> None:
           f" s in all)")
 
 
+def zero_launches(pq_adc_mod, tr) -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    pq_adc_mod.launches = 0
+    tr.launches = tr.bounds_launches = 0
+    tr.batch_launches = tr.single_launches = tr.prune_launches = 0
+
+
+def launch_counts(pq_adc_mod, tr) -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    return {"pq_adc": pq_adc_mod.launches,
+            "ternary_refine_fused": tr.launches,
+            "ternary_refine_fused_bounds": tr.bounds_launches,
+            "ternary_refine_batch": tr.batch_launches,
+            "ternary_refine": tr.single_launches,
+            "ternary_refine_prune": tr.prune_launches}
+
+
+# -------------------------------------------------------- the mesh phase
+
+MESH_JOIN_S = 600               # a gloo rank that takes longer is hung
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def index_arrays(index, queries) -> dict:
+    """The index's arrays under ``interop.index_from_numpy``'s keys (its
+    kNN graph too) and the queries, on the host, for the ranks to load."""
+    from repro_torch.anns.stages import graph_for
+    trq, graph = index.trq, graph_for(index)
+    out = {"codebook.codebooks": index.codebook.codebooks,
+           "pq_codes": index.pq_codes, "ivf.centroids": index.ivf.centroids,
+           "ivf.lists": index.ivf.lists, "ivf.list_len": index.ivf.list_len,
+           "x": index.x, "graph.neighbors": graph.neighbors,
+           "graph.start": graph.start, "queries": queries}
+    for i, lv in enumerate(trq.levels):
+        for f in ("packed", "proj", "norm", "rho"):
+            out[f"trq.levels.{i}.{f}"] = getattr(lv, f)
+    for f in ("delta_sq", "cross", "rho", "norm"):
+        out[f"trq.scalars.{f}"] = getattr(trq.scalars, f)
+    for f in ("w", "bias", "resid_std"):
+        out[f"trq.model.{f}"] = getattr(trq.model, f)
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def ledger_of(cost) -> dict:
+    return {k: (v.accesses, v.bytes) for k, v in cost.ledger.items()}
+
+
+def same_bits(torch, label: str, ids, dists, ledger, breakdown, want) -> None:
+    """ids, distances, ledger and modelled breakdown all equal to the
+    ``SearchResult`` ``want``'s, bit for bit, else fail."""
+    if not torch.equal(ids.cpu(), want.ids.cpu()):
+        n_rows = int((ids.cpu() != want.ids.cpu()).any(1).sum())
+        fail(f"{label}: ids differ from the stacked form's in {n_rows} "
+             f"queries")
+    if not torch.equal(dists.cpu(), want.distances.cpu()):
+        fail(f"{label}: distances differ from the stacked form's")
+    if ledger != ledger_of(want.cost):
+        fail(f"{label}: ledger {ledger} differs from the stacked form's "
+             f"{ledger_of(want.cost)}")
+    if breakdown != want.cost.breakdown():
+        fail(f"{label}: modelled breakdown differs from the stacked form's")
+
+
+def mesh_rank(rank: int, world: int, port: int, path: str, cfg) -> None:
+    """One rank of the gloo mesh (``mesh_phase``), on ``cuda:0`` with the
+    other ranks: ``Database.query`` with ``QueryPlan(shards=world,
+    backend="cuda")`` and ``mesh=`` on both fronts, over the parent's
+    index (IVF: partitioned and placed by the query) and over the
+    parent's stacked graph partition (placed with ``place``); its
+    answers, launches, times and peak memory to ``path/rank{rank}.pt``."""
+    import resource
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.anns import Database, QueryPlan
+    from repro_torch.interop import index_from_numpy
+    from repro_torch.kernels import pq_adc as pq_adc_mod
+    from repro_torch.kernels import ternary_refine as tr
+    from repro_torch.launch.mesh import make_search_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        t = time.perf_counter()
+        arrays = torch.load(os.path.join(path, "index.pt"), mmap=True)
+        queries = arrays.pop("queries").cuda()
+        index = index_from_numpy({k: v.numpy() for k, v in arrays.items()},
+                                 cfg, device="cuda")
+        del arrays
+        mesh = make_search_mesh(world)
+        out = {"load_s": time.perf_counter() - t}
+        torch.cuda.reset_peak_memory_stats()
+        db = Database.wrap(index)
+        for front in ("ivf", "graph"):
+            plan = QueryPlan(shards=world, front=front, backend="cuda")
+            t = time.perf_counter()
+            if front == "graph":
+                # the stacked graph partition (~15 GB of halo copies and
+                # rows at 1M x 768) would not fit on the card once per
+                # rank: each rank maps the parent's copy and place()
+                # reads only this rank's block of it
+                stacked = torch.load(os.path.join(path, "graph.pt"),
+                                     mmap=True, weights_only=False)
+                target = Database.wrap(stacked.place(mesh))
+                del stacked
+            else:
+                target = db
+            target.query(queries[:64], plan=plan, mesh=mesh)
+            torch.cuda.synchronize()
+            dist.barrier()
+            place_s = time.perf_counter() - t
+            zero_launches(pq_adc_mod, tr)
+            t = time.perf_counter()
+            res = target.query(queries, plan=plan, mesh=mesh)
+            torch.cuda.synchronize()
+            out[front] = {
+                "ids": res.ids.cpu(), "distances": res.distances.cpu(),
+                "ledger": ledger_of(res.cost),
+                "breakdown": res.cost.breakdown(),
+                "query_s": time.perf_counter() - t, "place_s": place_s,
+                "launches": launch_counts(pq_adc_mod, tr)}
+            del target, res
+            index.__dict__.pop("_placed_cache", None)
+            db._compiled.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["host_peak_gb"] = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 1e6
+        torch.save(out, os.path.join(path, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def check_mesh_launches(label: str, counts: dict, mesh_rows: dict) -> None:
+    """A sharded run launches ``pq_adc`` and the bounds kernel (kept in
+    ``mesh_rows``) and no other refine kernel."""
+    for name in ("pq_adc", "ternary_refine_fused_bounds"):
+        if counts[name] == 0:
+            fail(f"{label}: never launched {name}")
+        mesh_rows[name][label] = counts[name]
+    for name in ("ternary_refine_fused", "ternary_refine_batch",
+                 "ternary_refine"):
+        if counts[name]:
+            fail(f"{label}: launched {name}")
+
+
+def mesh_phase(torch, args, cfg, db, queries, results, launches,
+               reset_launches, read_launches) -> dict:
+    """The sharded search across processes (``launch.mesh``): a one-rank
+    NCCL group, whose ``shards=1`` answers must equal the stacked
+    ``shards=1`` ones bit for bit on both fronts, then ``--shards`` gloo
+    ranks on the one card, one shard each, whose answers must each equal
+    the stacked ``shards=--shards`` results (``results``) bit for bit.
+    Returns the per-rank launches of ``pq_adc`` and the bounds kernel."""
+    import multiprocessing
+
+    import torch.distributed as dist
+    from repro_torch.anns import QueryPlan, make_sharded_executor
+    from repro_torch.launch.mesh import make_search_mesh
+
+    index = db.index
+    nq = queries.shape[0]
+    mesh_rows = {"pq_adc": {}, "ternary_refine_fused_bounds": {}}
+
+    def drop_partitions():
+        index.__dict__.pop("_sharded_cache", None)
+        index.__dict__.pop("_placed_cache", None)
+        db._compiled.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    # ---- one process under NCCL: the mesh form against shards=1
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_search_mesh(1)
+        print(f"mesh: NCCL {dist.get_backend()}, world 1, "
+              f"{mesh.device}")
+        for front in ("ivf", "graph"):
+            label = "mesh_nccl" if front == "ivf" else "mesh_nccl_graph"
+            plan = QueryPlan(shards=1, front=front, backend="cuda")
+            want = db.query(queries, plan=plan)
+            db.query(queries[:64], plan=plan, mesh=mesh)   # place, warm up
+            torch.cuda.synchronize()
+            reset_launches()
+            got = db.query(queries, plan=plan, mesh=mesh)
+            torch.cuda.synchronize()
+            launches[label] = read_launches()
+            same_bits(torch, label, got.ids, got.distances,
+                      ledger_of(got.cost), got.cost.breakdown(), want)
+            check_mesh_launches(label, launches[label], mesh_rows)
+            # NCCL queues its collectives on the stream: the mesh form
+            # blocks the host exactly where the stacked form does (the
+            # counters' one transfer)
+            calls = {name: runtime_calls(torch, lambda kw=kw: db.query(
+                queries[:64], plan=plan, **kw))
+                for name, kw in (("stacked", {}), ("nccl", {"mesh": mesh}))}
+            if not calls["nccl"]:
+                print(f"{label}: runtime calls not measured (the profiler "
+                      f"recorded no CUDA runtime call)")
+            elif blocking_of(calls["nccl"]) != blocking_of(calls["stacked"]):
+                fail(f"{label}: blocking runtime calls "
+                     f"{blocking_of(calls['nccl'])} against the stacked "
+                     f"form's {blocking_of(calls['stacked'])}")
+            else:
+                print(f"{label}: blocking runtime calls of one 64-query "
+                      f"batch {blocking_of(calls['nccl'])}, the stacked "
+                      f"form's; all calls {calls['nccl']}")
+            runs = {"stacked": [], "nccl": []}
+            for _ in range(3):
+                for name, kw in (("stacked", {}), ("nccl", {"mesh": mesh})):
+                    _, s = timed(torch, lambda: db.query(queries, plan=plan,
+                                                         **kw))
+                    runs[name].append(s)
+            med = {k: sorted(v)[1] for k, v in runs.items()}
+            print(f"{label}: ids, distances and ledger equal to the stacked "
+                  f"shards=1 path's; launches {launches[label]}; "
+                  f"{nq / med['nccl']:.1f} queries/s against stacked "
+                  f"{nq / med['stacked']:.1f} (median of "
+                  f"{[round(s, 6) for s in runs['nccl']]} and "
+                  f"{[round(s, 6) for s in runs['stacked']]} s, in turns)")
+            del want, got
+            drop_partitions()
+    finally:
+        dist.destroy_process_group()
+
+    # ---- --shards gloo ranks on the one card, one shard each
+    world = args.shards
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    procs = []
+    try:
+        t = time.perf_counter()
+        torch.save(index_arrays(index, queries), os.path.join(tmp,
+                                                              "index.pt"))
+        graph = make_sharded_executor(index, shards=world,
+                                      front="graph").sharded
+        torch.save(graph.to("cpu"), os.path.join(tmp, "graph.pt"))
+        del graph
+        drop_partitions()
+        save_s = time.perf_counter() - t
+        ctx = multiprocessing.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, world, port, tmp, cfg))
+                 for r in range(world)]
+        t = time.perf_counter()
+        for p in procs:
+            p.start()
+        # a rank that fails leaves the others waiting in a collective:
+        # stop at the first failure rather than at the deadline
+        while any(p.is_alive() for p in procs) and \
+                time.perf_counter() - t < MESH_JOIN_S and \
+                all(p.exitcode in (None, 0) for p in procs):
+            time.sleep(0.2)
+        wall = time.perf_counter() - t
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            fail(f"mesh: gloo ranks exited with {codes} after {wall:.0f} s "
+                 f"(None: still running, stopped)")
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                for r in range(world)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for front, flat in (("ivf", "sharded"), ("graph", "graph_sharded")):
+        for r, o in enumerate(outs):
+            got = o[front]
+            label = f"mesh_gloo_{front}_r{r}"
+            same_bits(torch, label, got["ids"], got["distances"],
+                      got["ledger"], got["breakdown"], results[flat])
+            launches[label] = got["launches"]
+            check_mesh_launches(label, got["launches"], mesh_rows)
+            print(f"{label}: ids, distances and ledger equal to the stacked "
+                  f"{flat} path's; launches {got['launches']}; placement "
+                  f"{got['place_s']:.2f} s, {nq} queries "
+                  f"{got['query_s']:.3f} s")
+    for r, o in enumerate(outs):
+        print(f"mesh gloo rank {r}: load {o['load_s']:.1f} s, peak device "
+              f"memory {o['peak_gb']:.2f} GB, peak host memory "
+              f"{o['host_peak_gb']:.1f} GB (resident, the mapped files' "
+              f"shared pages included)")
+    parent = torch.cuda.max_memory_allocated() / 1e9
+    card = parent + sum(o["peak_gb"] for o in outs)
+    print(f"mesh phase: parent peak device memory {parent:.1f} GB; with the "
+          f"ranks' peaks at most {card:.1f} GB on the card")
+    if card >= PEAK_GB:
+        fail(f"mesh phase: up to {card:.1f} GB on the card reaches "
+             f"{PEAK_GB} GB")
+    print(f"mesh: {world} gloo ranks on one card (each collective through "
+          f"the host; not a multi-GPU throughput): {wall:.1f} s wall from "
+          f"spawn to the last exit; index and stacked graph partition "
+          f"saved in {save_s:.1f} s")
+    return mesh_rows
+
+
+# ------------------------------------------------------------ the examples
+
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+
+
+def examples_phase(torch) -> None:
+    """The four ``examples/*_torch.py`` on the card at their defaults,
+    each timed, each result checked as ``tests/test_torch_examples.py``
+    checks it on the host."""
+    import importlib
+
+    sys.path.insert(0, str(EXAMPLES))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    total = 0.0
+    try:
+        for name, argv in (("quickstart_torch", []), ("tiered_torch", []),
+                           ("rag_serving_torch", []),
+                           ("train_lm_torch", ["--ckpt-dir", tmp])):
+            print(f"---- example {name} {' '.join(argv)}".rstrip())
+            got, s = timed(torch, lambda: importlib.import_module(name)
+                           .main(argv))
+            total += s
+            print(f"example {name}: {s:.1f} s")
+            if name == "quickstart_torch" and not (
+                    got["recall"] >= got["baseline_recall"] - 0.1
+                    and got["ssd"] < got["baseline_ssd"]):
+                fail(f"quickstart_torch: {got}")
+            if name == "tiered_torch" and not got["hot_s"] < got["warm_s"]:
+                fail(f"tiered_torch: no modelled saving ({got})")
+            if name == "rag_serving_torch":
+                with torch.no_grad():
+                    want = got["db"].query(got["embed_fn"](got["prompts"]),
+                                           plan=got["plan"], k=5)
+                if not torch.equal(got["result"].ids, want.ids):
+                    fail("rag_serving_torch: ids differ from db.query's")
+            if name == "train_lm_torch":
+                # uniform random tokens: the loss falls towards ln(vocab)
+                losses = got.losses
+                first, last = (statistics.fmean(losses[:20]),
+                               statistics.fmean(losses[-20:]))
+                print(f"train_lm_torch: mean loss of the first 20 steps "
+                      f"{first:.4f}, of the last 20 {last:.4f} (ln vocab "
+                      f"{math.log(8192):.4f})")
+                if not (all(math.isfinite(v) for v in losses)
+                        and last < first):
+                    fail(f"train_lm_torch: losses {losses[:3]} ... "
+                         f"{losses[-3:]}")
+            del got
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"examples: {total:.1f} s for the four")
+
+
 def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
                 reset_launches, read_launches) -> tuple[dict, dict]:
     """Phases 2 to 8 over the 1M x 768 index.  Returns each kernel's row
@@ -3662,6 +4053,12 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
     invalidation_phase(torch, args, cfg, index, ds)
     print(f"serving phase (invalidation): {time.perf_counter() - t:.1f} s")
 
+    # ---- the sharded search across processes, over the same index
+    t = time.perf_counter()
+    mesh_rows = mesh_phase(torch, args, cfg, db, queries, results, launches,
+                           reset_launches, read_launches)
+    print(f"mesh phase: {time.perf_counter() - t:.1f} s")
+
     print("library_ms: pq_adc's is one embedding_bag call at the fatrq "
           "shape (int32 indices built outside the timer, no +inf mask; the "
           "port never calls it); null for the refine kernels, which no "
@@ -3698,6 +4095,8 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
     v_adc["launches"] = launches["serving_engine"]["pq_adc"]
     v_refine["launches"] = launches["serving_engine"]["ternary_refine_fused"]
     adc["serving"], refine["serving"] = v_adc, v_refine
+    adc["mesh"] = mesh_rows["pq_adc"]
+    bounds_row["mesh"] = mesh_rows["ternary_refine_fused_bounds"]
 
     return {"pq_adc": adc, "ternary_refine_fused": refine,
             "ternary_refine_fused_bounds": bounds_row,
@@ -3735,17 +4134,10 @@ def main() -> int:
     from repro_torch.kernels import ternary_refine as tr
 
     def reset_launches():
-        pq_adc_mod.launches = 0
-        tr.launches = tr.bounds_launches = 0
-        tr.batch_launches = tr.single_launches = tr.prune_launches = 0
+        zero_launches(pq_adc_mod, tr)
 
     def read_launches() -> dict:
-        return {"pq_adc": pq_adc_mod.launches,
-                "ternary_refine_fused": tr.launches,
-                "ternary_refine_fused_bounds": tr.bounds_launches,
-                "ternary_refine_batch": tr.batch_launches,
-                "ternary_refine": tr.single_launches,
-                "ternary_refine_prune": tr.prune_launches}
+        return launch_counts(pq_adc_mod, tr)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3786,6 +4178,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_phase(torch, args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples_phase(torch)
     rows["pq_adc"]["rag"] = rag["pq_adc"]
     rows["ternary_refine_fused"]["rag"] = rag["ternary_refine_fused"]
     print("rag entries: pq_adc and ternary_refine_fused at the round "

@@ -253,17 +253,19 @@ class Database:
                     f"{self.index.front!r} front")
         return p
 
-    def executor_for(self, plan: QueryPlan | None = None):
+    def executor_for(self, plan: QueryPlan | None = None, *, mesh=None):
         """Validate and compile ``plan``; its executor (kept per
-        (generation, resolved plan))."""
-        return self._compile(self.validate(plan))[0]
+        (generation, resolved plan, mesh))."""
+        return self._compile(self.validate(plan), mesh)[0]
 
-    def compiled(self, plan: QueryPlan | None = None) -> CompiledPlan:
+    def compiled(self, plan: QueryPlan | None = None, *,
+                 mesh=None) -> CompiledPlan:
         """Validate and compile ``plan`` into a ``CompiledPlan`` for this
         generation: O(1) when the executor is kept, rebuilt after a
-        mutation or migration."""
+        mutation or migration.  ``mesh`` (``launch.mesh.make_search_mesh``)
+        runs a sharded plan with one shard per rank."""
         rp = self.validate(plan)
-        ex, gid = self._compile(rp)
+        ex, gid = self._compile(rp, mesh)
         return CompiledPlan(db=self, plan=rp, generation=self.generation,
                             _ex=ex, _gid=gid)
 
@@ -275,12 +277,18 @@ class Database:
     def query(self, queries, *, plan: QueryPlan | None = None,
               k: int | None = None, micro_batch: int | None = None,
               refine_budget: int | None = None, bucket: bool = False,
-              cost: QueryCost | None = None) -> SearchResult:
+              cost: QueryCost | None = None, mesh=None) -> SearchResult:
         """Planned search → ``SearchResult``; ``k``, ``micro_batch`` and
         ``refine_budget`` override the plan for this call.  ``bucket=True``
         pads ragged micro-batches to power-of-two buckets
         (``executor.bucket_for``) under a validity mask: the same ids,
-        distances and ledger, from a fixed set of batch shapes."""
+        distances and ledger, from a fixed set of batch shapes.
+
+        ``mesh`` (``launch.mesh.make_search_mesh``) runs a sharded plan
+        across processes, one shard per rank: every rank calls ``query``
+        with the same queries and plan and gets the same answer, the
+        stacked form's bit for bit.  Its size must be the plan's
+        ``shards``."""
         p = plan or QueryPlan()
         if k is not None:
             stale = p.k is not None and k != p.k and \
@@ -297,17 +305,17 @@ class Database:
                 rp = self.validate(p)
             q = self._queries(queries)
             sp_q.set_attrs(plan=rp.to_record(), n_queries=int(q.shape[0]))
-            ex, gid = self._compile(rp)
+            ex, gid = self._compile(rp, mesh)
             return CompiledPlan(db=self, plan=rp, generation=self.generation,
                                 _ex=ex, _gid=gid).execute(q, pad=bucket,
                                                           cost=cost)
 
-    def _compile(self, rp: QueryPlan) -> tuple:
+    def _compile(self, rp: QueryPlan, mesh=None) -> tuple:
         """(executor, row → global id map or None) of a resolved plan, kept
-        per (generation, plan); a miss drops the older generations'
+        per (generation, plan, mesh); a miss drops the older generations'
         entries (their fronts hold superseded tensors)."""
         gen = self.generation
-        key = (gen, rp)
+        key = (gen, rp, mesh)
         hit = self._compiled.get(key)
         trace.event("plan.compile", track="query", cache_hit=hit is not None,
                     generation=gen, layout=self.layout)
@@ -317,10 +325,10 @@ class Database:
                           if kk[0] == gen}
         with trace.span("plan.compile.build", track="query",
                         layout=self.layout, generation=gen):
-            hit = self._compiled[key] = self._build(rp)
+            hit = self._compiled[key] = self._build(rp, mesh)
         return hit
 
-    def _build(self, rp: QueryPlan) -> tuple:
+    def _build(self, rp: QueryPlan, mesh=None) -> tuple:
         if self.layout == "streaming":
             st = self.index
             if rp.shards is None:
@@ -330,8 +338,8 @@ class Database:
             idx, gid = st.rebuild_static()
             return (make_sharded_executor(
                 idx, shards=rp.shards, front=rp.front, backend=rp.backend,
-                micro_batch=rp.micro_batch, refine_budget=rp.refine_budget),
-                torch.from_numpy(gid).to(st.device))
+                micro_batch=rp.micro_batch, refine_budget=rp.refine_budget,
+                mesh=mesh), torch.from_numpy(gid).to(st.device))
         if self.layout == "tiered":
             return make_executor(self.index, front=rp.front,
                                  backend=rp.backend,
@@ -344,7 +352,7 @@ class Database:
                 if rp.shards is None else rp.shards,
                 front=rp.front, backend=rp.backend,
                 micro_batch=rp.micro_batch,
-                refine_budget=rp.refine_budget), None
+                refine_budget=rp.refine_budget, mesh=mesh), None
         return make_executor(self.index, front=rp.front, backend=rp.backend,
                              micro_batch=rp.micro_batch,
                              refine_budget=rp.refine_budget), None

@@ -151,16 +151,18 @@ def build(x, config: PipelineConfig, *, device=None,
 def search(index, queries, *, k: int | None = None,
            cost: QueryCost | None = None, front: str | None = None,
            backend: str | None = None, shards: int | None = None,
-           micro_batch: int | None = None
+           micro_batch: int | None = None, mesh=None
            ) -> tuple[torch.Tensor, QueryCost]:
     """FaTRQ search → ((Q, k) ids, the traffic ledger): a shim over
     ``Database.wrap(index).query`` with the keywords as the plan (use
     ``Database`` for the distances too).  ``index`` may be any layout's
-    index; it runs where its tensors lie."""
+    index; it runs where its tensors lie.  ``mesh`` runs ``shards``
+    across processes (``Database.query``)."""
     from repro_torch.anns.api import Database, QueryPlan
     res = Database.wrap(index).query(
         queries, plan=QueryPlan(front=front, backend=backend, shards=shards,
-                                k=k, micro_batch=micro_batch), cost=cost)
+                                k=k, micro_batch=micro_batch), cost=cost,
+        mesh=mesh)
     return res.ids, res.cost
 
 

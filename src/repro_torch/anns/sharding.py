@@ -17,12 +17,23 @@ across shards (the port of ``repro.anns.sharding``).
   Per-shard record arrays are gathered on the device into shard-local row
   order and stacked on a leading shard axis (zero-padded to the largest
   shard); ``gid`` maps local rows back to global database ids.
-* ``ShardedIndex`` holds the stacked database; ``.to(device)`` moves it.
+* ``ShardedIndex`` holds the stacked database; ``.to(device)`` moves it,
+  ``.place(mesh)`` keeps one rank's block of it (below).
 * ``ShardedExecutor`` runs the stages per shard.  The JAX package runs the
-  body under ``shard_map`` across devices; here the shards sit on one
-  device, the body is a loop over shards (one launch per kernel per shard,
-  what a per-device body is) and the collectives are tensor ops over the
-  stacked per-shard results:
+  body under ``shard_map`` across devices.  Here the body is a loop over
+  the shards this process holds (one launch per kernel per shard, what a
+  per-device body is) and the collectives go through one axis object:
+
+  - the **stacked** form (no mesh) holds every shard on one device, and
+    the pooled cuts are tensor ops over the stacked per-shard results;
+  - the **mesh** form (``launch.mesh.make_search_mesh``, one process per
+    shard, as ``torchrun`` starts them) holds one shard per rank, and the
+    axis all-gathers the ranks' blocks in rank order or all-reduces the
+    owner-masked parts.  Every rank makes the same calls with the same
+    padded shapes, so the pools are the stacked form's and every rank
+    returns the stacked form's ids, distances and ledger bit for bit.
+
+  The pooled cuts:
 
     - IVF front: each shard ranks the replicated centroid table (computed
       once per micro-batch) and keeps the global top-``nprobe`` lists it
@@ -47,7 +58,8 @@ across shards (the port of ``repro.anns.sharding``).
       (``_rerank_survivors_sharded``).
 
   Stage counters stay on the device, one per shard; one host transfer at
-  the end builds one ``QueryCost`` ledger per shard, folded with
+  the end (after one all-gather of the ranks' counters on a mesh) builds
+  one ``QueryCost`` ledger per shard, folded with
   ``QueryCost.merge_parallel`` (shards run concurrently: per-tier time is
   the slowest shard's, bytes and accesses sum).
 """
@@ -72,6 +84,7 @@ from repro_torch.anns.stages import (Candidates, Counters, _exact_sq,
 from repro_torch.core.trq import TRQCodes
 from repro_torch.index import graph as graph_mod
 from repro_torch.kernels.pq_adc import pq_adc
+from repro_torch.launch.mesh import AXIS
 from repro_torch.memory import QueryCost, RecordLayout, Tier
 from repro_torch.obs import trace
 from repro_torch.quant import pq as pq_mod
@@ -81,6 +94,24 @@ def _map_fields(obj, fn):
     """A copy of a dataclass of tensors with ``fn`` applied to each."""
     return type(obj)(**{f.name: fn(getattr(obj, f.name))
                         for f in dataclasses.fields(obj)})
+
+
+class _StackedAxis:
+    """The stacked form's axis: every shard is in this process, so a
+    gather or a sum over the shards is the local stack or sum itself."""
+
+    rank = 0
+
+    @staticmethod
+    def all_gather(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return t
+
+    @staticmethod
+    def all_sum(t: torch.Tensor) -> torch.Tensor:
+        return t
+
+
+STACKED = _StackedAxis()
 
 
 # ------------------------------------------------------------- partitioner
@@ -98,6 +129,9 @@ class ShardedIndex:
     global → owned-local row map), per-record ``pq_codes``/``trq``/``x``
     and ``gid`` (local row → global id, -1 on padding).  ``front_args``
     holds the static traversal parameters captured at partition time.
+
+    Stacked, the shard axis holds all ``n_shards`` shards (S_h = S);
+    placed on a mesh (``place``), it holds this rank's one (S_h = 1).
     """
 
     config: "PipelineConfig"         # noqa: F821 - import cycle via pipeline
@@ -108,11 +142,12 @@ class ShardedIndex:
     front_rep: tuple                 # replicated front tensors
     front_db: tuple                  # shard-stacked front tensors
     front_args: tuple                # static (name, value) traversal args
-    pq_codes: torch.Tensor           # (S, n_max, M) uint8
-    trq: TRQCodes                    # every per-record leaf (S, n_max, ...)
-    x: torch.Tensor                  # (S, n_max, D) full precision ("SSD")
-    gid: torch.Tensor                # (S, n_max) int32 global row id, -1 pad
+    pq_codes: torch.Tensor           # (S_h, n_max, M) uint8
+    trq: TRQCodes                    # every per-record leaf (S_h, n_max, ...)
+    x: torch.Tensor                  # (S_h, n_max, D) full precision ("SSD")
+    gid: torch.Tensor                # (S_h, n_max) int32 global row id, -1 pad
     shard_rows: np.ndarray           # (S,) real rows per shard
+    mesh: object = None              # launch.mesh.SearchMesh once placed
 
     @property
     def centroids(self) -> torch.Tensor:
@@ -136,10 +171,16 @@ class ShardedIndex:
             return self.config.backend
         return "cuda" if self.device.type == "cuda" else "reference"
 
+    @property
+    def axis(self):
+        """The pooled cuts' axis: the mesh once placed, else the stacked
+        form's local one."""
+        return STACKED if self.mesh is None else self.mesh
+
     @cached_property
     def shard_trqs(self) -> tuple[TRQCodes, ...]:
-        """Each shard's TRQ codes (views of the stacked tensors), built
-        once so a backend can key its per-shard stores on them."""
+        """Each held shard's TRQ codes (views of the stacked tensors),
+        built once so a backend can key its per-shard stores on them."""
         trq = self.trq
         return tuple(
             TRQCodes(dim=trq.dim,
@@ -147,7 +188,50 @@ class ShardedIndex:
                                   for lv in trq.levels),
                      scalars=_map_fields(trq.scalars, lambda t, s=s: t[s]),
                      model=trq.model)
-            for s in range(self.n_shards))
+            for s in range(self.gid.shape[0]))
+
+    def place(self, mesh) -> "ShardedIndex":
+        """This rank's block of the partition on ``mesh`` (a
+        ``launch.mesh.SearchMesh`` of ``n_shards`` ranks, one shard
+        each): the shard-stacked tensors cut to the rank's block (shapes,
+        padding and slot numbering those of the stacked form) and copied
+        to the mesh's device, the replicated ones moved there.  The
+        stacked tensors are not kept, so dropping this partition frees
+        the other blocks.
+
+        Every rank must hold the same partition: one small all-gather
+        compares ``shard_rows`` and checksums of the row and list maps,
+        the front's integer tensors and the codebook, and a mismatch
+        raises on every rank."""
+        if mesh.size != self.n_shards:
+            raise ValueError(f"mesh axis {AXIS!r} has size {mesh.size} but "
+                             f"the index has {self.n_shards} shards")
+        if self.mesh is not None:
+            raise ValueError("this partition is already placed on a mesh; "
+                             "place the stacked partition")
+        mine = _partition_digest(self).to(mesh.device)
+        every = mesh.all_gather(mine[None], 0)
+        bad = [r for r in range(mesh.size)
+               if not torch.equal(every[r], mine)]
+        if bad:
+            raise ValueError(
+                f"ranks {bad} hold another partition than rank {mesh.rank} "
+                f"(shard_rows, row/list maps or codebook differ); build or "
+                f"load the same index on every rank")
+        dev, r = mesh.device, mesh.rank
+        blk = lambda t: t[r:r + 1].to(dev, copy=True)         # noqa: E731
+        mv = lambda t: t.to(dev)                              # noqa: E731
+        trq = TRQCodes(dim=self.trq.dim,
+                       levels=tuple(_map_fields(lv, blk)
+                                    for lv in self.trq.levels),
+                       scalars=_map_fields(self.trq.scalars, blk),
+                       model=_map_fields(self.trq.model, mv))
+        return dataclasses.replace(
+            self, codebook=_map_fields(self.codebook, mv),
+            front_rep=tuple(map(mv, self.front_rep)),
+            front_db=tuple(map(blk, self.front_db)),
+            pq_codes=blk(self.pq_codes), trq=trq, x=blk(self.x),
+            gid=blk(self.gid), mesh=mesh)
 
     def to(self, device) -> "ShardedIndex":
         """The same partition with every tensor on ``device``."""
@@ -163,6 +247,27 @@ class ShardedIndex:
             front_db=tuple(map(mv, self.front_db)),
             pq_codes=mv(self.pq_codes), trq=trq, x=mv(self.x),
             gid=mv(self.gid))
+
+
+def _checksum(t: torch.Tensor) -> torch.Tensor:
+    """A position-weighted int64 sum of ``t``'s bits (wrapping), equal
+    for equal tensors on any device."""
+    v = t.reshape(-1).contiguous()
+    if v.is_floating_point():
+        v = v.view(torch.int32 if v.element_size() == 4 else torch.int64)
+    w = torch.arange(1, v.numel() + 1, device=v.device)
+    return (v.long() * w).sum()
+
+
+def _partition_digest(si: "ShardedIndex") -> torch.Tensor:
+    """(S + k,) int64 on the host: ``shard_rows``, then checksums of
+    ``gid``, of each integer front tensor and of the codebook (the
+    stacked partition's identity, compared across ranks by ``place``)."""
+    sums = [_checksum(si.gid)]
+    sums += [_checksum(t) for t in si.front_db if not t.is_floating_point()]
+    sums.append(_checksum(si.codebook.codebooks))
+    return torch.cat([torch.from_numpy(np.asarray(si.shard_rows, np.int64)),
+                      torch.stack(sums).cpu()])
 
 
 def lpt_assign(lens: np.ndarray, n_shards: int
@@ -315,8 +420,10 @@ def partition_database(index, n_shards: int,
 
 
 def _ivf_shard_front(queries, rep, fdb, codebook, pq_codes, *,
-                     qvalid=None, nprobe: int) -> list[Candidates]:
-    """The IVF front on every shard of one micro-batch.  The replicated
+                     qvalid=None, axis=STACKED, nprobe: int
+                     ) -> list[Candidates]:
+    """The IVF front on every held shard of one micro-batch (no exchange:
+    ``axis`` is unused).  The replicated
     centroid ranking and ADC tables are computed once; then per shard the
     chosen lists it owns are gathered, in probe order, and scored with one
     ``pq_adc`` launch.  The global top-``nprobe`` set has ``nprobe`` lists
@@ -362,18 +469,20 @@ def _ivf_shard_front(queries, rep, fdb, codebook, pq_codes, *,
 
 
 def _graph_shard_front(queries, rep, fdb, codebook, pq_codes, *,
-                       qvalid=None, beam: int, iters: int, expand: int,
-                       degree: int) -> list[Candidates]:
-    """The graph front on every shard of one micro-batch: one replicated
-    beam, a frontier exchange per hop over the halo-partitioned subgraphs.
+                       qvalid=None, axis=STACKED, beam: int, iters: int,
+                       expand: int, degree: int) -> list[Candidates]:
+    """The graph front on every held shard of one micro-batch: one
+    replicated beam, a frontier exchange per hop over the halo-partitioned
+    subgraphs.
 
     The beam state (global ids, distances, expanded flags) is computed once
     and advances in lockstep, as it does identically on every shard of the
     JAX body.  Each hop the shared ``graph.pick_frontier`` picks; the OWNER
     of each picked node contributes its adjacency row (global ids) and the
     neighbor distances from its ``xs_loc`` copy, every other shard zeros,
-    and a sum over the shard axis rebuilds the flattened neighbor list of
-    the unsharded search exactly (x + 0 is exact, and each node has one
+    and a sum over the shard axis (the held shards', then ``axis``'s
+    all-reduce across ranks) rebuilds the flattened neighbor list of the
+    unsharded search exactly (x + 0 is exact, and each node has one
     owner).  Each shard's distances come from ``graph.sq_dist`` on the
     (Q, E·degree, D) shape ``graph.search`` gives it, so they are the
     unsharded values to the bit.  The shared ``graph.beam_merge`` then
@@ -396,7 +505,7 @@ def _graph_shard_front(queries, rep, fdb, codebook, pq_codes, *,
     def exchange(parts: list[torch.Tensor]) -> torch.Tensor:
         """The psum: the owner-masked per-shard values summed over shards
         (in the dtype they came in)."""
-        return torch.stack(parts).sum(0, dtype=parts[0].dtype)
+        return axis.all_sum(torch.stack(parts).sum(0, dtype=parts[0].dtype))
 
     ids = start.expand(nq, beam)
     parts = []
@@ -458,11 +567,12 @@ registry.register_sharded_front("graph", registry.ShardedFrontHooks(
 
 
 def _rerank_survivors_sharded(x, gid, queries, ids, list_rank, est, alive,
-                              *, k: int, budget: int):
+                              *, k: int, budget: int, axis=STACKED):
     """Shard-local exact rerank under a GLOBAL SSD budget, then the
-    cross-shard top-k merge.  ids/est/alive (S, Q, C_s), list_rank
-    (S, Q, pl) the probe rank of each shard slot's list, so slot c is the
-    unsharded slot list_rank[c // cap]·cap + c % cap, cap = C_s / pl.
+    cross-shard top-k merge.  ids/est/alive (S_h, Q, C_s) of the S_h
+    shards this process holds, list_rank (S_h, Q, pl) the probe rank of
+    each shard slot's list, so slot c is the unsharded slot
+    list_rank[c // cap]·cap + c % cap, cap = C_s / pl.
 
     The fetch set is the unsharded executor's exactly, as the reference's
     contract states (``repro.anns.sharding._rerank_survivors_sharded``):
@@ -472,34 +582,44 @@ def _rerank_survivors_sharded(x, gid, queries, ids, list_rank, est, alive,
     among them (the all-gather of the multi-device form); the pooled
     candidates are ordered by (estimate, unsharded slot), and the alive
     ones among the first ``budget`` fetch.  The merge of exact distances
-    breaks ties by that fetch order, as the unsharded merge does.  Returns
-    (top-k global ids, their exact distances, (S,) fetch counts).
+    breaks ties by that fetch order, as the unsharded merge does.
+
+    Across ranks ``axis`` all-gathers each shard's (Q, bl) best estimates,
+    unsharded-slot keys and alive flags in rank order, so every rank
+    computes the same fetch order; each rank scores only its own fetches,
+    and the (distance, global id) pairs are all-gathered for the merge.
+    Returns (top-k global ids, their exact distances, (S_h,) fetch
+    counts).
     """
-    n_shards, nq, _ = est.shape
+    held, nq, _ = est.shape
     bl = min(budget, est.shape[-1])
     inf = torch.tensor(float("inf"), device=est.device)
     est_m = torch.where(alive, est, inf)
-    order = _smallest(est_m, bl)                              # (S, Q, bl)
+    order = _smallest(est_m, bl)                              # (S_h, Q, bl)
     cap = est.shape[-1] // list_rank.shape[-1]
-    key = torch.gather(list_rank, 2, order // cap) * cap + order % cap
+    key = axis.all_gather(
+        torch.gather(list_rank, 2, order // cap) * cap + order % cap)
+    best_est = axis.all_gather(torch.gather(est_m, 2, order))  # (S, Q, bl)
+    best_alive = axis.all_gather(torch.gather(alive, 2, order))
+    n_shards = key.shape[0]
     pool = lambda t: t.permute(1, 0, 2).reshape(nq, -1)      # noqa: E731
     # the pooled (Q, S·bl) candidates by estimate, then by unsharded slot
     by_slot = _smallest(pool(key), n_shards * bl)
     fetch_order = torch.gather(by_slot, 1, _smallest(torch.gather(
-        pool(torch.gather(est_m, 2, order)), 1, by_slot), n_shards * bl))
+        pool(best_est), 1, by_slot), n_shards * bl))
     first = torch.zeros((nq, n_shards * bl), dtype=torch.bool,
                         device=est.device)
     first.scatter_(1, fetch_order[:, :budget], True)
-    fetch_alive = first.reshape(nq, n_shards, bl).transpose(0, 1) & \
-        torch.gather(alive, 2, order)
+    fetch_alive = (first.reshape(nq, n_shards, bl).transpose(0, 1)
+                   & best_alive).narrow(0, axis.rank * held, held)
     fetch_ids = torch.gather(ids, 2, order)
     d_parts, g_parts = [], []
-    for s in range(n_shards):
+    for s in range(held):
         d = _exact_sq(x[s], queries, fetch_ids[s])
         d_parts.append(torch.where(fetch_alive[s], d, inf))
         g_parts.append(gid[s][fetch_ids[s].long()])
-    d_all = torch.cat(d_parts, dim=1)                         # shard order
-    g_all = torch.cat(g_parts, dim=1)
+    d_all = axis.all_gather(torch.cat(d_parts, dim=1), 1)    # shard order
+    g_all = axis.all_gather(torch.cat(g_parts, dim=1), 1)
     best = torch.gather(fetch_order, 1, _smallest(
         torch.gather(d_all, 1, fetch_order), k))
     return (torch.gather(g_all, 1, best), torch.gather(d_all, 1, best),
@@ -509,11 +629,13 @@ def _rerank_survivors_sharded(x, gid, queries, ids, list_rank, est, alive,
 # ---------------------------------------------------------------- executor
 
 
-def _collect_shards(counters: Counters) -> list[dict[str, int]]:
-    """The single device→host transfer: (S,) counters → one dict per
-    shard."""
+def _collect_shards(counters: Counters, axis=STACKED
+                    ) -> list[dict[str, int]]:
+    """The single device→host transfer: (S_h,) counters, all-gathered
+    across ``axis`` into (S,), → one dict per shard."""
     names = list(counters)
     vals = torch.stack([counters[n].to(torch.int64) for n in names])
+    vals = axis.all_gather(vals, 1)
     return [dict(zip(names, col)) for col in vals.cpu().T.tolist()]
 
 
@@ -522,7 +644,8 @@ class ShardedExecutor:
     """Staged search over a ShardedIndex, with the same top-k as the
     unsharded ``SearchExecutor`` on the same database (see the module
     docstring for why) and per-shard ledgers folded under the
-    parallel-shard overlap model."""
+    parallel-shard overlap model.  On a mesh every rank runs it on its own
+    shard with the same queries and returns the same answer and ledger."""
 
     sharded: ShardedIndex
     backend: object
@@ -572,19 +695,22 @@ class ShardedExecutor:
         k = k or cfg.final_k
         budget = search_budget(cfg, k, self.refine_budget)
         body = registry.sharded_front(si.front).body
+        axis = si.axis
         ids_parts, dist_parts = [], []
         counters: Counters = {}
         for chunk in iter_chunks(queries, self.micro_batch):
             n = chunk.shape[0]
             chunk, qvalid = _padded(chunk, pad, self.micro_batch)
             cands = body(chunk, si.front_rep, si.front_db, si.codebook,
-                         si.pq_codes, qvalid=qvalid, **dict(si.front_args))
+                         si.pq_codes, qvalid=qvalid, axis=axis,
+                         **dict(si.front_args))
             refined = self.backend.refine_sharded(
-                chunk, cands, si.shard_trqs, k=k, bound=cfg.bound, z=cfg.z)
+                chunk, cands, si.shard_trqs, k=k, bound=cfg.bound, z=cfg.z,
+                mesh=axis)
             topk, topk_d, n_ssd = _rerank_survivors_sharded(
                 si.x, si.gid, chunk, torch.stack([c.ids for c in cands]),
                 torch.stack([c.list_rank for c in cands]), refined.est,
-                refined.alive, k=k, budget=budget)
+                refined.alive, k=k, budget=budget, axis=axis)
             ids_parts.append(topk[:n])
             dist_parts.append(topk_d[:n])
             _accumulate(counters, {n: torch.stack([c.counters[n]
@@ -592,7 +718,8 @@ class ShardedExecutor:
                                    for n in cands[0].counters})
             _accumulate(counters, refined.counters)
             _accumulate(counters, {"ssd_fetch": n_ssd})
-        return _cat(ids_parts), _cat(dist_parts), _collect_shards(counters)
+        return (_cat(ids_parts), _cat(dist_parts),
+                _collect_shards(counters, axis))
 
     def _fold(self, shard_counts: list[dict[str, int]]) -> QueryCost:
         """S Table-I ledgers, one per shard's counts, folded into one with
@@ -611,27 +738,50 @@ class ShardedExecutor:
 def make_sharded_executor(index, *, shards: int, front: str = "ivf",
                           backend: str = "reference",
                           micro_batch: int | None = None,
-                          refine_budget: int | None = None
+                          refine_budget: int | None = None, mesh=None
                           ) -> ShardedExecutor:
     """Memoized sharded-executor factory.
 
     A ``FaTRQIndex`` is partitioned once per (shards, front) and the
-    partition kept on it; a ``ShardedIndex`` is used as it is.  Executors
-    are cached on the partition per (backend, micro_batch, refine_budget),
-    so executors with another backend share one partition.
+    partition kept on it; a ``ShardedIndex`` is used as it is.  With a
+    ``mesh`` the stacked partition is placed on it
+    (``ShardedIndex.place``) and the placement kept apart, per (shards,
+    front, mesh): a stacked executor and a mesh executor never share a
+    placement.  Executors are cached on the partition per (backend,
+    micro_batch, refine_budget), so executors with another backend share
+    one partition.
     """
     if isinstance(index, ShardedIndex):
         if (shards, front) != (index.n_shards, index.front):
             raise ValueError(f"the ShardedIndex has {index.n_shards} "
                              f"{index.front!r} shards, not {shards} "
                              f"{front!r} shards")
-        si = index
-    else:
+        if mesh is None or index.mesh is mesh:
+            si = index
+        elif index.mesh is not None:
+            raise ValueError("the ShardedIndex is placed on another mesh")
+        else:
+            placed = index.__dict__.setdefault("_placed_cache", {})
+            si = placed.get(mesh)
+            if si is None:
+                si = placed[mesh] = index.place(mesh)
+    elif mesh is None:
         parts = index.__dict__.setdefault("_sharded_cache", {})
         si = parts.get((shards, front))
         if si is None:
             si = parts[(shards, front)] = partition_database(
                 index, shards, front=front)
+    else:
+        placed = index.__dict__.setdefault("_placed_cache", {})
+        si = placed.get((shards, front, mesh))
+        if si is None:
+            # a kept stacked partition is the placement's source; else a
+            # fresh one, dropped once this rank's block is copied out
+            stacked = index.__dict__.get("_sharded_cache", {}).get(
+                (shards, front))
+            if stacked is None:
+                stacked = partition_database(index, shards, front=front)
+            si = placed[(shards, front, mesh)] = stacked.place(mesh)
     cache = si.__dict__.setdefault("_executor_cache", {})
     key = (backend, micro_batch, refine_budget)
     ex = cache.get(key)

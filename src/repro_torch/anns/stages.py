@@ -105,8 +105,9 @@ class FrontStage(Protocol):
 class RefineBackend(Protocol):
     """FaTRQ refinement over a candidate batch: ``refine`` on one index,
     ``bounds`` (every level's est and interval, no pruning) and
-    ``refine_sharded`` (one alive chain over the stacked shards, with
-    thresholds pooled across them; ``anns.sharding``)."""
+    ``refine_sharded`` (one alive chain over the stacked shards this
+    process holds, with thresholds pooled across them and across the
+    ``mesh``'s ranks; ``anns.sharding``)."""
 
     name: str
 
@@ -118,7 +119,7 @@ class RefineBackend(Protocol):
 
     def refine_sharded(self, queries: torch.Tensor,
                        cands: list[Candidates], trqs, *, k: int, bound: str,
-                       z: float) -> Refined: ...
+                       z: float, mesh=None) -> Refined: ...
 
 
 def _smallest(v: torch.Tensor, k: int) -> torch.Tensor:
@@ -286,15 +287,16 @@ class ReferenceRefineBackend:
 
     def refine_sharded(self, queries: torch.Tensor,
                        cands: list[Candidates], trqs, *, k: int, bound: str,
-                       z: float) -> Refined:
+                       z: float, mesh=None) -> Refined:
         """One alive chain over the stacked shards, as the JAX reference
         runs it: the chain starts from every slot, thresholds pooled
-        across shards, and ``valid`` is ANDed afterwards."""
+        across shards (and the ``mesh``'s ranks), and ``valid`` is ANDed
+        afterwards."""
         est, lo, hi = _stack_bounds(self, queries, cands, trqs, bound=bound,
                                     z=z)
         valid = torch.stack([c.valid for c in cands])
         level_alive, _ = alive_chain(lo, hi, torch.ones_like(valid), k,
-                                     shard_dim=0)
+                                     shard_dim=0, mesh=mesh)
         level_alive = tuple(a & valid for a in level_alive)
         return Refined(est=est, alive=level_alive[-1],
                        counters=_level_counters(level_alive, dims=(1, 2)))
@@ -328,14 +330,17 @@ class CudaRefineBackend:
 
     def refine_sharded(self, queries: torch.Tensor,
                        cands: list[Candidates], trqs, *, k: int, bound: str,
-                       z: float) -> Refined:
+                       z: float, mesh=None) -> Refined:
         """One alive chain over the stacked shards, as the JAX kernel path
         runs it: the chain starts from ``valid`` (the bounds kernel writes
-        +inf on invalid slots), thresholds pooled across shards."""
+        +inf on invalid slots), thresholds pooled across shards (and the
+        ``mesh``'s ranks).  The bounds kernel runs on the shards this
+        process holds."""
         est, lo, hi = _stack_bounds(self, queries, cands, trqs, bound=bound,
                                     z=z)
         valid = torch.stack([c.valid for c in cands])
-        level_alive, _ = alive_chain(lo, hi, valid, k, shard_dim=0)
+        level_alive, _ = alive_chain(lo, hi, valid, k, shard_dim=0,
+                                     mesh=mesh)
         return Refined(est=est, alive=level_alive[-1],
                        counters=_level_counters(level_alive, dims=(1, 2)))
 

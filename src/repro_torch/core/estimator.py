@@ -61,45 +61,53 @@ def cauchy_margin(q: torch.Tensor, codes: torch.Tensor, norms: torch.Tensor,
 
 
 def pooled_k_smallest(values: torch.Tensor, k: int,
-                      shard_dim: int | None = None) -> torch.Tensor:
+                      shard_dim: int | None = None,
+                      mesh=None) -> torch.Tensor:
     """kth-smallest value along the last axis (+inf encodes masked entries).
     Only the value is returned, so ``topk``'s tie order does not matter.
 
     With ``shard_dim`` (a non-negative dimension of ``values`` stacking
-    shards) each shard contributes its ``min(k, C_s)`` smallest, the pools
-    are concatenated in shard order (the all-gather of the sharded layout)
+    the shards this process holds) each shard contributes its
+    ``min(k, C_s)`` smallest, the pools are concatenated in shard order
     and the kth smallest of the pool is the exact global kth smallest: any
-    global top-k member is in its shard's local top-k.  The result drops
-    ``shard_dim`` and the last axis."""
+    global top-k member is in its shard's local top-k.  With a ``mesh``
+    (``launch.mesh.SearchMesh``) the pools of the mesh's ranks are
+    all-gathered in rank order first, so every rank takes the kth
+    smallest of the same pool: the stacked form's value, bit for bit.
+    The result drops ``shard_dim`` and the last axis."""
     if shard_dim is not None:
         kk = min(k, values.shape[-1])
         local = torch.topk(values, kk, dim=-1, largest=False).values
+        if mesh is not None:
+            local = mesh.all_gather(local, shard_dim)
         values = local.movedim(shard_dim, -2).flatten(-2)
     kk = min(k, values.shape[-1])
     return torch.topk(values, kk, dim=-1, largest=False).values[..., -1]
 
 
 def topk_threshold(estimates: torch.Tensor, alive: torch.Tensor, k: int,
-                   shard_dim: int | None = None) -> torch.Tensor:
+                   shard_dim: int | None = None,
+                   mesh=None) -> torch.Tensor:
     """kth-smallest upper estimate among alive candidates (τ), pooled
-    across ``shard_dim`` when it is given (see ``pooled_k_smallest``)."""
+    across ``shard_dim`` (and the ``mesh``) when it is given (see
+    ``pooled_k_smallest``)."""
     masked = torch.where(alive, estimates,
                          torch.full_like(estimates, float("inf")))
-    return pooled_k_smallest(masked, k, shard_dim)
+    return pooled_k_smallest(masked, k, shard_dim, mesh)
 
 
 def alive_chain(lo: torch.Tensor, hi: torch.Tensor, alive: torch.Tensor,
-                k: int, shard_dim: int | None = None
+                k: int, shard_dim: int | None = None, mesh=None
                 ) -> tuple[tuple[torch.Tensor, ...], tuple[torch.Tensor, ...]]:
     """Level-wise pruning over precomputed certified intervals.
 
     lo/hi (..., L, C), alive (..., C) the starting mask.  Per level
     τ = kth-smallest ``hi`` among the alive (pooled across ``shard_dim``
-    when given), then ``alive &= lo ≤ τ``.  Returns the alive mask and τ
-    after every level."""
+    and the ``mesh`` when given), then ``alive &= lo ≤ τ``.  Returns the
+    alive mask and τ after every level."""
     alives, taus = [], []
     for lv in range(lo.shape[-2]):
-        tau = topk_threshold(hi[..., lv, :], alive, k, shard_dim)
+        tau = topk_threshold(hi[..., lv, :], alive, k, shard_dim, mesh)
         wide = tau[..., None] if shard_dim is None \
             else tau.unsqueeze(shard_dim)[..., None]
         alive = alive & (lo[..., lv, :] <= wide)

@@ -232,6 +232,9 @@ class ServingEngine:
     dispatch_overhead_us : fixed host cost per dispatched batch in the
         virtual timing model, the submit-and-sync round trip the tier
         ledger cannot see; coalescing amortizes it.
+    mesh : a ``launch.mesh.SearchMesh`` for a sharded plan run across
+        processes, one shard per rank (every rank serves the same
+        requests).
     tracer : an ``obs.trace.Tracer`` active during ``run``, its virtual
         clock wired to the engine's.
     """
@@ -243,8 +246,10 @@ class ServingEngine:
                  degrade_factor: int = 4,
                  cache: ResultCache | None = None,
                  batching: bool = True, overlap: bool = True,
-                 dispatch_overhead_us: float = 50.0, tracer=None):
+                 dispatch_overhead_us: float = 50.0, mesh=None,
+                 tracer=None):
         self.db = Database.wrap(index)
+        self.mesh = mesh
         if not batching:
             max_batch, max_wait_us = 1, 0.0
         self.max_batch = int(max_batch)
@@ -434,7 +439,7 @@ class ServingEngine:
         trace.event("serve.dispatch", track="sched", bid=bid, k=rk,
                     degraded=degraded, n=len(batch),
                     rids=[a.rid for a in batch])
-        cp = self.db.compiled(self._class_plan(rk, degraded))
+        cp = self.db.compiled(self._class_plan(rk, degraded), mesh=self.mesh)
         n = len(batch)
         bucket = bucket_for(n, self.max_batch)
         self.stats.padded_slots += bucket - n

@@ -574,7 +574,7 @@ def test_database_on_the_streaming_layout(ds, base):
     pst.delete([0, 3005])
     assert len(db) == 3018 and db.generation == 2
     db.query(queries)
-    assert set(db._compiled) == {(2, k[1]) for k in db._compiled}
+    assert set(db._compiled) == {(2,) + k[1:] for k in db._compiled}
     assert len(db._compiled) == 1
 
 
