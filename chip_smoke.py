@@ -236,6 +236,14 @@ Phases, each of which raises on failure:
    ~4x fewer wire bytes); on the reduced model a run resumed from its
    step-2 checkpoint equal to the uninterrupted run within 1e-6, and
    ``restore`` putting every leaf on the card;
+   then the LM across processes (``lm_mesh_phase``): on a one-rank NCCL
+   group, ``make_host_mesh()``'s prefill, cache-filling prefill, 8
+   decode and one train step of the full qwen2.5-3b bit-equal to the
+   plain path (times beside it); then 4 gloo ranks on the card at full
+   width and 4 layers: teacher-forced decode on the (1, 4) mesh (flash
+   decode) within 2e-3 of the one-process decode, a ``"2d"`` train step
+   on (2, 2) whose loss (1e-4) and gradients (1e-4 · max|leaf| + 1e-6)
+   are the one-process step's, each rank's step times and peak memory;
    then the four examples (``examples/*_torch.py``) at their defaults,
    each timed: FaTRQ's recall@10 within 0.1 of the baseline's with fewer
    SSD fetches, a modelled saving after ``rebalance_tiers()``, the RAG
@@ -3196,6 +3204,408 @@ def train_phase(torch, args, dev="cuda") -> None:
           f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
 
+# ------------------------------------------------------ the LM mesh phase
+
+LM_MESH_LAYERS = 4              # depth of the 4-rank cells (full width)
+LM_MESH_PROMPT, LM_MESH_STEPS = 32, 8       # 8 x 32 prompt, 8 decode steps
+LM_MESH_JOIN_S = 420            # a gloo rank that takes longer is hung
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6           # tests/test_torch_train_grads.py's
+LOSS_RTOL = 1e-4                            # tests/test_torch_train.py's
+
+
+def sync_ms(torch, fn) -> tuple:
+    """(fn()'s result, its milliseconds to a synchronize)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def lm_mesh_rank(rank: int, world: int, port: int, path: str, cfg,
+                 dev: str = "cuda") -> None:
+    """One gloo rank of ``lm_mesh_phase``, on ``cuda:0`` with the others
+    (``dev="cpu"`` to rehearse), ``cfg``'s model with the weights mapped
+    from ``path/weights.pt``: on the (1, 4) mesh (sequence-sharded cache,
+    flash decode) and on the (2, 2) mesh (batch and KV heads split), the
+    prefill step that fills this rank's shard of a cache from the 8 x 32
+    prompt, then 8 teacher-forced decode steps; on the (2, 2) mesh, one
+    ``"2d"`` train step on this rank's rows, with the gradients it hands
+    the optimizer compared on its shards with the parent's one-process
+    gradients.  Its logits, errors, step times and peak memory to
+    ``path/rank{rank}.pt``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.input_specs import params_structs
+    from repro_torch.launch.mesh import dp_axes, make_lm_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import optimizer
+
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    on = None if dev == "cuda" else dev         # the mesh's device
+    try:
+        api = build_model(cfg)
+        state = torch.load(os.path.join(path, "weights.pt"), mmap=True)
+        data = torch.load(os.path.join(path, "inputs.pt"))
+        out = {}
+        b, p = data["prompt"].shape
+        s = p + LM_MESH_STEPS                   # the cache's positions
+        kw = dict(dtype=torch.float32)
+        for shape in ((1, 4), (2, 2)):
+            mesh = make_lm_mesh(shape, ("data", "model"), device=on)
+            fill, _, _, _, pmeta = steps.make_prefill_step(
+                api, mesh, ShapeConfig("p", p, b, "prefill"), cache_len=s,
+                **kw)
+            dec, _, _, _, meta = steps.make_decode_step(
+                api, mesh, ShapeConfig("d", s, b, "decode"), **kw)
+            model = steps.place_model(params_structs(api, torch.float32),
+                                      meta["specs"]["params"], mesh,
+                                      state=state)
+            cache = steps.init_cache(api, b, s, meta["specs"]["cache"], mesh)
+            batch = steps.place({"tokens": data["prompt"]},
+                                pmeta["specs"]["batch"], mesh)
+            torch.cuda.reset_peak_memory_stats()
+            (lg, cache), fill_ms = sync_ms(torch, lambda: fill(model, batch,
+                                                               cache))
+            logits, times = [lg.cpu()], []
+            for tok in data["decode"]:
+                t = steps.place({"t": tok}, {"t": meta["specs"]["tokens"]},
+                                mesh)["t"]
+                (lg, cache), ms = sync_ms(torch, lambda: dec(model, t,
+                                                             cache))
+                logits.append(lg.cpu())
+                times.append(ms)
+            rows = b // mesh.axis_size(dp_axes(mesh))
+            first = mesh.index(dp_axes(mesh)) * rows
+            out[shape] = {"logits": torch.stack(logits), "ms": times,
+                          "fill_ms": fill_ms, "rows": (first, first + rows),
+                          "flash_decode": meta["flash_decode"],
+                          "cache_k": tuple(cache["k"].shape),
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del model, cache, dec, fill
+            gc.collect()
+            torch.cuda.empty_cache()
+        # ---- (2, 2): one "2d" train step on this rank's rows
+        mesh = make_lm_mesh((2, 2), ("data", "model"), device=on)
+        tokens = data["train"]
+        step, _, _, _, meta = steps.make_train_step(
+            api, mesh, ShapeConfig("t", tokens["tokens"].shape[1],
+                                   tokens["tokens"].shape[0], "train"),
+            dtype=torch.float32, lr=TRAIN_LR)
+        specs = meta["specs"]["params"]
+        model = steps.place_model(params_structs(api, torch.float32), specs,
+                                  mesh, batch_axes=meta["batch_axes"],
+                                  state=state)
+        batch = steps.place(tokens, meta["specs"]["batch"], mesh)
+        opt = optimizer.init(model)
+        ref = torch.load(os.path.join(path, "grads.pt"), mmap=True)
+        errs, real = {}, optimizer.update
+
+        def spy(grads, st, params, **kw):
+            # the reduced gradient shards, against the parent's whole
+            # gradients cut the same way (each element checked where it
+            # is held; a copy on a replicated axis checked once)
+            for name, g in grads.items():
+                want = sh.shard_of(ref[name], specs[name], mesh).to(
+                    g.device)
+                d = (g.double() - want.double())
+                owner = all(mesh.coords[i] == 0 for i, a in
+                            enumerate(mesh.axis_names)
+                            if not any(a in sh.spec_axes(e)
+                                       for e in specs[name]))
+                errs[name] = (float(d.abs().max()),
+                              float(d.square().sum()) if owner else 0.0,
+                              float(want.double().square().sum())
+                              if owner else 0.0)
+            return real(grads, st, params, **kw)
+
+        torch.cuda.reset_peak_memory_stats()
+        optimizer.update = spy
+        try:
+            (loss, model, opt), ms = sync_ms(
+                torch, lambda: step(model, opt, batch))
+        finally:
+            optimizer.update = real
+        out["train"] = {"loss": float(loss), "ms": ms, "errs": errs,
+                        "opt_step": opt.step,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        torch.save(out, os.path.join(path, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def lm_mesh_phase(torch, args, dev="cuda") -> None:
+    """Phase 11, after training: the LM across processes
+    (``launch.steps``); ``dev="cpu"`` rehearses it (gloo for NCCL).
+
+    1. One NCCL rank on ``make_host_mesh()``, qwen2.5-3b at its published
+       configuration (float32, TF32 off, weights from ``--seed``): the
+       prefill step (last-position logits) equal to
+       ``transformer.forward``'s, the prefill step that fills a cache of
+       40 positions (8 x 32 prompt) equal to ``transformer.prefill``'s,
+       then 8 decode steps equal to ``transformer.decode_step``'s, logits
+       and cache bit for bit; one train step on 8 x 128 tokens equal to
+       ``train.loop.make_step_fn``'s, loss and every updated parameter
+       bit for bit; the step times beside the plain path's (prefill after
+       a warm-up of each, decode step by step in turns, the train steps
+       after those two, two more of each in turns).
+    2. Four gloo ranks on the one card at the full width and
+       ``LM_MESH_LAYERS`` layers, the weights mapped from one file: on
+       (1, 4) (flash decode: qwen2.5-3b's 2 KV heads do not divide 4,
+       so the cache's 40 positions are split in 4 chunks) and on (2, 2)
+       (each rank 4 rows and one KV head), the prefill step filling the
+       rank's shard of the cache from the 8 x 32 prompt, then 8
+       teacher-forced decode steps, each rank's logits within ``LM_TOL``
+       of the one-process prefill and decode the parent ran on its rows;
+       on (2, 2), ``"2d"``, one train
+       step whose loss is within 1e-4 of the one-process step's on the
+       joined batch and whose reduced gradients are, leaf by leaf, within
+       1e-4 · max|leaf| + 1e-6 of its gradients; each rank's step times
+       and peak memory, and the phase's wall time (gloo through the host
+       on one card: not a multi-GPU throughput)."""
+    import multiprocessing
+
+    import torch.distributed as dist
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data import make_token_batch
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model, loss_fn, transformer
+    from repro_torch.train import optimizer
+    from repro_torch.train.loop import TrainConfig, make_step_fn
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ARCHS[RAG_ARCH]
+    api = build_model(cfg)
+    b, p, n = TRAIN_BATCH, LM_MESH_PROMPT, LM_MESH_STEPS
+    gen = torch.Generator().manual_seed(args.seed + 9)
+    prompt = torch.randint(0, cfg.vocab, (b, p), generator=gen).to(dev)
+    decode = torch.randint(0, cfg.vocab, (n, b, 1), generator=gen).to(dev)
+    train_batch = make_token_batch(
+        torch.Generator().manual_seed(args.seed + 10), TRAIN_BATCH,
+        TRAIN_SEQ, cfg.vocab, device=dev)
+
+    # ---- one NCCL rank, the host mesh: bit for bit the plain path
+    dist.init_process_group("nccl" if dev == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh(None if dev == "cuda" else dev)
+        model = api.init(torch.Generator(device=dev).manual_seed(args.seed))
+        n_params = sum(q.numel() for q in model.parameters())
+        kw = dict(dtype=torch.float32)
+        pre, *_ = steps.make_prefill_step(
+            api, mesh, ShapeConfig("p", p, b, "prefill"), **kw)
+        fill, *_, pmeta = steps.make_prefill_step(
+            api, mesh, ShapeConfig("p", p, b, "prefill"), cache_len=p + n,
+            **kw)
+        dec, *_ = steps.make_decode_step(
+            api, mesh, ShapeConfig("d", p + n, b, "decode"), **kw)
+        def forward():
+            with torch.no_grad():
+                return transformer.forward(model, prompt, cfg,
+                                           last_only=True, remat=False)[0]
+
+        forward(), pre(model, {"tokens": prompt})          # warm up
+        want, plain_ms = sync_ms(torch, forward)
+        got, step_ms = sync_ms(torch, lambda: pre(model,
+                                                  {"tokens": prompt}))
+        if not torch.equal(got, want):
+            fail("lm mesh: the host-mesh prefill step's logits differ from "
+                 "transformer.forward's")
+        times = {"prefill": (step_ms, plain_ms)}
+        plain = transformer.init_cache(cfg, b, p + n, device=dev)
+        cache = steps.init_cache(api, b, p + n, pmeta["specs"]["cache"],
+                                 mesh)
+        (want, plain), plain_ms = sync_ms(torch, lambda: transformer.prefill(
+            model, prompt, cfg, plain))
+        (got, cache), step_ms = sync_ms(torch, lambda: fill(
+            model, {"tokens": prompt}, cache))
+        times["prefill, cache"] = (step_ms, plain_ms)
+        if not torch.equal(got, want):
+            fail("lm mesh: the cache-filling prefill step differs from "
+                 "transformer.prefill")
+        dec_ms = []
+        for tok in decode:
+            (want, plain), plain_ms = sync_ms(
+                torch, lambda: transformer.decode_step(model, tok, plain,
+                                                       cfg))
+            (got, cache), step_ms = sync_ms(torch, lambda: dec(model, tok,
+                                                               cache))
+            dec_ms.append((step_ms, plain_ms))
+            if not torch.equal(got, want):
+                fail("lm mesh: a host-mesh decode step's logits differ from "
+                     "transformer.decode_step's")
+        if not (torch.equal(cache["k"], plain["k"]) and
+                torch.equal(cache["v"], plain["v"]) and
+                cache["len"] == plain["len"] == p + n):
+            fail("lm mesh: the host-mesh decode cache differs from the "
+                 "plain path's")
+        times["decode (median of 8)"] = (
+            statistics.median(m for m, _ in dec_ms),
+            statistics.median(m for _, m in dec_ms))
+        del cache, plain, got, want
+        # the train step, then make_step_fn from the same seed's weights
+        tstep, *_ = steps.make_train_step(
+            api, mesh, ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            lr=TRAIN_LR, **kw)
+        loss, model, opt = tstep(model, optimizer.init(model), train_batch)
+        stepped = {k: q.detach().cpu() for k, q in model.named_parameters()}
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = api.init(torch.Generator(device=dev).manual_seed(args.seed))
+        plain_step = make_step_fn(api, TrainConfig(lr=TRAIN_LR))
+        want, model, opt = plain_step(model, optimizer.init(model),
+                                      train_batch)
+        if not torch.equal(loss, want):
+            fail(f"lm mesh: the host-mesh train step's loss {float(loss)} "
+                 f"is not make_step_fn's {float(want)}")
+        for k, q in model.named_parameters():
+            if not torch.equal(q.detach().cpu(), stepped[k]):
+                fail(f"lm mesh: {k} after the host-mesh train step differs "
+                     f"from make_step_fn's")
+        del stepped
+        # the times of further steps, each form warm, in turns
+        runs = {"step": [], "plain": []}
+        for _ in range(2):
+            for name, fn in (("step", tstep), ("plain", plain_step)):
+                runs[name].append(sync_ms(torch, lambda: fn(
+                    model, opt, train_batch))[1])
+        times["train (2nd and 3rd steps)"] = (
+            statistics.mean(runs["step"]), statistics.mean(runs["plain"]))
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"lm mesh, one NCCL rank, make_host_mesh(): {cfg.name} "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, {n_params:,} "
+          f"parameters, float32): the prefill step ({b} x {p}), the "
+          f"cache-filling prefill, {n} decode steps (logits and cache) and "
+          f"a train step ({TRAIN_BATCH} x {TRAIN_SEQ}: loss and every "
+          f"parameter) equal to the plain path bit for bit; ms step / plain: "
+          + ", ".join(f"{k} {s:.3f} / {q:.3f}" for k, (s, q) in
+                      times.items())
+          + f"; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # ---- four gloo ranks on the one card
+    layers = LM_MESH_LAYERS
+    cfg4 = dataclasses.replace(cfg, n_layers=layers)
+    api4 = build_model(cfg4)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_")
+    procs = []
+    try:
+        t = time.perf_counter()
+        model = api4.init(torch.Generator(device=dev).manual_seed(args.seed))
+        n4 = sum(q.numel() for q in model.parameters())
+        with torch.no_grad():
+            cache = transformer.init_cache(cfg4, b, p + n, device=dev)
+            lg, cache = transformer.prefill(model, prompt, cfg4, cache)
+            want = [lg.cpu()]
+            for tok in decode:
+                lg, cache = transformer.decode_step(model, tok, cache, cfg4)
+                want.append(lg.cpu())
+        want = torch.stack(want)            # (1 + n, b, V)
+        del cache
+        model.zero_grad(set_to_none=True)
+        ref_loss = loss_fn(api4, model, train_batch)
+        ref_loss.backward()
+        ref_loss = float(ref_loss.detach())
+        grads = {k: q.grad.cpu() for k, q in model.named_parameters()}
+        gmax = {k: float(g.abs().max()) for k, g in grads.items()}
+        torch.save(grads, os.path.join(tmp, "grads.pt"))
+        torch.save({k: q.detach().cpu() for k, q in model.named_parameters()},
+                   os.path.join(tmp, "weights.pt"))
+        torch.save({"prompt": prompt.cpu(), "decode": decode.cpu(),
+                    "train": {k: v.cpu() for k, v in train_batch.items()}},
+                   os.path.join(tmp, "inputs.pt"))
+        del model, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        save_s = time.perf_counter() - t
+        ctx = multiprocessing.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=lm_mesh_rank,
+                             args=(r, 4, port, tmp, cfg4, dev))
+                 for r in range(4)]
+        t = time.perf_counter()
+        for q in procs:
+            q.start()
+        while any(q.is_alive() for q in procs) and \
+                time.perf_counter() - t < LM_MESH_JOIN_S and \
+                all(q.exitcode in (None, 0) for q in procs):
+            time.sleep(0.2)
+        wall = time.perf_counter() - t
+        codes = [q.exitcode for q in procs]
+        if codes != [0] * 4:
+            fail(f"lm mesh: gloo ranks exited with {codes} after {wall:.0f} "
+                 f"s (None: still running, stopped)")
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                for r in range(4)]
+    finally:
+        for q in procs:
+            if q.is_alive():
+                q.kill()
+            q.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    worst = {}
+    for r, o in enumerate(outs):
+        serve = []
+        for shape, flash in (((1, 4), True), ((2, 2), False)):
+            d = o[shape]
+            lo, hi = d["rows"]
+            errs = (d["logits"] - want[:, lo:hi]).abs().amax((1, 2))
+            if d["flash_decode"] is not flash or float(errs.max()) > LM_TOL:
+                fail(f"lm mesh {shape} rank {r}: prefill logits "
+                     f"{float(errs[0]):.3g} and decode logits "
+                     f"{float(errs[1:].max()):.3g} from the one-process "
+                     f"prefill and decode (limit {LM_TOL}), flash decode "
+                     f"{d['flash_decode']}")
+            serve.append(
+                f"{shape} rows {lo}:{hi} prefill {float(errs[0]):.3g}, "
+                f"decode {float(errs[1:].max()):.3g} from one process, "
+                f"cache shard {d['cache_k']}, prefill "
+                f"{d['fill_ms']:.1f} ms, decode ms "
+                f"{[round(m, 1) for m in d['ms']]}, peak "
+                f"{d['peak_gb']:.2f} GB")
+        tr = o["train"]
+        loss_err = abs(tr["loss"] - ref_loss) / abs(ref_loss)
+        if loss_err > LOSS_RTOL or tr["opt_step"] != 1:
+            fail(f"lm mesh (2, 2) rank {r}: loss {tr['loss']} against the "
+                 f"one-process {ref_loss} (relative {loss_err:.3g})")
+        for k, (mx, _, _) in tr["errs"].items():
+            if mx > GRAD_RTOL * gmax[k] + GRAD_ATOL:
+                fail(f"lm mesh (2, 2) rank {r}: gradient {k} off by {mx:.3g}"
+                     f" (limit {GRAD_RTOL * gmax[k] + GRAD_ATOL:.3g})")
+            worst[k] = max(worst.get(k, 0.0), mx / (gmax[k] or 1.0))
+        print(f"lm mesh rank {r}: " + "; ".join(serve) +
+              f"; (2, 2) train loss {tr['loss']:.6f} (one process "
+              f"{ref_loss:.6f}, relative {loss_err:.3g}), step "
+              f"{tr['ms']:.1f} ms, peak {tr['peak_gb']:.2f} GB")
+    sq = sum(e[1] for o in outs for e in o["train"]["errs"].values())
+    ref_sq = sum(e[2] for o in outs for e in o["train"]["errs"].values())
+    print(f"lm mesh: {cfg4.name} at {layers} layers, full width "
+          f"({n4:,} parameters, float32); 4 gloo ranks on one card (each "
+          f"collective through the host; not a multi-GPU throughput): "
+          f"(2, 2) gradients' global relative distance "
+          f"{math.sqrt(sq / ref_sq):.3g}, worst leaf max|diff|/max|leaf| "
+          f"{max(worst.values()):.3g} (limit {GRAD_RTOL} + {GRAD_ATOL}); "
+          f"{wall:.1f} s wall from spawn to the last exit, reference and "
+          f"files {save_s:.1f} s; phase {time.perf_counter() - t_phase:.1f}"
+          f" s")
+
+
 BASELINE_BYTES = {"fatrq": 162, "sq4": 392, "sq3": 296, "int8": 776,
                   "rq2": 192}           # bytes per 768-d record
 RQ_LEVELS, RQ_ITERS = 2, 8
@@ -4178,6 +4588,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_phase(torch, args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_mesh_phase(torch, args)
     gc.collect()
     torch.cuda.empty_cache()
     examples_phase(torch)

@@ -36,9 +36,8 @@ from repro_torch.device import resolve_device
 from repro_torch.index.graph import GraphIndex, draw_start
 from repro_torch.index.ivf import IVFIndex
 from repro_torch.memory.placement import TieredConfig
-from repro_torch.models.ssm_lm import XLSTM, Zamba
+from repro_torch.models.model_zoo import model_class
 from repro_torch.models.transformer import Transformer
-from repro_torch.models.whisper import Whisper
 from repro_torch.quant.pq import PQCodebook
 from repro_torch.train.optimizer import AdamWState
 
@@ -168,13 +167,10 @@ def params_from_numpy(cfg, tree: dict, *, device=None,
     shape mismatch, a leaf without a parameter and a parameter without a
     leaf raise."""
     dev = resolve_device(device)
-    if cfg.enc_dec or cfg.family in ("ssm", "hybrid"):
-        cls = Whisper if cfg.enc_dec else \
-            XLSTM if cfg.family == "ssm" else Zamba
-        model = cls(cfg, device=dev, dtype=dtype)
+    model = model_class(cfg)(cfg, device=dev, dtype=dtype)
+    if not isinstance(model, Transformer):
         _family_from_numpy(model, tree)
         return model
-    model = Transformer(cfg, device=dev, dtype=dtype)
     _put(model.embed, tree["embed"])
     _put(model.final_norm, tree["final_norm"])
     if model.lm_head is not None:

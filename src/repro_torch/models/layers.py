@@ -22,6 +22,85 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
+# ------------------------------------------------- activation sharding
+
+# Set by ``launch.steps`` while a step on a mesh runs; empty (the default)
+# → the hooks below change nothing, so one-process code is unaffected.
+# The reference pins activations' batch to the data axes with sharding
+# constraints.  Here every tensor is this rank's local tensor, whose batch
+# rows already are this rank's, so the constraints hold by construction;
+# what the state still decides is the decode attention over a sharded
+# cache (``gqa_attention``, ``cache_offsets``).
+_BATCH_AXES: tuple[str, ...] = ()
+_DP_SIZE: int = 1
+_MODEL_SIZE: int = 1
+_SEQ_PARALLEL: bool = False
+_MESH = None
+_FLASH_DECODE: bool = False
+
+
+def set_mesh_axes(batch_axes: tuple[str, ...], dp_size: int,
+                  model_size: int, *, seq_parallel: bool = False,
+                  mesh=None, flash_decode: bool = False) -> None:
+    """The reference's signature; ``mesh`` is a ``launch.mesh.LMMesh``."""
+    global _BATCH_AXES, _DP_SIZE, _MODEL_SIZE, _SEQ_PARALLEL, _MESH, \
+        _FLASH_DECODE
+    _BATCH_AXES = tuple(batch_axes)
+    _DP_SIZE = dp_size
+    _MODEL_SIZE = model_size
+    _SEQ_PARALLEL = seq_parallel
+    _MESH = mesh
+    _FLASH_DECODE = flash_decode
+
+
+def clear_mesh_axes() -> None:
+    set_mesh_axes((), 1, 1)
+
+
+def mesh_axes() -> tuple:
+    """The state ``set_mesh_axes`` set, as its arguments (to restore it)."""
+    return ((_BATCH_AXES, _DP_SIZE, _MODEL_SIZE),
+            dict(seq_parallel=_SEQ_PARALLEL, mesh=_MESH,
+                 flash_decode=_FLASH_DECODE))
+
+
+def constrain_batch(x: torch.Tensor) -> torch.Tensor:
+    """The reference pins dim 0 (batch) to the data axes, and in
+    seq-parallel mode dim 1 to ``model``.  A sharding constraint changes
+    no value, and a local tensor's rows already are this rank's batch
+    rows: this returns ``x`` after checking that it has a batch dim."""
+    if _BATCH_AXES and x.dim() < 1:
+        raise ValueError("constrain_batch needs a tensor with a batch dim")
+    return x
+
+
+def constrain_batch_vocab(x: torch.Tensor) -> torch.Tensor:
+    """(B, ..., V) logits: batch→data, vocab→model in the reference.  The
+    logits here are this rank's rows with the whole vocabulary (the
+    ``model`` axis shards storage, not this product): ``x`` after
+    checking that it has a batch and a vocabulary dim."""
+    if _BATCH_AXES and x.dim() < 2:
+        raise ValueError("constrain_batch_vocab needs (B, ..., V) logits")
+    return x
+
+
+def cache_offsets(cfg, kv_local: int, s_local: int) -> tuple[int, int, int]:
+    """Where this rank's shard of a KV cache of ``kv_local`` heads and
+    ``s_local`` positions lies in the whole cache: (the global position
+    of its slot 0, the first KV head it holds, the whole cache's
+    positions).  A cache split over ``model`` holds this rank's KV heads
+    where it has fewer than ``cfg.n_kv_heads``, else (flash decode on) its
+    chunk of the sequence."""
+    if _MESH is None or _MODEL_SIZE == 1:
+        return 0, 0, s_local
+    m = _MESH.index("model")
+    if kv_local < cfg.n_kv_heads:
+        return 0, m * kv_local, s_local
+    if _FLASH_DECODE and cfg.n_kv_heads % _MODEL_SIZE:
+        return m * s_local, 0, s_local * _MODEL_SIZE
+    return 0, 0, s_local
+
+
 # ------------------------------------------------------------------ remat
 
 
@@ -216,7 +295,9 @@ def gqa_attention(x: torch.Tensor, attn: Attention, cfg, *, sin, cos,
                   kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
                   q_block: int = 0) -> torch.Tensor:
     """GQA attention over x (B, S, D).  kv_override: precomputed (k, v),
-    the KV cache in decode."""
+    the KV cache in decode, or this rank's shard of it on a mesh: its
+    chunk of the sequence (flash decode, one query position) or its KV
+    heads (fewer than ``cfg.n_kv_heads``), as ``set_mesh_axes`` set."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
     q = _heads(attn.wq(x), h, hd)
@@ -230,10 +311,29 @@ def gqa_attention(x: torch.Tensor, attn: Attention, cfg, *, sin, cos,
             # rope for the last s positions only
             q_sin, q_cos = sin[..., -s:, :], cos[..., -s:, :]
         q = apply_rope(q, q_sin, q_cos)
-    k = repeat_kv(k, h // k.shape[2])
-    v = repeat_kv(v, h // v.shape[2])
+    # Flash-decoding: one-token decode against a SEQUENCE-sharded cache
+    # (KV heads don't divide the model axis): partial softmax per chunk,
+    # combined over the axis (see flash_decode.py)
+    if (_FLASH_DECODE and _MESH is not None and kv_override is not None
+            and s == 1 and cfg.n_kv_heads % _MODEL_SIZE != 0):
+        from repro_torch.models.flash_decode import flash_decode
+        out = flash_decode(q, k, v, offset, mesh=_MESH,
+                           dp_axes=_BATCH_AXES, n_rep=h // k.shape[2],
+                           window=window)
+        return attn.wo(out.reshape(b, s, h * hd))
+    n_rep = h // cfg.n_kv_heads
+    heads = k.shape[2] < cfg.n_kv_heads and kv_override is not None
+    if heads:
+        # the cache holds this rank's KV heads: attend with their query
+        # heads, then gather every rank's head outputs in rank order
+        h0 = _MESH.index("model") * k.shape[2] * n_rep
+        q = q[:, :, h0:h0 + k.shape[2] * n_rep]
+    k = repeat_kv(k, n_rep)
+    v = repeat_kv(v, n_rep)
     out = attention(q, k, v, causal=causal, window=window, offset=offset,
                     kv_len_valid=kv_len_valid, q_block=q_block)
+    if heads:
+        out = _MESH.all_gather(out, 2, "model")
     return attn.wo(out.reshape(b, s, h * hd))
 
 

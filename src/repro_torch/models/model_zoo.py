@@ -42,6 +42,18 @@ class ModelApi:
     prefill: Callable | None = None   # (model, batch, cache) → cache
 
 
+def model_class(cfg: ArchConfig) -> type:
+    """The ``nn.Module`` class of ``cfg``'s family, dispatched as
+    ``build_model`` dispatches."""
+    if cfg.enc_dec:
+        return whisper.Whisper
+    if cfg.family == "ssm":
+        return ssm_lm.XLSTM
+    if cfg.family == "hybrid":
+        return ssm_lm.Zamba
+    return transformer.Transformer
+
+
 def build_model(cfg: ArchConfig) -> ModelApi:
     """The API of ``cfg``'s family, dispatched as the reference does:
     encoder-decoder → whisper, ``ssm`` → xlstm, ``hybrid`` → zamba2, every

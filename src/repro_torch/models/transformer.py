@@ -11,6 +11,9 @@ The KV cache is a dict ``{"k", "v": (L, B, max_len, KV, hd), "len": int}``
 whose length is a host ``int``: ``decode_step`` reads no device value, so
 one step issues no host synchronize.  ``prefill`` and ``decode_step``
 write the cache's tensors in place and return a dict with the new length.
+On a mesh (``launch.steps``) the cache is this rank's shard, its chunk of
+the sequence or its KV heads (``layers.cache_offsets``), and they write
+only the positions and heads it holds.
 """
 
 from __future__ import annotations
@@ -193,9 +196,13 @@ def prefill(model: Transformer, tokens, cfg, cache: dict, *, embeds=None,
     x = _inputs(model, tokens, embeds)
     b, s = x.shape[0], x.shape[1]
     ck, cv = cache["k"], cache["v"]
-    if s > ck.shape[2]:
+    seq0, head0, max_len = L.cache_offsets(cfg, ck.shape[3], ck.shape[2])
+    if s > max_len:
         raise ValueError(f"a prompt of {s} tokens does not fit a cache of "
-                         f"{ck.shape[2]}")
+                         f"{max_len}")
+    # this rank's slots of the prompt (all of them off a mesh)
+    lo, hi = min(max(s - seq0, 0), ck.shape[2]), min(s, seq0 + ck.shape[2])
+    heads = slice(head0, head0 + ck.shape[3])
     sin, cos = _angles(cfg, None, b, s, x.device)
     for i, blk in enumerate(model.blocks):
         xn = L.rms_norm(x, blk.ln1, cfg.norm_eps)
@@ -205,10 +212,10 @@ def prefill(model: Transformer, tokens, cfg, cache: dict, *, embeds=None,
                             kv_override=(k, v), q_block=q_block)
         x = x + h
         x = x + blk.ffn_out(L.rms_norm(x, blk.ln2, cfg.norm_eps), cfg)[0]
-        ck[i, :, :s] = k
-        cv[i, :, :s] = v
-    ck[:, :, s:] = 0
-    cv[:, :, s:] = 0
+        ck[i, :, :lo] = k[:, seq0:hi, heads]
+        cv[i, :, :lo] = v[:, seq0:hi, heads]
+    ck[:, :, lo:] = 0
+    cv[:, :, lo:] = 0
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     cache["len"] = s
     return model.logits(x[:, -1]), cache
@@ -225,8 +232,12 @@ def decode_step(model: Transformer, tokens, cache: dict, cfg
     b = x.shape[0]
     ck, cv = cache["k"], cache["v"]
     pos = cache["len"]
-    if pos >= ck.shape[2]:
-        raise ValueError(f"the cache of {ck.shape[2]} positions is full")
+    seq0, head0, max_len = L.cache_offsets(cfg, ck.shape[3], ck.shape[2])
+    if pos >= max_len:
+        raise ValueError(f"the cache of {max_len} positions is full")
+    # this rank's slot and KV heads of the new position, if it holds it
+    slot = pos - seq0 if 0 <= pos - seq0 < ck.shape[2] else None
+    heads = slice(head0, head0 + ck.shape[3])
     here = torch.arange(pos, pos + 1, device=x.device)
     if cfg.rope_style == "mrope":
         sin, cos = L.mrope_angles(here.expand(b, 3, 1), cfg.hd,
@@ -236,8 +247,9 @@ def decode_step(model: Transformer, tokens, cache: dict, cfg
     for i, blk in enumerate(model.blocks):
         xn = L.rms_norm(x, blk.ln1, cfg.norm_eps)
         k_new, v_new = L.project_kv(xn, blk.attn, cfg, sin, cos)
-        ck[i, :, pos:pos + 1] = k_new
-        cv[i, :, pos:pos + 1] = v_new
+        if slot is not None:
+            ck[i, :, slot:slot + 1] = k_new[:, :, heads]
+            cv[i, :, slot:slot + 1] = v_new[:, :, heads]
         h = L.gqa_attention(xn, blk.attn, cfg, sin=sin, cos=cos,
                             causal=True, window=blk.window, offset=pos,
                             kv_len_valid=pos + 1,

@@ -150,6 +150,7 @@ def test_every_rank_gives_the_stacked_answer(setup, ranks, world):
                 assert torch.equal(got["sub"], sub)
             else:
                 assert "hold a shard" in got["sub"]
+            assert got["sub_groups"] == 1 and got["sub_same"]
 
 
 # ----------------------------------------------------- one process
@@ -238,9 +239,9 @@ def test_executor_cache_keeps_placements_apart(setup):
     assert on_mesh.sharded is not stacked.sharded
     assert on_mesh.sharded.mesh is mesh and stacked.sharded.mesh is None
     assert make_sharded_executor(pidx, shards=1, mesh=mesh) is on_mesh
-    other = make_search_mesh(device="cpu")
-    assert make_sharded_executor(pidx, shards=1, mesh=other).sharded \
-        is not on_mesh.sharded
+    other = make_search_mesh(device="cpu")        # equal meshes are one
+    assert other is mesh
+    assert make_sharded_executor(pidx, shards=1, mesh=other) is on_mesh
     # another backend shares the placement, never the stacked partition
     cu = make_sharded_executor(pidx, shards=1, backend="cuda", mesh=mesh)
     assert cu.sharded is on_mesh.sharded
@@ -248,3 +249,26 @@ def test_executor_cache_keeps_placements_apart(setup):
     plan = QueryPlan(shards=1)
     assert db.executor_for(plan, mesh=mesh) is not db.executor_for(plan)
     assert db.compiled(plan, mesh=mesh)._ex.sharded.mesh is mesh
+
+
+def test_equal_search_meshes_share_one_placement_and_plan(setup):
+    """A second ``make_search_mesh()``, and a second query on a fresh
+    one, hit both caches: one compiled plan, one placement (the JAX
+    package's ``jax.make_mesh`` returns one ``Mesh`` for equal
+    arguments), with the same answer."""
+    pidx, q, _, _ = setup
+    mesh = make_search_mesh(device="cpu")
+    assert make_search_mesh(device="cpu") is mesh
+    assert make_search_mesh(1, device="cpu") is mesh
+    placed = pidx.__dict__.setdefault("_placed_cache", {})
+    before = set(placed)
+    db = Database.wrap(pidx)
+    plan = QueryPlan(shards=1, backend="cuda")
+    one = db.query(q, plan=plan, mesh=make_search_mesh(device="cpu"))
+    two = db.query(q, plan=plan, mesh=make_search_mesh(device="cpu"))
+    assert torch.equal(one.ids, two.ids)
+    assert [k[2] for k in db._compiled
+            if k[1] == one.plan and k[2] is not None] == [mesh]
+    assert len(set(placed) - before) <= 1
+    assert {k for k in placed if k[0] == 1 and k[1] == "ivf"} == \
+        {(1, "ivf", mesh)}

@@ -78,15 +78,28 @@ def rank_main(rank: int, world: int, port: int, path: str,
         mesh = make_search_mesh(device="cpu")
         out = answers(index, q, world, mesh)
         if world == 4:
-            # a mesh over the first two ranks; the other two hold no shard
+            # a mesh over the first two ranks; the other two hold no shard.
+            # Asked for twice, it is made once: one subgroup, one mesh
+            groups, new_group = [], dist.new_group
+            dist.new_group = lambda *a, **kw: groups.append(
+                new_group(*a, **kw)) or groups[-1]
             try:
-                sub = make_search_mesh(2, device="cpu")
-            except ValueError as e:
-                out["sub"] = str(e)
+                meshes = []
+                for _ in range(2):
+                    try:
+                        meshes.append(make_search_mesh(2, device="cpu"))
+                    except ValueError as e:
+                        meshes.append(str(e))
+            finally:
+                dist.new_group = new_group
+            out["sub_groups"] = len(groups)
+            out["sub_same"] = meshes[0] is meshes[1] or meshes[0] == meshes[1]
+            if isinstance(meshes[0], str):
+                out["sub"] = meshes[0]
             else:
                 out["sub"] = Database.wrap(index).query(
                     q, plan=QueryPlan(shards=2, backend="reference"),
-                    mesh=sub).ids
+                    mesh=meshes[0]).ids
         # untraced, the mesh path reads no clock and synchronizes nothing
         trace.time = executor._sync = torch.cuda.synchronize = Boom()
         out["untraced"] = [Database.wrap(index).query(
