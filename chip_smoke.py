@@ -244,6 +244,15 @@ Phases, each of which raises on failure:
    decode) within 2e-3 of the one-process decode, a ``"2d"`` train step
    on (2, 2) whose loss (1e-4) and gradients (1e-4 · max|leaf| + 1e-6)
    are the one-process step's, each rank's step times and peak memory;
+   then the dry run and the roofline (``dryrun_phase``): qwen2.5-3b at
+   its published configuration in bfloat16 on ``make_host_mesh()``, its
+   train (8 x 128), prefill (8 x 1024) and decode (batch 8, a 4096-position
+   cache) steps each counted on the card and on the meta device by
+   ``launch.roofline``'s counters: FLOPs equal, bytes within 1%, the
+   meta live high-water mark within 0.5x-2x of the card's peak above
+   what was allocated before, the median of 5 step times beside the
+   modelled ``step_time_s``; then four production cells run on meta by
+   ``launch.dryrun.run_cell`` with their expected statuses;
    then the four examples (``examples/*_torch.py``) at their defaults,
    each timed: FaTRQ's recall@10 within 0.1 of the baseline's with fewer
    SSD fetches, a modelled saving after ``rebalance_tiers()``, the RAG
@@ -3606,6 +3615,157 @@ def lm_mesh_phase(torch, args, dev="cuda") -> None:
           f" s")
 
 
+# ----------------------------------------------- the dry run and roofline
+
+DRYRUN_STEPS = (("train", 128, 8), ("prefill", 1024, 8), ("decode", 4096, 8))
+DRYRUN_BYTES_RTOL = 0.01        # bytes counted on the card against on meta
+DRYRUN_PEAK_BAND = (0.95, 1.05)  # meta live peak / the allocator's
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "single", "ok"),
+                ("qwen2.5-3b", "decode_32k", "single", "ok"),
+                ("qwen2-72b", "prefill_32k", "multipod", "ok"),
+                ("whisper-medium", "decode_32k", "single", "not_ported"))
+
+
+def dryrun_phase(torch, args, dev="cuda") -> None:
+    """Phase 11, after the LM mesh phase: the dry run's counters
+    (``launch.roofline``, ``launch.dryrun``) held to the card
+    (``dev="cpu"`` rehearses it).
+
+    (a) qwen2.5-3b at its published configuration, bfloat16, weights from
+        ``--seed``, on ``make_host_mesh()``: for each of ``DRYRUN_STEPS``
+        (train 8 x 128, prefill 8 x 1024, decode at batch 8 against a
+        4096-position cache), a fresh model placed by
+        ``dryrun.place_inputs``, one warm-up step, one step counted on the
+        card by ``dryrun.count_step`` (peak memory reset before it), the
+        same step counted on the meta device over a (1, 1) recording mesh,
+        and 5 timed steps (CUDA events, median).  FLOPs must be equal and
+        bytes within 1%, else the ops whose counts differ are printed; the
+        meta live high-water mark must lie within 0.95x-1.05x of
+        ``max_memory_allocated()`` minus what was allocated before the
+        step.  The measured ms is printed beside the modelled
+        ``step_time_s`` (H100 SXM5 data-sheet constants) with the achieved
+        share model_flops / (ms x peak): no gate on these.
+    (b) ``DRYRUN_CELLS`` through ``dryrun.run_cell`` on meta (production
+        meshes, published widths): each status must be the expected one.
+    """
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.launch import dryrun, roofline, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    t_phase = time.perf_counter()
+    cfg = ARCHS[RAG_ARCH]
+    api = build_model(cfg)
+    dtype = torch.bfloat16
+    mesh = make_host_mesh(None if dev == "cuda" else dev)
+    gen = torch.Generator().manual_seed(args.seed + 11)
+    lines = []
+    for kind, seq, batch in DRYRUN_STEPS:
+        shape = ShapeConfig(kind, seq, batch, kind)
+        fn, structs, _, _, meta = steps.make_step(cfg, mesh, shape,
+                                                  dtype=dtype)
+        model = api.init(torch.Generator(device=dev).manual_seed(args.seed),
+                         dtype)
+        token_s = {"train": structs[-1], "prefill": structs[1],
+                   "decode": {"t": structs[1]}}[kind]
+        tokens = {k: torch.randint(0, cfg.vocab, v.shape, generator=gen,
+                                   dtype=v.dtype).to(dev)
+                  for k, v in token_s.items()}
+        if kind == "train":
+            inputs = (model, None, tokens)
+        elif kind == "prefill":
+            inputs = (model, tokens)
+        else:
+            cache = api.init_cache(model, batch, seq, dtype)
+            cache["len"] = seq - 8          # 7 steps: warm-up, count, 5
+            inputs = (model, tokens["t"], cache)
+        model, run_args, arg_bytes = dryrun.place_inputs(inputs, meta, mesh)
+        fn(model, *run_args)                                # warm-up
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        card = dryrun.count_step(fn, meta, model, *run_args)
+        torch.cuda.synchronize()
+        used = torch.cuda.max_memory_allocated() - before
+        # the same step on meta, its cache at the counted step's length
+        mmesh = roofline.RecordingMesh(("data", "model"), (1, 1))
+        mfn, mstructs, _, _, mmeta = steps.make_step(cfg, mmesh, shape,
+                                                     dtype=dtype)
+        mmodel, margs, marg_bytes = dryrun.place_inputs(mstructs, mmeta,
+                                                        mmesh)
+        if kind == "decode":
+            margs[1]["len"] = seq - 7
+        on_meta = dryrun.count_step(mfn, mmeta, mmodel, *margs, mesh=mmesh)
+        times = []
+        for _ in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            fn(model, *run_args)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = statistics.median(times)
+        report = roofline.analyze(on_meta, arch=cfg.name, shape=shape,
+                                  mesh_name="host", chips=1, cfg=cfg,
+                                  argument_bytes=marg_bytes, dtype=dtype)
+        diff = {op: (card.ops.get(op), on_meta.ops.get(op))
+                for op in set(card.ops) | set(on_meta.ops)
+                if card.ops.get(op) != on_meta.ops.get(op)}
+        rel = abs(card.bytes - on_meta.bytes) / on_meta.bytes
+        ratio = on_meta.live_peak / used if used else math.inf
+        share = report.model_flops / (ms / 1e3 * report.peak_flops)
+        lines.append(
+            f"dry run {kind} ({batch} x {seq}): FLOPs card {card.flops:,} / "
+            f"meta {on_meta.flops:,}; bytes card {card.bytes:,} / meta "
+            f"{on_meta.bytes:,} (relative {rel:.3g}); argument bytes card "
+            f"{arg_bytes:,} / meta {marg_bytes:,}; live peak meta "
+            f"{on_meta.live_peak / 1e9:.3f} GB, card counter "
+            f"{card.live_peak / 1e9:.3f} GB, card allocator "
+            f"{used / 1e9:.3f} GB (ratio {ratio:.3f}); step "
+            f"{ms:.3f} ms (median of 5: "
+            f"{[round(t, 3) for t in times]}) against the modelled "
+            f"step_time_s {report.step_time_s * 1e3:.3f} ms (compute "
+            f"{report.compute_s * 1e3:.3f}, memory "
+            f"{report.memory_s * 1e3:.3f}, modelled from H100 SXM5 "
+            f"data-sheet constants), achieved share {share:.4f} of the "
+            f"bf16 peak")
+        print(lines[-1])
+        if card.flops != on_meta.flops or rel > DRYRUN_BYTES_RTOL:
+            for op, (c, m) in sorted(diff.items()):
+                print(f"  {op}: card [calls, bytes, flops] {c}, meta {m}")
+            fail(f"dry run {kind}: the counts on the card differ from those "
+                 f"on meta (FLOPs {card.flops} / {on_meta.flops}, bytes "
+                 f"relative {rel:.3g}, limit {DRYRUN_BYTES_RTOL})")
+        lo, hi = DRYRUN_PEAK_BAND
+        if not lo <= ratio <= hi:
+            fail(f"dry run {kind}: the meta live peak "
+                 f"{on_meta.live_peak:,} B is {ratio:.3f}x the card's "
+                 f"{used:,} B (band {lo}-{hi})")
+        del model, run_args, inputs, mmodel, margs, fn, mfn
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_cells = time.perf_counter()
+    for arch, shape_name, mesh_name, want in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape_name, mesh_name, save=False)
+        if rec["status"] != want:
+            fail(f"dry run {arch} x {shape_name} x {mesh_name}: status "
+                 f"{rec['status']}, expected {want}: "
+                 f"{rec.get('error', rec.get('reason', ''))[:300]}")
+        if want == "ok":
+            print(f"dry run cell {arch} x {shape_name} x {mesh_name} "
+                  f"(modelled from H100 SXM5 data-sheet constants): "
+                  f"{rec['bottleneck']}-bound, step_time_s "
+                  f"{rec['step_time_s']:.6g}, mfu {rec['mfu']:.4g}, "
+                  f"useful_flops_ratio {rec['useful_flops_ratio']:.4g}, "
+                  f"peak {rec['peak_memory_bytes'] / 1e9:.2f} GB a device, "
+                  f"collectives {rec['coll_detail']}, {rec['run_s']} s")
+        else:
+            print(f"dry run cell {arch} x {shape_name} x {mesh_name}: "
+                  f"{rec['status']} ({rec['reason'][:120]})")
+    print(f"dry run phase: {time.perf_counter() - t_phase:.1f} s (the four "
+          f"meta cells {time.perf_counter() - t_cells:.1f} s)")
+
+
 BASELINE_BYTES = {"fatrq": 162, "sq4": 392, "sq3": 296, "int8": 776,
                   "rq2": 192}           # bytes per 768-d record
 RQ_LEVELS, RQ_ITERS = 2, 8
@@ -4591,6 +4751,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_mesh_phase(torch, args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_phase(torch, args)
     gc.collect()
     torch.cuda.empty_cache()
     examples_phase(torch)

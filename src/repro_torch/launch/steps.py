@@ -43,7 +43,6 @@ whole batch in the reference.  On a mesh of one process
 from __future__ import annotations
 
 import contextlib
-import itertools
 import math
 
 import torch
@@ -142,24 +141,26 @@ class _Units:
 
 def _assemble(pieces, spec, full_shape, shard_shape, mesh, axes):
     """The whole tensor from the shards of every rank on ``axes``
-    (``pieces[j]`` from the rank at row-major index j over them)."""
-    full = pieces.new_empty(full_shape)
+    (``pieces[j]`` from the rank at row-major index j over them): the
+    block of each rank at coordinate 0 on the axes ``spec`` does not name
+    (the others hold copies of it), its axes moved beside the dimension
+    they split, in one copy."""
     mine = {a for e in spec for a in sh.spec_axes(e)}
-    sizes = [mesh.axis_size(a) for a in axes]
-    for j, coords in enumerate(itertools.product(*map(range, sizes))):
-        at = dict(zip(axes, coords))
-        if any(at[a] for a in axes if a not in mine):
-            continue                     # a copy of a block already put
-        view = full
-        for d, entry in enumerate(spec):
-            ax = mesh.axes(sh.spec_axes(entry))
-            if mesh.axis_size(ax) == 1:
-                continue
-            idx = 0
-            for a in ax:
-                idx = idx * mesh.axis_size(a) + at.get(a, 0)
-            view = view.narrow(d, idx * shard_shape[d], shard_shape[d])
-        view.copy_(pieces[j].view(shard_shape))
+    x = pieces.view(*(mesh.axis_size(a) for a in axes), *shard_shape)
+    for i in reversed(range(len(axes))):
+        if axes[i] not in mine:
+            x = x.select(i, 0)
+    kept = [a for a in axes if a in mine]
+    order, split = [], []
+    for d, entry in enumerate(spec):
+        for a in mesh.axes(sh.spec_axes(entry)):
+            if a in kept:
+                order.append(kept.index(a))
+                split.append(mesh.axis_size(a))
+        order.append(len(kept) + d)
+        split.append(shard_shape[d])
+    full = pieces.new_empty(full_shape)
+    full.view(split).copy_(x.permute(order))
     return full
 
 
@@ -340,6 +341,11 @@ def make_train_step(api: ModelApi, mesh, shape: ShapeConfig, *,
     > 1 the rows go in that many micro-batches whose gradients are summed
     and divided by ``num_micro``, the loss their mean.
 
+    ``step_fn.micro_step(model, part)`` and ``step_fn.finish(model, opt,
+    losses)`` are its two parts (``launch.dryrun`` counts one micro-batch
+    and the update apart): ``step_fn`` zeroes the gradients, runs
+    ``micro_step`` on each micro-batch, then ``finish``.
+
     sharding_mode="fsdp": pure FSDP over all axes, the batch split over
     all of them.  The activations here are whole (no sequence
     parallelism), so ``num_micro`` (when not given) is chosen for whole
@@ -361,25 +367,25 @@ def make_train_step(api: ModelApi, mesh, shape: ShapeConfig, *,
     b_spec = sh.batch_specs(mesh, batch_s, mode=sharding_mode)
     n_dp = mesh.axis_size(batch_axes)
 
-    def train_step(model, opt, batch):
+    def clear(model):
         units = _units(model, mesh, p_spec, batch_axes)
-        clear = units.clear if units is not None else (lambda: None)
+        if units is not None:
+            units.clear()
+
+    def micro_step(model, part):
+        """One micro-batch's forward and backward, its gradients added to
+        the parameters' ``.grad``; → its loss, detached."""
         with _active(mesh, batch_axes):
-            model.zero_grad(set_to_none=True)
-            rows = next(iter(batch.values())).shape[0]
-            if rows % num_micro:
-                raise ValueError(f"{rows} rows do not split into "
-                                 f"{num_micro} micro-batches")
-            losses = []
-            for i in range(num_micro):
-                part = {k: v[i * rows // num_micro:(i + 1) * rows //
-                             num_micro] for k, v in batch.items()} \
-                    if num_micro > 1 else batch
-                clear()
-                loss = loss_fn(api, model, part)
-                clear()
-                loss.backward()
-                losses.append(loss.detach())
+            clear(model)
+            loss = loss_fn(api, model, part)
+            clear(model)
+            loss.backward()
+        return loss.detach()
+
+    def finish(model, opt, losses):
+        """The update from the gradients ``num_micro`` micro-batches
+        summed, whose losses are ``losses``; → (loss, model, opt)."""
+        with _active(mesh, batch_axes):
             params = dict(model.named_parameters())
             if num_micro > 1:
                 for p in params.values():
@@ -393,8 +399,24 @@ def make_train_step(api: ModelApi, mesh, shape: ShapeConfig, *,
             _, opt = optimizer.update(_grads(params), opt, params, lr=lr,
                                       mesh=mesh, specs=p_spec)
             model.zero_grad(set_to_none=True)
-            clear()
+            clear(model)
         return loss, model, opt
+
+    def train_step(model, opt, batch):
+        clear(model)
+        model.zero_grad(set_to_none=True)
+        rows = next(iter(batch.values())).shape[0]
+        if rows % num_micro:
+            raise ValueError(f"{rows} rows do not split into "
+                             f"{num_micro} micro-batches")
+        losses = []
+        for i in range(num_micro):
+            part = {k: v[i * rows // num_micro:(i + 1) * rows // num_micro]
+                    for k, v in batch.items()} if num_micro > 1 else batch
+            losses.append(micro_step(model, part))
+        return finish(model, opt, losses)
+
+    train_step.micro_step, train_step.finish = micro_step, finish
 
     p_pl = sh.named(mesh, p_spec)
     in_pl = (p_pl, optimizer.AdamWState(step=None, mu=p_pl, nu=p_pl),
