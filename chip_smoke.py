@@ -237,13 +237,20 @@ Phases, each of which raises on failure:
    step-2 checkpoint equal to the uninterrupted run within 1e-6, and
    ``restore`` putting every leaf on the card;
    then the LM across processes (``lm_mesh_phase``): on a one-rank NCCL
-   group, ``make_host_mesh()``'s prefill, cache-filling prefill, 8
+   group, ``make_host_mesh()``'s prefill, cache-filling prefill, 4
    decode and one train step of the full qwen2.5-3b bit-equal to the
    plain path (times beside it); then 4 gloo ranks on the card at full
    width and 4 layers: teacher-forced decode on the (1, 4) mesh (flash
    decode) within 2e-3 of the one-process decode, a ``"2d"`` train step
    on (2, 2) whose loss (1e-4) and gradients (1e-4 · max|leaf| + 1e-6)
    are the one-process step's, each rank's step times and peak memory;
+   then (``lm_mesh_gaps``) 4 more gloo ranks at published widths and cut
+   depth: zamba2, xlstm and whisper decode on (1, 4) and (2, 2) (caches
+   and states split over ``model``), zamba2 at batch 1 over a
+   32,768-position cache split over data on (4, 1), phi3.5-moe's
+   prefill and decode (router groups spanning ranks) on (4, 1) and
+   (2, 2), each within 2e-3 of one process with its cache shards, and
+   its bfloat16 train step on both against the one-process step;
    then the dry run and the roofline (``dryrun_phase``): qwen2.5-3b at
    its published configuration in bfloat16 on ``make_host_mesh()``, its
    train (8 x 128), prefill (8 x 1024) and decode (batch 8, a 4096-position
@@ -3216,7 +3223,7 @@ def train_phase(torch, args, dev="cuda") -> None:
 # ------------------------------------------------------ the LM mesh phase
 
 LM_MESH_LAYERS = 4              # depth of the 4-rank cells (full width)
-LM_MESH_PROMPT, LM_MESH_STEPS = 32, 8       # 8 x 32 prompt, 8 decode steps
+LM_MESH_PROMPT, LM_MESH_STEPS = 32, 4       # 8 x 32 prompt, 4 decode steps
 LM_MESH_JOIN_S = 420            # a gloo rank that takes longer is hung
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6           # tests/test_torch_train_grads.py's
 LOSS_RTOL = 1e-4                            # tests/test_torch_train.py's
@@ -3238,7 +3245,7 @@ def lm_mesh_rank(rank: int, world: int, port: int, path: str, cfg,
     from ``path/weights.pt``: on the (1, 4) mesh (sequence-sharded cache,
     flash decode) and on the (2, 2) mesh (batch and KV heads split), the
     prefill step that fills this rank's shard of a cache from the 8 x 32
-    prompt, then 8 teacher-forced decode steps; on the (2, 2) mesh, one
+    prompt, then 4 teacher-forced decode steps; on the (2, 2) mesh, one
     ``"2d"`` train step on this rank's rows, with the gradients it hands
     the optimizer compared on its shards with the parent's one-process
     gradients.  Its logits, errors, step times and peak memory to
@@ -3359,8 +3366,8 @@ def lm_mesh_phase(torch, args, dev="cuda") -> None:
        configuration (float32, TF32 off, weights from ``--seed``): the
        prefill step (last-position logits) equal to
        ``transformer.forward``'s, the prefill step that fills a cache of
-       40 positions (8 x 32 prompt) equal to ``transformer.prefill``'s,
-       then 8 decode steps equal to ``transformer.decode_step``'s, logits
+       36 positions (8 x 32 prompt) equal to ``transformer.prefill``'s,
+       then 4 decode steps equal to ``transformer.decode_step``'s, logits
        and cache bit for bit; one train step on 8 x 128 tokens equal to
        ``train.loop.make_step_fn``'s, loss and every updated parameter
        bit for bit; the step times beside the plain path's (prefill after
@@ -3369,9 +3376,9 @@ def lm_mesh_phase(torch, args, dev="cuda") -> None:
     2. Four gloo ranks on the one card at the full width and
        ``LM_MESH_LAYERS`` layers, the weights mapped from one file: on
        (1, 4) (flash decode: qwen2.5-3b's 2 KV heads do not divide 4,
-       so the cache's 40 positions are split in 4 chunks) and on (2, 2)
+       so the cache's 36 positions are split in 4 chunks) and on (2, 2)
        (each rank 4 rows and one KV head), the prefill step filling the
-       rank's shard of the cache from the 8 x 32 prompt, then 8
+       rank's shard of the cache from the 8 x 32 prompt, then 4
        teacher-forced decode steps, each rank's logits within ``LM_TOL``
        of the one-process prefill and decode the parent ran on its rows;
        on (2, 2), ``"2d"``, one train
@@ -3379,7 +3386,9 @@ def lm_mesh_phase(torch, args, dev="cuda") -> None:
        joined batch and whose reduced gradients are, leaf by leaf, within
        1e-4 · max|leaf| + 1e-6 of its gradients; each rank's step times
        and peak memory, and the phase's wall time (gloo through the host
-       on one card: not a multi-GPU throughput)."""
+       on one card: not a multi-GPU throughput).
+    3. ``lm_mesh_gaps``: the families' model-axis decode, a sequence
+       split over data and the MoE's routing across ranks."""
     import multiprocessing
 
     import torch.distributed as dist
@@ -3459,7 +3468,7 @@ def lm_mesh_phase(torch, args, dev="cuda") -> None:
                 cache["len"] == plain["len"] == p + n):
             fail("lm mesh: the host-mesh decode cache differs from the "
                  "plain path's")
-        times["decode (median of 8)"] = (
+        times[f"decode (median of {n})"] = (
             statistics.median(m for m, _ in dec_ms),
             statistics.median(m for _, m in dec_ms))
         del cache, plain, got, want
@@ -3613,6 +3622,475 @@ def lm_mesh_phase(torch, args, dev="cuda") -> None:
           f"{wall:.1f} s wall from spawn to the last exit, reference and "
           f"files {save_s:.1f} s; phase {time.perf_counter() - t_phase:.1f}"
           f" s")
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    lm_mesh_gaps(torch, args, dev)
+
+
+# ---- the LM steps' last gaps: MoE groups over the batch axes, the
+# families' caches split over model, a sequence split over data
+
+GAPS_BATCH, GAPS_LEN, GAPS_STEPS = 8, 16, 2     # the families' decode
+GAPS_LONG, GAPS_LONG_STEPS = 32768, 4           # zamba2 at batch 1
+GAPS_MOE = "phi3.5-moe-42b-a6.6b"
+# The MoE takes one layer: with two, four ranks do not fit the one card
+# (float32 serving on (2, 2): each rank ~18 GB, its shards and a 5 GB
+# layer gathered whole, ~2.5 copies of it while the gather is assembled;
+# a bfloat16 train step: ~19 GB, AdamW's float32 moments, a layer and
+# its gradients whole, a second gather for remat).  Its train step runs
+# in bfloat16 (float32 would be the two-layer case's bytes again), its
+# weights rounded to bfloat16 throughout.  Its limits are bfloat16
+# roundings (2^-8 = 3.9e-3) of the one-process step: each rank's
+# gradient is rounded to bfloat16, then summed over up to 4 ranks in
+# bfloat16, so an element may move by several units in the last place
+# of the ranks' partial gradients; the loss and the norm relative
+GAPS_MOE_LAYERS, GAPS_MOE_STEPS = 1, 1          # after the 8 x 32 prompt
+GAPS_MOE_LOSS_RTOL, GAPS_MOE_GRAD_RTOL, GAPS_MOE_NORM_RTOL = 2e-3, 3e-2, 1e-2
+GAPS_MESHES = ((1, 4), (2, 2))                  # the families' meshes
+GAPS_JOIN_S = 600               # a gloo rank that takes longer is hung
+
+
+def gaps_cfgs() -> dict:
+    """Published widths at cut depth: zamba2 one group of 6 Mamba-2
+    layers, the shared attention and one tail layer; xlstm one group of 7
+    mLSTM layers and an sLSTM layer; whisper 2 encoder and 2 decoder
+    layers; phi3.5-moe ``GAPS_MOE_LAYERS`` layers."""
+    from repro_torch.configs import ARCHS
+    z, x, w, m = (ARCHS[n] for n in (*FAMILY_ARCHS, GAPS_MOE))
+    return {"zamba2-1.2b": dataclasses.replace(z, n_layers=z.attn_every + 1),
+            "xlstm-1.3b": dataclasses.replace(x, n_layers=x.slstm_every),
+            "whisper-medium": dataclasses.replace(w, n_layers=2,
+                                                  n_enc_layers=2),
+            GAPS_MOE: dataclasses.replace(m, n_layers=GAPS_MOE_LAYERS)}
+
+
+def rss_gb() -> float:
+    """This process's resident memory on the host, GB (``/proc``)."""
+    with open("/proc/self/status") as f:
+        kb = next(int(line.split()[1]) for line in f
+                  if line.startswith("VmRSS:"))
+    return kb * 1024 / 1e9
+
+
+def to_host(tree):
+    """A cache (nested dicts of tensors and ints) copied to the host."""
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True) if hasattr(tree, "cpu") \
+        else tree
+
+
+def lm_mesh_gaps_rank(rank: int, world: int, port: int, path: str, cfgs,
+                      dev: str = "cuda") -> None:
+    """One gloo rank of ``lm_mesh_gaps`` on ``cuda:0`` with the others
+    (``dev="cpu"`` to rehearse), every case's inputs from ``path``: each
+    family's decode on (1, 4) and (2, 2); zamba2 at batch 1 on (4, 1);
+    the MoE's prefill and decode, then its bfloat16 train step, on
+    (4, 1) and (2, 2).  Its logits, cache and gradient errors, step times
+    and peak memory to ``path/rank{rank}.pt``."""
+    # four ranks' whole-layer gathers share the one card: grow segments in
+    # place rather than cache fragments (read at the first allocation)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.input_specs import params_structs
+    from repro_torch.launch.mesh import dp_axes, make_lm_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train import optimizer
+
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    on = None if dev == "cuda" else dev
+    f32 = torch.float32
+
+    def load(name):
+        return torch.load(os.path.join(path, f"{name}.pt"), mmap=True)
+
+    def cache_err(cache, want, specs, mesh) -> float:
+        """max |this rank's cache shard − its slice of the whole cache|."""
+        out = 0.0
+        for k, t in cache.items():
+            if isinstance(t, dict):
+                out = max(out, cache_err(t, want[k], specs[k], mesh))
+            elif hasattr(t, "shape"):
+                w = sh.shard_of(want[k], specs[k], mesh).to(t.device)
+                out = max(out, float((t.double() - w.double()).abs().max()))
+        return out
+
+    def rows(mesh, b):
+        n = mesh.axis_size(dp_axes(mesh))
+        if b % n:
+            return 0, b
+        return mesh.index(dp_axes(mesh)) * (b // n), \
+            (mesh.index(dp_axes(mesh)) + 1) * (b // n)
+
+    def decode(api, mesh, f, fill=None, dtype=torch.float32):
+        """Decode ``f["tokens"]`` from the cache ``f["cache"]`` (or, with
+        ``fill`` the prompt, from the cache-filling prefill), the model in
+        ``dtype``."""
+        toks, s = f["tokens"], f["max_len"]
+        b, n = toks.shape
+        dec, *_, meta = steps.make_decode_step(
+            api, mesh, ShapeConfig("d", s, b, "decode"), dtype=dtype)
+        model = steps.place_model(params_structs(api, dtype),
+                                  meta["specs"]["params"], mesh,
+                                  state=f["state"])
+        torch.cuda.reset_peak_memory_stats()
+        logits, times = [], []
+        if fill is not None:
+            pre, *_, pmeta = steps.make_prefill_step(
+                api, mesh, ShapeConfig("p", fill.shape[1], b, "prefill"),
+                cache_len=s, dtype=dtype)
+            cache = steps.init_cache(api, b, s, meta["specs"]["cache"], mesh,
+                                     dtype)
+            batch = steps.place({"tokens": fill}, pmeta["specs"]["batch"],
+                                mesh)
+            (lg, cache), ms = sync_ms(torch, lambda: pre(model, batch, cache))
+            logits.append(lg.float().cpu())
+            times.append(ms)
+        else:
+            cache = steps.place(f["cache"], meta["specs"]["cache"], mesh)
+        for i in range(n):
+            t = steps.place({"t": toks[:, i:i + 1]},
+                            {"t": meta["specs"]["tokens"]}, mesh)["t"]
+            (lg, cache), ms = sync_ms(torch, lambda: dec(model, t, cache))
+            logits.append(lg.float().cpu())
+            times.append(ms)
+        out = {"logits": torch.stack(logits), "ms": times,
+               "rows": rows(mesh, b),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if "final" in f:
+            out["cache_err"] = cache_err(cache, f["final"],
+                                         meta["specs"]["cache"], mesh)
+        return out
+
+    def train(api, mesh, f):
+        """The MoE's bfloat16 train step: the loss, each non-expert
+        gradient's max error on this rank's shard, the global norm."""
+        tr = f["train"]
+        step, *_, meta = steps.make_train_step(
+            api, mesh, ShapeConfig("t", tr["tokens"].shape[1],
+                                   tr["tokens"].shape[0], "train"),
+            dtype=torch.bfloat16, lr=TRAIN_LR)
+        specs = meta["specs"]["params"]
+        model = steps.place_model(params_structs(api, torch.bfloat16),
+                                  specs, mesh, batch_axes=meta["batch_axes"],
+                                  state=f["state"])
+        batch = steps.place(tr, meta["specs"]["batch"], mesh)
+        opt = optimizer.init(model)
+        seen, real = {}, optimizer.update
+
+        def spy(grads, st, params, **kw):
+            seen["norm"] = float(optimizer.global_norm(
+                grads, mesh=kw["mesh"], specs=kw["specs"]))
+            seen["errs"] = {
+                name: float((g.double() - sh.shard_of(
+                    f["grads"][name], specs[name], mesh).to(
+                        g.device).double()).abs().max())
+                for name, g in grads.items() if name in f["grads"]}
+            return real(grads, st, params, **kw)
+
+        torch.cuda.reset_peak_memory_stats()
+        optimizer.update = spy
+        try:
+            (loss, model, opt), ms = sync_ms(torch, lambda: step(model, opt,
+                                                                 batch))
+        finally:
+            optimizer.update = real
+        return {"loss": float(loss), "ms": ms, "opt_step": opt.step,
+                "num_micro": meta["num_micro"], **seen,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    def free(key):
+        """Drop what the case left: the device cache, and the pinned host
+        buffers gloo staged the card's tensors through (the host's 96 GiB
+        are shared by the four ranks); its host memory is printed."""
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+            pinned = next((v for k, v in
+                           torch.cuda.host_memory_stats().items()
+                           if k.startswith("reserved_bytes")
+                           and k.endswith("current")), 0)
+            release = getattr(torch.accelerator, "empty_host_cache", None) \
+                or getattr(torch._C, "_host_emptyCache", None)
+            if release is not None:
+                release()
+            out[key]["host_gb"] = (rss_gb(), pinned / 1e9)
+            print(f"lm mesh gaps rank {rank} {key}: host RSS "
+                  f"{out[key]['host_gb'][0]:.2f} GB, pinned "
+                  f"{pinned / 1e9:.2f} GB released", flush=True)
+
+    try:
+        out = {}
+        meshes = {shape: make_lm_mesh(shape, ("data", "model"), device=on)
+                  for shape in ((1, 4), (2, 2), (4, 1))}
+        for name in FAMILY_ARCHS:
+            api, f = build_model(cfgs[name]), load(name)
+            for shape in GAPS_MESHES:
+                out[name, shape] = decode(api, meshes[shape], f)
+                free((name, shape))
+        api = build_model(cfgs["zamba2-1.2b"])
+        key = "zamba2-1.2b long", (4, 1)
+        out[key] = decode(api, meshes[4, 1], load("zamba2-1.2b long"))
+        free(key)
+        api, f = build_model(cfgs[GAPS_MOE]), load(GAPS_MOE)
+        for shape in ((4, 1), (2, 2)):
+            out[GAPS_MOE, shape] = decode(api, meshes[shape], f,
+                                          fill=f["prompt"])
+            free((GAPS_MOE, shape))
+        for shape in ((4, 1), (2, 2)):
+            out["train", shape] = train(api, meshes[shape], f)
+            free(("train", shape))
+        torch.save(out, os.path.join(path, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def lm_mesh_gaps(torch, args, dev="cuda") -> None:
+    """The second part of ``lm_mesh_phase``: the LM steps where the batch,
+    the state or the cache is split beyond the plain layout, 4 gloo ranks
+    on the card at published widths (``gaps_cfgs``), float32 (the MoE
+    bfloat16), each rank held to the one-process path the
+    parent ran on the same weights and inputs:
+
+      * zamba2, xlstm and whisper: ``GAPS_STEPS`` decode steps at batch
+        ``GAPS_BATCH`` on (1, 4) and (2, 2) (KV caches split over KV
+        heads, recurrent states over a state dim, a layer's state whole
+        while it runs), from an empty cache (whisper: the encoded
+        frames' cross K/V): logits within ``LM_TOL`` and each rank's
+        cache shard after them within ``LM_TOL`` of its slice;
+      * zamba2 at batch 1 over a ``GAPS_LONG``-position cache whose
+        sequence the data axis splits, on (4, 1): ``GAPS_LONG_STEPS``
+        steps from a cache filled with seeded values up to
+        ``GAPS_LONG − GAPS_LONG_STEPS`` (every chunk holds positions),
+        the same way;
+      * phi3.5-moe: the prefill that fills the cache (8 x 32) and
+        ``GAPS_MOE_STEPS`` decode steps on (4, 1) and (2, 2) (the
+        router's groups spanning ranks), logits within ``LM_TOL``; its
+        bfloat16 train step (8 x 128) on both meshes: the loss, the
+        global gradient norm and every non-expert gradient against the
+        one-process bfloat16 step.
+
+    Every case is printed before any limit fails the phase.
+
+    Each case's error, step ms and per-rank peak are printed."""
+    import multiprocessing
+
+    from repro_torch.data import make_token_batch
+    from repro_torch.models import build_model, loss_fn, transformer
+    from repro_torch.train import optimizer
+    t_phase = time.perf_counter()
+    cfgs = gaps_cfgs()
+    b, n = GAPS_BATCH, GAPS_STEPS
+    gen = torch.Generator().manual_seed(args.seed + 11)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_gaps_")
+    want, procs, ref = {}, [], {}
+    try:
+        t = time.perf_counter()
+        for name in FAMILY_ARCHS:
+            cfg = cfgs[name]
+            api = build_model(cfg)
+            model = api.init(torch.Generator(device=dev).manual_seed(
+                args.seed))
+            toks = torch.randint(0, cfg.vocab, (b, n), generator=gen)
+            with torch.no_grad():
+                cache = api.init_cache(model, b, GAPS_LEN)
+                if cfg.enc_dec:
+                    frames = torch.randn((b, cfg.enc_frames, cfg.d_model),
+                                         generator=gen).to(dev)
+                    cache = api.prefill(model, {"frames": frames}, cache)
+                first = to_host(cache)
+                want[name] = torch.stack([
+                    api.decode_step(model, toks[:, i:i + 1].to(dev),
+                                    cache)[0].cpu() for i in range(n)])
+            state = {k: q.detach().cpu() for k, q in
+                     model.named_parameters()}
+            torch.save({"state": state, "cache": first,
+                        "final": to_host(cache), "tokens": toks,
+                        "max_len": GAPS_LEN}, os.path.join(tmp, f"{name}.pt"))
+            if name == "zamba2-1.2b":
+                gdev = torch.Generator(device=dev).manual_seed(args.seed + 12)
+                with torch.no_grad():
+                    cache = api.init_cache(model, 1, GAPS_LONG)
+                    pos = GAPS_LONG - GAPS_LONG_STEPS
+                    for key in ("attn_k", "attn_v"):
+                        cache[key][:, :, :pos].normal_(generator=gdev)
+                    for leaf in cache["ssm"].values():
+                        leaf.normal_(generator=gdev).mul_(0.1)
+                    cache["len"] = pos
+                    first = to_host(cache)
+                    toks = torch.randint(0, cfg.vocab, (1, GAPS_LONG_STEPS),
+                                         generator=gen)
+                    want["zamba2-1.2b long"] = torch.stack([
+                        api.decode_step(model, toks[:, i:i + 1].to(dev),
+                                        cache)[0].cpu()
+                        for i in range(GAPS_LONG_STEPS)])
+                torch.save({"state": state, "cache": first,
+                            "final": to_host(cache), "tokens": toks,
+                            "max_len": GAPS_LONG},
+                           os.path.join(tmp, "zamba2-1.2b long.pt"))
+            del model, cache, state
+            gc.collect()
+            torch.cuda.empty_cache()
+        # the MoE: weights rounded to bfloat16 (the file's dtype), the
+        # serving reference in float32, the train reference in bfloat16
+        cfg = cfgs[GAPS_MOE]
+        api = build_model(cfg)
+        model = api.init(torch.Generator(device=dev).manual_seed(args.seed))
+        with torch.no_grad():
+            for q in model.parameters():
+                q.copy_(q.to(torch.bfloat16))
+        prompt = torch.randint(0, cfg.vocab, (b, LM_MESH_PROMPT),
+                               generator=gen)
+        toks = torch.randint(0, cfg.vocab, (b, GAPS_MOE_STEPS),
+                             generator=gen)
+        with torch.no_grad():
+            cache = transformer.init_cache(cfg, b, LM_MESH_PROMPT +
+                                           GAPS_MOE_STEPS, device=dev)
+            lg, cache = transformer.prefill(model, prompt.to(dev), cfg,
+                                            cache)
+            logits = [lg.cpu()]
+            for i in range(GAPS_MOE_STEPS):
+                lg, cache = transformer.decode_step(
+                    model, toks[:, i:i + 1].to(dev), cache, cfg)
+                logits.append(lg.cpu())
+        want[GAPS_MOE] = torch.stack(logits)
+        del cache
+        model.to(torch.bfloat16)
+        batch = make_token_batch(
+            torch.Generator().manual_seed(args.seed + 13), TRAIN_BATCH,
+            TRAIN_SEQ, cfg.vocab, device=dev)
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(api, model, batch)
+        loss.backward()
+        grads = {k: q.grad for k, q in model.named_parameters()}
+        ref = {"loss": float(loss.detach()), "norm": float(
+            optimizer.global_norm(grads))}
+        experts = tuple(f"moe.{w}" for w in ("wg", "wu", "wd"))
+        kept = {k: g.cpu() for k, g in grads.items()
+                if not k.endswith(experts)}
+        ref["gmax"] = {k: float(g.float().abs().max())
+                       for k, g in kept.items()}
+        torch.save({"state": {k: q.detach().cpu() for k, q in
+                              model.named_parameters()},
+                    "prompt": prompt, "tokens": toks,
+                    "max_len": LM_MESH_PROMPT + GAPS_MOE_STEPS,
+                    "train": {k: v.cpu() for k, v in batch.items()},
+                    "grads": kept}, os.path.join(tmp, f"{GAPS_MOE}.pt"))
+        del model, grads, kept, batch, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+        save_s = time.perf_counter() - t
+        files = sum(os.path.getsize(os.path.join(tmp, n))
+                    for n in os.listdir(tmp))
+        free_b, total_b = torch.cuda.mem_get_info() if dev == "cuda" \
+            else (0, 0)
+        print(f"lm mesh gaps: references and {files / 1e9:.2f} GB of "
+              f"files in {save_s:.1f} s, host RSS {rss_gb():.2f} GB; this "
+              f"process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+              f"({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved), "
+              f"{free_b / 1e9:.2f} of {total_b / 1e9:.2f} GB free on the "
+              f"card", flush=True)
+        ctx = multiprocessing.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=lm_mesh_gaps_rank,
+                             args=(r, 4, port, tmp, cfgs, dev))
+                 for r in range(4)]
+        t = time.perf_counter()
+        for q in procs:
+            q.start()
+        while any(q.is_alive() for q in procs) and \
+                time.perf_counter() - t < GAPS_JOIN_S and \
+                all(q.exitcode in (None, 0) for q in procs):
+            time.sleep(0.2)
+        wall = time.perf_counter() - t
+        codes = [q.exitcode for q in procs]
+        if codes != [0] * 4:
+            fail(f"lm mesh gaps: gloo ranks exited with {codes} after "
+                 f"{wall:.0f} s (None: still running, stopped)")
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                for r in range(4)]
+    finally:
+        for q in procs:
+            if q.is_alive():
+                q.kill()
+            q.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    cases = [(name, shape) for name in FAMILY_ARCHS for shape in GAPS_MESHES]
+    cases += [("zamba2-1.2b long", (4, 1)), (GAPS_MOE, (4, 1)),
+              (GAPS_MOE, (2, 2))]
+    bad = []
+    for name, shape in cases:
+        errs, cache_errs, peaks, ms = [], [], [], []
+        for r, o in enumerate(outs):
+            d = o[name, shape]
+            lo, hi = d["rows"]
+            err = float((d["logits"] - want[name][:, lo:hi]).abs().max())
+            errs.append(err)
+            cache_errs.append(d.get("cache_err", 0.0))
+            peaks.append(d["peak_gb"])
+            ms.append(statistics.median(d["ms"]))
+            if err > LM_TOL or cache_errs[-1] > LM_TOL:
+                bad.append(f"{name} {shape} rank {r}: logits {err:.3g}, "
+                           f"cache shard {cache_errs[-1]:.3g} from the "
+                           f"one-process path (limit {LM_TOL})")
+        shards = f", cache shards {max(cache_errs):.3g}" \
+            if name != GAPS_MOE else ""
+        print(f"lm mesh gaps: {name} {shape}: logits max|diff| "
+              f"{max(errs):.3g}{shards} from one process (limit "
+              f"{LM_TOL}); step ms (median, rank 0..3) "
+              f"{[round(m, 1) for m in ms]}; peak GB "
+              f"{[round(q, 2) for q in peaks]}")
+    for shape in ((4, 1), (2, 2)):
+        worst, rel = 0.0, []
+        for r, o in enumerate(outs):
+            tr = o["train", shape]
+            rel = [abs(tr["loss"] - ref["loss"]) / abs(ref["loss"]),
+                   abs(tr["norm"] - ref["norm"]) / ref["norm"]]
+            if rel[0] > GAPS_MOE_LOSS_RTOL or rel[1] > GAPS_MOE_NORM_RTOL \
+                    or tr["opt_step"] != 1:
+                bad.append(f"{GAPS_MOE} train {shape} rank {r}: loss "
+                           f"{tr['loss']} against {ref['loss']} (relative "
+                           f"{rel[0]:.3g}), gradient norm {tr['norm']} "
+                           f"against {ref['norm']} ({rel[1]:.3g})")
+            for k, mx in tr["errs"].items():
+                lim = GAPS_MOE_GRAD_RTOL * ref["gmax"][k] + GRAD_ATOL
+                if mx > lim:
+                    bad.append(f"{GAPS_MOE} train {shape} rank {r}: "
+                               f"gradient {k} off by {mx:.3g} (limit "
+                               f"{lim:.3g})")
+                worst = max(worst, mx / (ref["gmax"][k] or 1.0))
+        print(f"lm mesh gaps: {GAPS_MOE} bfloat16 train step {shape} "
+              f"({TRAIN_BATCH} x {TRAIN_SEQ}, num_micro "
+              f"{outs[0]['train', shape]['num_micro']}): loss "
+              f"{outs[0]['train', shape]['loss']:.6f} (one process "
+              f"{ref['loss']:.6f}, relative {rel[0]:.3g}), gradient norm "
+              f"relative {rel[1]:.3g}, worst non-expert leaf "
+              f"max|diff|/max|leaf| {worst:.3g} (limits "
+              f"{GAPS_MOE_LOSS_RTOL}, {GAPS_MOE_NORM_RTOL}, "
+              f"{GAPS_MOE_GRAD_RTOL}); step ms "
+              f"{[round(o['train', shape]['ms'], 1) for o in outs]}; peak GB "
+              f"{[round(o['train', shape]['peak_gb'], 2) for o in outs]}")
+    depth = ", ".join(f"{k} {c.n_layers} layers" for k, c in cfgs.items())
+    host = [d["host_gb"][0] for o in outs for d in o.values()
+            if "host_gb" in d]
+    print(f"lm mesh gaps: {depth} at full width; 4 gloo ranks on one "
+          f"card: {wall:.1f} s from spawn to the last exit, references "
+          f"and files {save_s:.1f} s; part "
+          f"{time.perf_counter() - t_phase:.1f} s; host RSS a rank after "
+          f"a case up to {max(host, default=0.0):.2f} GB")
+    if bad:
+        fail("lm mesh gaps: " + "; ".join(bad))
 
 
 # ----------------------------------------------- the dry run and roofline
@@ -3623,7 +4101,7 @@ DRYRUN_PEAK_BAND = (0.95, 1.05)  # meta live peak / the allocator's
 DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "single", "ok"),
                 ("qwen2.5-3b", "decode_32k", "single", "ok"),
                 ("qwen2-72b", "prefill_32k", "multipod", "ok"),
-                ("whisper-medium", "decode_32k", "single", "not_ported"))
+                ("whisper-medium", "decode_32k", "single", "ok"))
 
 
 def dryrun_phase(torch, args, dev="cuda") -> None:

@@ -11,10 +11,11 @@ and no process group.  A PyTorch loop is already unrolled, so one pass
 gives both the peak memory and the roofline terms (JAX compiles a scan
 form and an unrolled form).
 
-A train step is counted one micro-batch at a time: the forward and
-backward of its first micro-batch, multiplied by ``meta["cost_repeat"]``,
-then the update once.  Its peak memory is that micro-batch's, in which
-the accumulated gradients are live too.
+A train step is counted one micro-batch at a time: the dealing of its
+micro-batches once, the forward and backward of its first micro-batch,
+multiplied by ``meta["cost_repeat"]``, then the update once.  Its peak
+memory is that micro-batch's, in which the accumulated gradients are
+live too.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-3b \\
@@ -26,9 +27,8 @@ under ``--out``.  Each ``ok`` record holds the report, the peak memory per
 device and whether it fits one card (``fits``).
 
 Statuses: ``ok``; ``skipped`` (``shape_applicable``'s reason);
-``not_ported``, where the step builder raises the ``NotImplementedError``
-that names ``steps.ROADMAP_ITEM`` (the reason carries its message);
-``error`` for anything else, the only status that fails the run.
+``error`` where building or counting the step raised, the only status
+that fails the run.
 """
 
 from __future__ import annotations
@@ -62,14 +62,8 @@ def cell_mesh(mesh_name: str) -> roofline.RecordingMesh:
 
 
 def build(cfg, mesh, shape):
-    """``make_step``'s five values, or None where the builder raises the
-    error that names ``steps.ROADMAP_ITEM``; → (values, that message)."""
-    try:
-        return steps.make_step(cfg, mesh, shape, dtype=DTYPE), ""
-    except NotImplementedError as e:
-        if steps.ROADMAP_ITEM not in str(e):
-            raise
-        return None, str(e)
+    """``make_step``'s five values in the dry run's dtype."""
+    return steps.make_step(cfg, mesh, shape, dtype=DTYPE)
 
 
 def place_inputs(structs, meta: dict, mesh):
@@ -102,15 +96,15 @@ def place_inputs(structs, meta: dict, mesh):
 def count_step(fn, meta: dict, model, *args, mesh=None
                ) -> roofline.StepCounts:
     """``fn(model, *args)`` run once under a ``StepCounter``.  A train step
-    (one with ``micro_step``) runs its first micro-batch, counted
-    ``meta["num_micro"]`` times, then its update once."""
+    (one with ``micro_step``) deals its micro-batches once, runs the
+    first, counted ``meta["num_micro"]`` times, then its update once."""
     counter = roofline.StepCounter(mesh)
     if hasattr(fn, "micro_step"):
         opt, batch = args
         k = meta["num_micro"]
-        rows = next(iter(batch.values())).shape[0] // k
-        part = {name: v[:rows] for name, v in batch.items()}
         model.zero_grad(set_to_none=True)
+        with counter.count():
+            part = fn.micro_batches(batch)[0]
         with counter.count(repeat=k):
             loss = fn.micro_step(model, part)
         with counter.count():
@@ -130,10 +124,7 @@ def _count_cell(arch_name: str, shape_name: str, mesh_name: str):
     if not ok:
         return {**head, "status": "skipped", "reason": why}, None
     mesh = cell_mesh(mesh_name)
-    built, why = build(cfg, mesh, shape)
-    if built is None:
-        return {**head, "status": "not_ported", "reason": why}, None
-    fn, structs, _, _, meta = built
+    fn, structs, _, _, meta = build(cfg, mesh, shape)
     model, args, arg_bytes = place_inputs(structs, meta, mesh)
     counts = count_step(fn, meta, model, *args, mesh=mesh)
     report = roofline.analyze(counts, arch=arch_name, shape=shape,
@@ -220,10 +211,9 @@ def tables(out_root: str = OUT_ROOT) -> str:
         gate[r["arch"], r["shape"], r["mesh"]] = r
     lines = []
     n = {s: sum(r["status"] == s for r in gate.values())
-         for s in ("ok", "skipped", "not_ported", "error")}
+         for s in ("ok", "skipped", "error")}
     lines += ["### Dry-run gate (all 80 cells)\n",
               f"**{n['ok']} ran OK, {n['skipped']} skipped per spec, "
-              f"{n['not_ported']} not ported ({steps.ROADMAP_ITEM}), "
               f"{n['error']} failed.**  Peak memory per device = argument "
               f"bytes + the step's live high-water mark on meta.\n",
               "| arch | shape | single: peak mem | multipod: peak mem | "
@@ -232,8 +222,6 @@ def tables(out_root: str = OUT_ROOT) -> str:
     def cell(r):
         if r is None:
             return "—"
-        if r["status"] == "not_ported":
-            return "not ported"
         if r["status"] != "ok":
             return "**ERR**"
         fits = "" if r["fits"] else " (over 80 GB)"
@@ -315,10 +303,10 @@ def main(argv=None) -> int:
                         continue
                 results.append(run_cell(a, s, m, out_root=args.out))
     n = {s: sum(r["status"] == s for r in results)
-         for s in ("ok", "skipped", "not_ported", "error")}
+         for s in ("ok", "skipped", "error")}
     print(f"\n=== dry-run: {n['ok']} ok / {n['skipped']} skipped / "
-          f"{n['not_ported']} not ported / {n['error']} failed of "
-          f"{len(results)} cells in {time.time() - t0:.1f} s ===")
+          f"{n['error']} failed of {len(results)} cells in "
+          f"{time.time() - t0:.1f} s ===")
     return 0 if n["error"] == 0 else 1
 
 

@@ -235,9 +235,11 @@ class LMMesh:
         group = self._group(axes)
         if group is None:
             return t
-        parts = [torch.empty_like(t) for _ in range(self.axis_size(axes))]
-        dist.all_gather(parts, t.contiguous(), group=group)
-        return torch.cat(parts, dim)
+        n = self.axis_size(axes)
+        out = t.new_empty((n, *t.shape))    # the parts in one buffer
+        dist.all_gather(list(out.unbind(0)), t.contiguous(), group=group)
+        return out.movedim(0, dim).reshape(*t.shape[:dim], n * t.shape[dim],
+                                           *t.shape[dim + 1:])
 
     def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"
                    ) -> torch.Tensor:

@@ -32,12 +32,21 @@ per device, and compute what the one-process step computes:
     rows, and ``meta`` says so (``"tensor_parallel": False``,
     ``"seq_parallel": False``).  They would change no result.
 
-The model-axis decode and prefill of zamba2, xlstm and whisper (state
-and cross-attention caches) raise ``NotImplementedError``; their train
-step and their data-parallel decode run.  So do MoE models only where
-the batch is not split: the router's capacity and aux loss are over the
-whole batch in the reference.  On a mesh of one process
-(``make_host_mesh()``) each step is the one-process path bit for bit.
+  * A MoE router forms the reference's groups over the whole batch
+    (``models.moe.route``: a group that spans ranks offsets its expert
+    positions by one all-gather of the lower ranks' counts) and its aux
+    loss's ``f_e`` is the whole batch's (one all-reduce); a train step's
+    micro-batch ``i`` is the reference's rows of micro-batch ``i``, dealt
+    over the ranks from one all-gather of the batch.
+  * A decode cache whose sequence the data axes split (a batch that does
+    not divide them) is attended chunk by chunk and combined over those
+    axes, as flash decode does over ``model``; a recurrent state (zamba2,
+    xlstm) that its spec splits on another dim than the batch rows is
+    gathered whole one layer at a time (``_LayerStates``: an all-gather
+    for each dim its spec splits), written, and cut back.
+
+On a mesh of one process (``make_host_mesh()``) each step is the
+one-process path bit for bit.
 """
 
 from __future__ import annotations
@@ -57,9 +66,6 @@ from repro_torch.models import transformer
 from repro_torch.models.model_zoo import ModelApi, build_model, loss_fn
 from repro_torch.train import optimizer
 from repro_torch.train.loop import _grads
-
-ROADMAP_ITEM = "ROADMAP.md queue 1, item 6c"
-
 
 # ---------------------------------------------------------------- placing
 
@@ -106,8 +112,10 @@ class _Units:
             return out
         for dtype in sorted({shards[i].dtype for i in split}, key=str):
             part = [i for i in split if shards[i].dtype == dtype]
-            flat = torch.cat([shards[i].reshape(-1) for i in part])
-            pieces = self.mesh.all_gather(flat[None], 0, axes)
+            # the packed shards die with the call: only the gathered
+            # pieces and the whole tensors are live while they assemble
+            pieces = self.mesh.all_gather(torch.cat(
+                [shards[i].reshape(-1) for i in part])[None], 0, axes)
             off = 0
             for i in part:
                 n = shards[i].numel()
@@ -242,14 +250,6 @@ def _device(mesh) -> torch.device:
     return mesh.device
 
 
-def reshard(t: torch.Tensor, held, want, mesh) -> torch.Tensor:
-    """This rank's shard under ``want`` of the tensor whose shard under
-    ``held`` is ``t`` (the whole tensor gathered between)."""
-    if _effective(held, mesh) == _effective(want, mesh):
-        return t
-    return sh.shard_of(sh.gather_leaf(t, held, mesh), want, mesh).clone()
-
-
 def _effective(spec, mesh) -> tuple:
     return tuple(tuple(a for a in mesh.axes(sh.spec_axes(e))
                        if mesh.axis_size(a) > 1) for e in spec)
@@ -267,35 +267,100 @@ def _units(model: nn.Module, mesh, specs: dict, batch_axes: tuple):
 
 
 @contextlib.contextmanager
-def _active(mesh, batch_axes: tuple, *, flash_decode: bool = False):
-    """The model hooks' mesh state while a step runs (restored after)."""
-    saved = L.mesh_axes()
-    L.set_mesh_axes(batch_axes, mesh.axis_size(batch_axes),
+def _active(mesh, rows: tuple, *, flash_decode: bool = False,
+            cache_specs: dict | None = None):
+    """The model hooks' mesh state while a step runs (restored after):
+    ``rows`` the axes that split the step's batch rows, ``cache_specs``
+    the decode cache's specs (with them the ``layer_state`` hook)."""
+    saved, saved_cache = L.mesh_axes(), L.cache_layout()
+    L.set_mesh_axes(rows, mesh.axis_size(rows),
                     mesh_axis_sizes(mesh).get("model", 1), mesh=mesh,
                     flash_decode=flash_decode)
+    hook = _LayerStates(mesh, cache_specs, rows) if cache_specs else None
+    L.set_cache_layout(cache_specs or {}, hook)
     try:
         yield
     finally:
         L.set_mesh_axes(*saved[0], **saved[1])
+        L.set_cache_layout(*saved_cache)
 
 
-def _no_split_moe(cfg: ArchConfig, mesh, batch_axes: tuple) -> None:
-    if cfg.is_moe and mesh.axis_size(batch_axes) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: a MoE step with the batch split over "
-            f"{mesh.axes(batch_axes)} would route each rank's rows alone, "
-            f"where the reference's capacity and aux loss see the whole "
-            f"batch ({ROADMAP_ITEM})")
+def _rows_of(spec, mesh) -> tuple:
+    """The axes that split a batch leaf's rows under its spec."""
+    return _effective(spec, mesh)[0] if spec else ()
 
 
-def _model_axis_families(cfg: ArchConfig, mesh, what: str) -> None:
-    if mesh_axis_sizes(mesh).get("model", 1) > 1 and (
-            cfg.enc_dec or cfg.family in ("ssm", "hybrid")):
-        raise NotImplementedError(
-            f"{cfg.name}: the {what} step on a model axis of size "
-            f"{mesh_axis_sizes(mesh)['model']} needs its state and "
-            f"cross-attention caches split over it ({ROADMAP_ITEM}); a "
-            f"mesh whose model axis has size 1 runs it")
+class _LayerStates:
+    """The ``layers.layer_state`` hook of a decode step: one layer's
+    recurrent state with this rank's batch rows (split over ``rows``, as
+    the tokens are) and every other dim whole, for the step to write in
+    place; on leaving, each leaf is cut back to this rank's shard under
+    its spec.  A leaf whose spec splits its batch dim over ``rows`` keeps
+    it (one all-gather of its other split dims; the cut back moves
+    nothing); one split otherwise (a batch of 1: a state dim over the
+    data axes) is gathered whole and its rows cut, and after the step
+    its rows are gathered again to cut the shard.  Where the spec splits
+    a layer-stack dim, the layer is the owner's: gathered over those
+    axes, and written back by the ranks that hold it."""
+
+    def __init__(self, mesh, specs: dict, rows: tuple):
+        self.mesh, self.specs, self.rows = mesh, specs, rows
+
+    @contextlib.contextmanager
+    def __call__(self, state: dict, idx: tuple, key: str):
+        run, backs = {}, []
+        for name, t in state.items():
+            run[name], back = self._take(t, self.specs[key][name], idx)
+            backs.append(back)
+        yield run
+        for back in backs:
+            back()
+
+    def _take(self, t, spec, idx):
+        """→ (layer ``idx`` of ``t`` for the step, the write-back)."""
+        mesh, rows = self.mesh, self.rows
+        layer, mine = _layer_of(t, spec, idx, mesh)
+        tail = spec[len(idx):]
+        same = _effective(tail, mesh)[0] == rows
+        gspec = (None, *tail[1:]) if same else tail
+        cut = (rows,) + (None,) * (len(tail) - 1)
+        whole = sh.gather_leaf(layer, gspec, mesh)
+        run = whole if same else sh.shard_of(whole, cut, mesh)
+
+        def back():
+            w = run if same else sh.gather_leaf(run, cut, mesh)
+            out = sh.shard_of(w, gspec, mesh)
+            if mine is not None and out is not mine:
+                mine.copy_(out)
+        return run, back
+
+
+def _layer_of(t, spec, idx: tuple, mesh):
+    """Layer ``idx`` (indices of the leading layer-stack dims) of the
+    stacked leaf whose shard under ``spec`` is ``t``: (its shard under
+    the rest of the spec, the tensor of ``t`` it is where this rank holds
+    the layer, else None).  Where the spec splits a stack dim, the ranks
+    whose index over its axes holds the layer's index have it: one
+    all-gather over those axes, the owners' piece taken."""
+    lead = [_effective((e,), mesh)[0] for e in spec[:len(idx)]]
+    if not any(lead):
+        view = t[idx]
+        return view, view
+    loc, coord = [], {}
+    for d, axes in enumerate(lead):
+        size = t.shape[d]
+        loc.append(idx[d] % size)
+        c = idx[d] // size
+        for a in reversed(axes):
+            coord[a], c = c % mesh.axis_size(a), c // mesh.axis_size(a)
+    local = t[tuple(loc)]
+    axes = mesh.axes(tuple(coord))
+    pieces = mesh.all_gather(local[None], 0, axes)
+    j = 0
+    for a in axes:
+        j = j * mesh.axis_size(a) + coord[a]
+    owner = all(mesh.index(a) == coord[a] for a in axes)
+    return pieces[j], local if owner else None
 
 
 # ------------------------------------------------------------------ steps
@@ -341,10 +406,12 @@ def make_train_step(api: ModelApi, mesh, shape: ShapeConfig, *,
     > 1 the rows go in that many micro-batches whose gradients are summed
     and divided by ``num_micro``, the loss their mean.
 
-    ``step_fn.micro_step(model, part)`` and ``step_fn.finish(model, opt,
-    losses)`` are its two parts (``launch.dryrun`` counts one micro-batch
-    and the update apart): ``step_fn`` zeroes the gradients, runs
-    ``micro_step`` on each micro-batch, then ``finish``.
+    ``step_fn.micro_batches(batch)``, ``step_fn.micro_step(model,
+    part)`` and ``step_fn.finish(model, opt, losses)`` are its parts
+    (``launch.dryrun`` counts one micro-batch and the rest apart):
+    ``step_fn`` zeroes the gradients, runs ``micro_step`` on each of
+    ``micro_batches``' parts (micro-batch ``i`` is the reference's rows
+    of it across the ranks), then ``finish``.
 
     sharding_mode="fsdp": pure FSDP over all axes, the batch split over
     all of them.  The activations here are whole (no sequence
@@ -353,7 +420,6 @@ def make_train_step(api: ModelApi, mesh, shape: ShapeConfig, *,
     cfg = api.cfg
     batch_axes = dp_axes(mesh) if sharding_mode == "2d" \
         else tuple(mesh.axis_names)
-    _no_split_moe(cfg, mesh, batch_axes)
     if num_micro is None:
         num_micro = choose_microbatches(cfg, shape, mesh, seq_parallel=False)
     params_s = ispec.params_structs(api, dtype)
@@ -366,6 +432,7 @@ def make_train_step(api: ModelApi, mesh, shape: ShapeConfig, *,
     p_spec = sh.param_specs(mesh, params_s, fsdp=True, mode=sharding_mode)
     b_spec = sh.batch_specs(mesh, batch_s, mode=sharding_mode)
     n_dp = mesh.axis_size(batch_axes)
+    rows_axes = _rows_of(b_spec["tokens"], mesh)
 
     def clear(model):
         units = _units(model, mesh, p_spec, batch_axes)
@@ -375,7 +442,7 @@ def make_train_step(api: ModelApi, mesh, shape: ShapeConfig, *,
     def micro_step(model, part):
         """One micro-batch's forward and backward, its gradients added to
         the parameters' ``.grad``; → its loss, detached."""
-        with _active(mesh, batch_axes):
+        with _active(mesh, rows_axes):
             clear(model)
             loss = loss_fn(api, model, part)
             clear(model)
@@ -385,7 +452,7 @@ def make_train_step(api: ModelApi, mesh, shape: ShapeConfig, *,
     def finish(model, opt, losses):
         """The update from the gradients ``num_micro`` micro-batches
         summed, whose losses are ``losses``; → (loss, model, opt)."""
-        with _active(mesh, batch_axes):
+        with _active(mesh, rows_axes):
             params = dict(model.named_parameters())
             if num_micro > 1:
                 for p in params.values():
@@ -402,21 +469,32 @@ def make_train_step(api: ModelApi, mesh, shape: ShapeConfig, *,
             clear(model)
         return loss, model, opt
 
-    def train_step(model, opt, batch):
-        clear(model)
-        model.zero_grad(set_to_none=True)
+    def micro_batches(batch):
+        """This rank's part of each micro-batch: micro-batch ``i`` is the
+        reference's, the whole batch's rows ``[i·B/n, (i+1)·B/n)``, of
+        which rank ``r`` over the batch rows' axes takes block ``r``
+        (from one all-gather of the batch where they split it)."""
         rows = next(iter(batch.values())).shape[0]
         if rows % num_micro:
             raise ValueError(f"{rows} rows do not split into "
                              f"{num_micro} micro-batches")
-        losses = []
-        for i in range(num_micro):
-            part = {k: v[i * rows // num_micro:(i + 1) * rows // num_micro]
-                    for k, v in batch.items()} if num_micro > 1 else batch
-            losses.append(micro_step(model, part))
+        if num_micro == 1:
+            return [batch]
+        m, n, r = rows // num_micro, mesh.axis_size(rows_axes), \
+            mesh.index(rows_axes)
+        whole = {k: mesh.all_gather(v, 0, rows_axes)
+                 for k, v in batch.items()}
+        return [{k: v[(i * n + r) * m:(i * n + r + 1) * m]
+                 for k, v in whole.items()} for i in range(num_micro)]
+
+    def train_step(model, opt, batch):
+        clear(model)
+        model.zero_grad(set_to_none=True)
+        losses = [micro_step(model, part) for part in micro_batches(batch)]
         return finish(model, opt, losses)
 
     train_step.micro_step, train_step.finish = micro_step, finish
+    train_step.micro_batches = micro_batches
 
     p_pl = sh.named(mesh, p_spec)
     in_pl = (p_pl, optimizer.AdamWState(step=None, mu=p_pl, nu=p_pl),
@@ -440,14 +518,12 @@ def make_prefill_step(api: ModelApi, mesh, shape: ShapeConfig, *,
     positions (placed as ``make_decode_step`` places it,
     ``meta["specs"]["cache"]``)."""
     cfg = api.cfg
-    batch_axes = dp_axes(mesh)
-    _model_axis_families(cfg, mesh, "prefill")
-    _no_split_moe(cfg, mesh, batch_axes)
     params_s = ispec.params_structs(api, dtype)
     batch_s = ispec.prefill_batch_specs(cfg, shape, dtype)
     p_spec = sh.param_specs(mesh, params_s, fsdp=False)   # weights TP-only
     b_spec = sh.batch_specs(mesh, batch_s)
     specs = {"params": p_spec, "batch": b_spec}
+    rows_axes = _rows_of(next(iter(b_spec.values())), mesh)
     structs = (params_s, batch_s)
     flash = _flash(cfg, mesh)
     fill_cache = cache_len is not None
@@ -463,7 +539,8 @@ def make_prefill_step(api: ModelApi, mesh, shape: ShapeConfig, *,
     @torch.no_grad()
     def prefill_step(model, batch, cache=None):
         units = _units(model, mesh, p_spec, ())
-        with _active(mesh, batch_axes, flash_decode=flash):
+        with _active(mesh, rows_axes, flash_decode=flash,
+                     cache_specs=specs.get("cache")):
             if units is not None:
                 units.clear()
             if fill_cache:
@@ -500,39 +577,19 @@ def _flash(cfg: ArchConfig, mesh) -> bool:
 
 
 def _decode_cache_specs(cfg: ArchConfig, mesh, cache_s: dict) -> dict:
-    """The ported cache specs, checked against what the decode runs on
-    local tensors: a KV cache split over ``model`` on its sequence (flash
-    decode) or its KV heads, and never on its sequence over data."""
+    """The ported cache specs, checked against what flash decode needs:
+    where it is on (the KV heads do not divide the model axis) a KV cache
+    that is whole on every rank is refused, as the reference's flash
+    decode refuses a sequence the axis does not divide."""
     specs = sh.cache_specs(mesh, cache_s)
     if cfg.enc_dec or cfg.family in ("ssm", "hybrid"):
         return specs
-    seq = _effective(specs["k"], mesh)[2]
-    if seq and seq != ("model",):
-        raise NotImplementedError(
-            f"{cfg.name}: a batch of {cache_s['k'].shape[1]} does not split "
-            f"over the data axes, so the cache's sequence would be split "
-            f"over {seq}; decode needs the chunks combined over them "
-            f"({ROADMAP_ITEM})")
-    if _flash(cfg, mesh) and not seq:
+    if _flash(cfg, mesh) and not _effective(specs["k"], mesh)[2]:
         raise ValueError(
             f"{cfg.name}: flash decode splits the cache's "
             f"{cache_s['k'].shape[2]} positions over the model axis of "
             f"{mesh_axis_sizes(mesh)['model']}, which does not divide them")
     return specs
-
-
-def _batch_dims(api: ModelApi, dtype) -> dict:
-    """The batch dim of every cache tensor: where caches of 2 and 3 rows
-    differ."""
-    a = ispec.cache_structs(api, 2, 4, dtype)
-    b = ispec.cache_structs(api, 3, 4, dtype)
-
-    def walk(x, y):
-        return {k: walk(x[k], y[k]) if isinstance(x[k], dict) else
-                next(d for d in range(x[k].dim())
-                     if x[k].shape[d] != y[k].shape[d])
-                for k in x if isinstance(x[k], (dict, torch.Tensor))}
-    return walk(a, b)
 
 
 def make_decode_step(api: ModelApi, mesh, shape: ShapeConfig, *,
@@ -541,15 +598,14 @@ def make_decode_step(api: ModelApi, mesh, shape: ShapeConfig, *,
     ``step_fn(model, tokens, cache)`` → (logits (B_l, V), cache), the
     cache this rank's shard (``place``), updated in place and returned.
 
-    Flash decode runs exactly when the cache falls back to sequence
-    sharding (KV heads don't divide the model axis).  A state
-    cache (zamba2, xlstm, whisper, on a model axis of size 1) is run with
-    its batch rows split as the tokens are; a leaf that the ported spec
-    splits otherwise is gathered for the step and cut back after it."""
+    Flash decode is on exactly when the KV heads don't divide the model
+    axis (the reference's ``meta["flash_decode"]``); the attention
+    combines chunks over whatever axes split the cache's sequence
+    (``model`` then, the data axes for a batch that does not divide
+    them).  Every cache leaf stays in its spec: a KV cache's rank writes
+    its slot and KV heads, and a recurrent state goes through
+    ``_LayerStates`` one layer at a time."""
     cfg = api.cfg
-    batch_axes = dp_axes(mesh)
-    _model_axis_families(cfg, mesh, "decode")
-    _no_split_moe(cfg, mesh, batch_axes)
     flash = _flash(cfg, mesh)
     params_s = ispec.params_structs(api, dtype)
     cache_s = ispec.cache_structs(api, shape.global_batch, shape.seq_len,
@@ -558,27 +614,15 @@ def make_decode_step(api: ModelApi, mesh, shape: ShapeConfig, *,
     p_spec = sh.param_specs(mesh, params_s, fsdp=False)
     c_spec = _decode_cache_specs(cfg, mesh, cache_s)
     t_spec = sh.batch_specs(mesh, {"t": tok_s})["t"]
-    run_spec = c_spec
-    if cfg.enc_dec or cfg.family in ("ssm", "hybrid"):
-        dims = _batch_dims(api, dtype)
-        run_spec = sh.map_tree(
-            lambda t, s: tuple(t_spec[0] if d == s else None
-                               for d in range(t.dim())),
-            cache_s, dims)
-
-    def convert(cache, frm, to):
-        return sh.map_tree(lambda t, s: reshard(t, s[0], s[1], mesh), cache,
-                           _zip_specs(frm, to))
+    rows_axes = _rows_of(t_spec, mesh)
 
     @torch.no_grad()
     def serve_step(model, tokens, cache):
         units = _units(model, mesh, p_spec, ())
-        with _active(mesh, batch_axes, flash_decode=flash):
+        with _active(mesh, rows_axes, flash_decode=flash, cache_specs=c_spec):
             if units is not None:
                 units.clear()
-            run = convert(cache, c_spec, run_spec)
-            logits, run = api.decode_step(model, tokens, run)
-            cache.update(convert(run, run_spec, c_spec))
+            logits, cache = api.decode_step(model, tokens, cache)
             if units is not None:
                 units.clear()
         return logits, cache
@@ -602,12 +646,6 @@ def init_cache(api: ModelApi, batch: int, max_len: int, specs: dict, mesh,
 class _Host:
     """Stands in for a model whose cache is made on the host."""
     embed = torch.empty(0)
-
-
-def _zip_specs(a: dict, b: dict) -> dict:
-    """(a's spec, b's spec) for every tensor that both spec."""
-    return {k: _zip_specs(a[k], b[k]) if isinstance(a[k], dict)
-            else (a[k], b[k]) for k in a if k in b}
 
 
 def make_step(arch: ArchConfig, mesh, shape: ShapeConfig,

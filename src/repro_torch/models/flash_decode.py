@@ -3,9 +3,10 @@
 
 GQA archs whose KV-head count does not divide the ``model`` axis (e.g.
 qwen2.5-3b: 2 KV heads on a 4-way axis) shard the decode cache along the
-SEQUENCE instead.  Each rank computes attention over its chunk of the
-cache, and the ranks combine with (max, rescaled sum): three collectives
-of (B, H[, hd]) instead of gathering (B, S, KV, hd).
+SEQUENCE instead; a batch that does not divide the data axes (batch 1,
+``long_500k``) splits it over those.  Each rank computes attention over
+its chunk of the cache, and the ranks combine with (max, rescaled sum):
+three collectives of (B, H[, hd]) instead of gathering (B, S, KV, hd).
 
 Math (per head): softmax over the union of chunks
     m_g = max_i(m_i);  num = Σ_i e^{m_i−m_g}·num_i;  den = Σ_i e^{m_i−m_g}·den_i
@@ -13,7 +14,8 @@ Math (per head): softmax over the union of chunks
 
 The reference is jnp under ``shard_map``; here it is plain PyTorch on
 this rank's tensors and one ``all_reduce`` MAX and two SUMs over the
-mesh's ``shard_axis`` group, in the reference's order.
+mesh's ``shard_axis`` group (one axis or several), in the reference's
+order.
 """
 
 from __future__ import annotations
@@ -23,10 +25,10 @@ import torch
 from repro_torch.models.layers import repeat_kv
 
 
-def _local_attn(q, k, v, pos, window, *, mesh, shard_axis: str,
+def _local_attn(q, k, v, pos, window, *, mesh, shard_axis,
                 n_rep: int) -> torch.Tensor:
     """One rank's partial attention, combined over ``shard_axis``.
-    q (Bl, 1, H, hd) full heads; k/v (Bl, Sl, KV, hd) local chunk."""
+    q (Bl, 1, KV·n_rep, hd); k/v (Bl, Sl, KV, hd) local chunk."""
     bl, sl, kv, hd = k.shape
     i = mesh.index(shard_axis)
     kpos = i * sl + torch.arange(sl, device=k.device)     # global positions
@@ -56,15 +58,18 @@ def _local_attn(q, k, v, pos, window, *, mesh, shard_axis: str,
 
 
 def flash_decode(q, ck, cv, pos, *, mesh, dp_axes: tuple, n_rep: int,
-                 window=None, shard_axis: str = "model") -> torch.Tensor:
-    """q (B_l, 1, H, hd), this rank's batch rows with every head; ck/cv
-    (B_l, S_l, KV, hd), this rank's chunk of the cache, at global
-    positions ``index·S_l + arange(S_l)`` where ``index`` is this rank's
-    on ``shard_axis`` of ``mesh`` (a ``launch.mesh.LMMesh``); ``pos`` the
-    query's position (a host int or a 0-d tensor); ``window`` 0/None for
-    full attention.  → (B_l, 1, H, hd), the same on every rank of
-    ``shard_axis``.  ``dp_axes`` is the reference's: the batch rows here
-    already are this rank's, so it changes nothing."""
+                 window=None, shard_axis="model") -> torch.Tensor:
+    """q (B_l, 1, KV·n_rep, hd), this rank's batch rows with the query
+    heads of the KV heads it holds (every head, or its share where the
+    heads are split over another axis); ck/cv (B_l, S_l, KV, hd), this
+    rank's chunk of the cache, at global positions ``index·S_l +
+    arange(S_l)`` where ``index`` is this rank's row-major index over
+    ``shard_axis`` of ``mesh`` (a ``launch.mesh.LMMesh``; an axis name or
+    a tuple of them); ``pos`` the query's position (a host int or a 0-d
+    tensor); ``window`` 0/None for full attention.  → (B_l, 1,
+    KV·n_rep, hd), the same on every rank of ``shard_axis``.  ``dp_axes``
+    is the reference's: the batch rows here already are this rank's, so
+    it changes nothing."""
     del dp_axes
     return _local_attn(q, ck, cv, pos, window, mesh=mesh,
                        shard_axis=shard_axis, n_rep=n_rep)

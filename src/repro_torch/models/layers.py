@@ -15,6 +15,8 @@ the input's device: a decode step issues no host synchronize.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,14 +31,21 @@ from repro_torch.device import resolve_device
 # The reference pins activations' batch to the data axes with sharding
 # constraints.  Here every tensor is this rank's local tensor, whose batch
 # rows already are this rank's, so the constraints hold by construction;
-# what the state still decides is the decode attention over a sharded
-# cache (``gqa_attention``, ``cache_offsets``).
+# what the state still decides is the MoE router's groups over the whole
+# batch (``row_split``), the decode attention over a sharded cache
+# (``gqa_attention``, ``cache_offsets``) and a layer's recurrent state
+# (``layer_state``).  ``_BATCH_AXES`` are the axes that split the step's
+# batch rows (none where the batch is whole on every rank).
 _BATCH_AXES: tuple[str, ...] = ()
 _DP_SIZE: int = 1
 _MODEL_SIZE: int = 1
 _SEQ_PARALLEL: bool = False
 _MESH = None
 _FLASH_DECODE: bool = False
+# the decode cache's specs (``launch.shardings.cache_specs``' tree) and the
+# hook that gives one layer's state whole, both set by a decode step
+_CACHE_SPECS: dict = {}
+_LAYER_STATE = None
 
 
 def set_mesh_axes(batch_axes: tuple[str, ...], dp_size: int,
@@ -55,6 +64,30 @@ def set_mesh_axes(batch_axes: tuple[str, ...], dp_size: int,
 
 def clear_mesh_axes() -> None:
     set_mesh_axes((), 1, 1)
+    set_cache_layout({}, None)
+
+
+def set_cache_layout(specs: dict, layer_state) -> None:
+    """The decode cache's specs (name → spec, nested as the cache) and
+    the ``layer_state`` hook, ``layer_state(state, idx, key)`` → a context
+    manager yielding one layer's state (None: views of the local
+    tensors)."""
+    global _CACHE_SPECS, _LAYER_STATE
+    _CACHE_SPECS, _LAYER_STATE = specs, layer_state
+
+
+def cache_layout() -> tuple:
+    """What ``set_cache_layout`` set, as its arguments (to restore it)."""
+    return _CACHE_SPECS, _LAYER_STATE
+
+
+def row_split() -> tuple:
+    """(mesh, axes, size) of the axes that split the step's batch rows:
+    this rank holds rows ``[r·B_l, (r+1)·B_l)`` of the whole batch, r its
+    row-major index over ``axes``; (None, (), 1) off a mesh."""
+    if _MESH is None or _DP_SIZE == 1:
+        return None, (), 1
+    return _MESH, _BATCH_AXES, _DP_SIZE
 
 
 def mesh_axes() -> tuple:
@@ -84,21 +117,52 @@ def constrain_batch_vocab(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def cache_offsets(cfg, kv_local: int, s_local: int) -> tuple[int, int, int]:
-    """Where this rank's shard of a KV cache of ``kv_local`` heads and
-    ``s_local`` positions lies in the whole cache: (the global position
-    of its slot 0, the first KV head it holds, the whole cache's
-    positions).  A cache split over ``model`` holds this rank's KV heads
-    where it has fewer than ``cfg.n_kv_heads``, else (flash decode on) its
-    chunk of the sequence."""
-    if _MESH is None or _MODEL_SIZE == 1:
+def _split(entry) -> tuple:
+    """A spec entry's mesh axes of size above 1, in mesh order."""
+    names = () if entry is None else (entry,) if isinstance(entry, str) \
+        else tuple(entry)
+    return tuple(a for a in _MESH.axes(names) if _MESH.axis_size(a) > 1)
+
+
+def cache_seq_axes(key: str = "k") -> tuple:
+    """The mesh axes that split the sequence of the decode cache's KV
+    leaf ``key`` (dim 2 of its (L, B, S, KV, hd) spec, as
+    ``set_cache_layout`` handed it in): ``model`` where flash decode runs,
+    the data axes where the batch does not divide them; () off a mesh
+    or with no such leaf."""
+    spec = _CACHE_SPECS.get(key)
+    return _split(spec[2]) if _MESH is not None and spec else ()
+
+
+def cache_offsets(cfg, kv_local: int, s_local: int, key: str = "k"
+                  ) -> tuple[int, int, int]:
+    """Where this rank's shard of the KV cache leaf ``key``, of
+    ``kv_local`` heads and ``s_local`` positions, lies in the whole cache:
+    (the global position of its slot 0, the first KV head it holds, the
+    whole cache's positions).  It holds this rank's KV heads where it has
+    fewer than ``cfg.n_kv_heads`` (split over ``model``), and its chunk of
+    the sequence where ``cache_seq_axes`` split it."""
+    if _MESH is None:
         return 0, 0, s_local
-    m = _MESH.index("model")
-    if kv_local < cfg.n_kv_heads:
-        return 0, m * kv_local, s_local
-    if _FLASH_DECODE and cfg.n_kv_heads % _MODEL_SIZE:
-        return m * s_local, 0, s_local * _MODEL_SIZE
-    return 0, 0, s_local
+    head0 = _MESH.index("model") * kv_local if kv_local < cfg.n_kv_heads \
+        else 0
+    seq = cache_seq_axes(key)
+    if not seq:
+        return 0, head0, s_local
+    return (_MESH.index(seq) * s_local, head0,
+            s_local * _MESH.axis_size(seq))
+
+
+def layer_state(state: dict, idx: tuple, key: str):
+    """A context manager yielding one layer's recurrent state (the
+    layer at lead index ``idx`` of each stacked tensor of ``state``, the
+    cache's subtree ``key``) for a step to write in place: views of the
+    local tensors off a mesh; on one, the step's hook (``launch.steps``)
+    gives this rank's batch rows whole on every other dim and cuts the
+    written state back to this rank's shards when the block ends."""
+    if _LAYER_STATE is None or key not in _CACHE_SPECS:
+        return contextlib.nullcontext({k: v[idx] for k, v in state.items()})
+    return _LAYER_STATE(state, idx, key)
 
 
 # ------------------------------------------------------------------ remat
@@ -293,11 +357,12 @@ def gqa_attention(x: torch.Tensor, attn: Attention, cfg, *, sin, cos,
                   causal: bool = True, window=None, offset=0,
                   kv_len_valid=None,
                   kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
-                  q_block: int = 0) -> torch.Tensor:
+                  q_block: int = 0, seq_axes: tuple = ()) -> torch.Tensor:
     """GQA attention over x (B, S, D).  kv_override: precomputed (k, v),
-    the KV cache in decode, or this rank's shard of it on a mesh: its
-    chunk of the sequence (flash decode, one query position) or its KV
-    heads (fewer than ``cfg.n_kv_heads``), as ``set_mesh_axes`` set."""
+    the KV cache in decode, or this rank's shard of it on a mesh: its KV
+    heads where it has fewer than ``cfg.n_kv_heads`` (split over
+    ``model``), and its chunk of the sequence where ``seq_axes``
+    (``cache_seq_axes``) split it."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
     q = _heads(attn.wq(x), h, hd)
@@ -311,27 +376,28 @@ def gqa_attention(x: torch.Tensor, attn: Attention, cfg, *, sin, cos,
             # rope for the last s positions only
             q_sin, q_cos = sin[..., -s:, :], cos[..., -s:, :]
         q = apply_rope(q, q_sin, q_cos)
-    # Flash-decoding: one-token decode against a SEQUENCE-sharded cache
-    # (KV heads don't divide the model axis): partial softmax per chunk,
-    # combined over the axis (see flash_decode.py)
-    if (_FLASH_DECODE and _MESH is not None and kv_override is not None
-            and s == 1 and cfg.n_kv_heads % _MODEL_SIZE != 0):
-        from repro_torch.models.flash_decode import flash_decode
-        out = flash_decode(q, k, v, offset, mesh=_MESH,
-                           dp_axes=_BATCH_AXES, n_rep=h // k.shape[2],
-                           window=window)
-        return attn.wo(out.reshape(b, s, h * hd))
     n_rep = h // cfg.n_kv_heads
-    heads = k.shape[2] < cfg.n_kv_heads and kv_override is not None
+    heads = kv_override is not None and k.shape[2] < cfg.n_kv_heads
     if heads:
         # the cache holds this rank's KV heads: attend with their query
         # heads, then gather every rank's head outputs in rank order
         h0 = _MESH.index("model") * k.shape[2] * n_rep
         q = q[:, :, h0:h0 + k.shape[2] * n_rep]
-    k = repeat_kv(k, n_rep)
-    v = repeat_kv(v, n_rep)
-    out = attention(q, k, v, causal=causal, window=window, offset=offset,
-                    kv_len_valid=kv_len_valid, q_block=q_block)
+    if seq_axes and kv_override is not None and s == 1:
+        # Flash-decoding: one query against this rank's chunk of a
+        # sequence-sharded cache, partial softmaxes combined over the
+        # chunks' axes (see flash_decode.py); a query that sees every
+        # position (cross attention) takes the last one as its own
+        from repro_torch.models.flash_decode import flash_decode
+        last = k.shape[1] * _MESH.axis_size(seq_axes) - 1
+        out = flash_decode(q, k, v, offset if causal else last, mesh=_MESH,
+                           dp_axes=_BATCH_AXES, n_rep=n_rep, window=window,
+                           shard_axis=seq_axes)
+    else:
+        k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+        out = attention(q, k, v, causal=causal, window=window,
+                        offset=offset, kv_len_valid=kv_len_valid,
+                        q_block=q_block)
     if heads:
         out = _MESH.all_gather(out, 2, "model")
     return attn.wo(out.reshape(b, s, h * hd))

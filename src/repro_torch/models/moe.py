@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import layers as L
 from repro_torch.models.layers import dense_init, empty_linear
 
 
@@ -63,22 +64,41 @@ def route(x: torch.Tensor, moe: MoE, cfg, *, group_size: int = 512
           ) -> Routing:
     """Route x (B, S, D): top-k experts per token (lower index first on
     ties), and each (token, choice)'s buffer slot in its group's expert in
-    token order; a pair past the expert's capacity is dropped."""
+    token order; a pair past the expert's capacity is dropped.
+
+    On a mesh whose batch axes split the rows (``layers.row_split``) the
+    groups are the whole batch's, as the reference forms them: T is every
+    rank's tokens, Tg = min(group_size, T) and the capacity Tg's.  Where
+    Tg divides this rank's tokens its groups are its own; where a group
+    spans several ranks, each expert's positions here start after that
+    expert's pairs on the group's lower ranks (one all-gather of the
+    per-expert counts).  Routing then has one group of this rank's
+    tokens, with the whole group's capacity."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     t = b * s
-    tg = min(group_size, t)
-    if t % tg:
-        raise ValueError(f"{t} tokens do not split into groups of {tg}")
-    g = t // tg
+    mesh, axes, n_dp = L.row_split()
+    tg = min(group_size, t * n_dp)
+    if (t * n_dp) % tg:
+        raise ValueError(f"{t * n_dp} tokens do not split into groups of "
+                         f"{tg}")
+    if t % tg and tg % t:
+        raise ValueError(f"groups of {tg} tokens straddle ranks of {t}")
+    span = 1 if t % tg == 0 else tg // t      # ranks a group spans
+    g, tl = (t // tg, tg) if span == 1 else (1, t)
     cap = max(int(cfg.capacity_factor * tg * k / e), 1)
-    probs = torch.softmax(moe.router(x.reshape(g, tg, d)).float(), dim=-1)
+    probs = torch.softmax(moe.router(x.reshape(g, tl, d)).float(), dim=-1)
     gate_vals, expert_ids = top_k_stable(probs, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
     # buffer position of each (token, choice) within its group's expert
-    onehot = F.one_hot(expert_ids, e).int()                  # (G, Tg, k, E)
-    flat = onehot.reshape(g, tg * k, e)
-    pos = (torch.cumsum(flat, dim=1) * flat - 1).reshape(g, tg, k, e)
+    onehot = F.one_hot(expert_ids, e).int()                  # (G, Tl, k, E)
+    flat = onehot.reshape(g, tl * k, e)
+    pos = torch.cumsum(flat, dim=1)
+    if span > 1:
+        counts = mesh.all_gather(flat.sum(1), 0, axes)       # (ranks, E)
+        r = mesh.index(axes)
+        pos = pos + counts[r - r % span:r].sum(0)
+    pos = (pos * flat - 1).reshape(g, tl, k, e)
     within_cap = (pos >= 0) & (pos < cap)
     slot = (torch.where(within_cap, pos, 0) * onehot).sum(-1)
     keep = (within_cap & (onehot > 0)).any(-1)
@@ -91,7 +111,13 @@ def moe_ffn(x: torch.Tensor, moe: MoE, cfg, *, group_size: int = 512
     ``group_size``; each group routes to per-group expert buffers of
     capacity C = cf·Tg·k/E, and a (token, choice) beyond its expert's
     capacity is dropped.  aux is the Switch load-balancing loss
-    E · Σ_e f_e · P_e."""
+    E · Σ_e f_e · P_e.
+
+    On a mesh whose batch axes split the rows, ``f_e`` is the whole
+    batch's (one all-reduce of the per-expert counts) and ``P_e`` this
+    rank's: with equal rows per rank, the mean of the ranks' aux (what a
+    train step's loss and gradients are) is the reference's, and ``f_e``
+    carries no gradient."""
     b, s, d = x.shape
     e = cfg.n_experts
     probs, gate_vals, _, onehot, keep, slot, cap = route(
@@ -109,5 +135,10 @@ def moe_ffn(x: torch.Tensor, moe: MoE, cfg, *, group_size: int = 512
     ye = torch.einsum("gecf,efd->gecd", h, moe.wd)
     out = torch.einsum("gtec,gecd->gtd", combine, ye).reshape(b, s, d)
     me = probs.mean(dim=(0, 1))                               # (E,)
-    fe = onehot.sum(2).float().mean(dim=(0, 1))
+    mesh, axes, n_dp = L.row_split()
+    if n_dp == 1:
+        fe = onehot.sum(2).float().mean(dim=(0, 1))
+    else:
+        fe = mesh.all_reduce(onehot.sum(2).float().sum(dim=(0, 1)), axes) \
+            / (g * tg * n_dp)
     return out, e * (me * fe).sum()

@@ -70,11 +70,6 @@ def _ones(*params) -> None:
             p.fill_(1.0)
 
 
-def _states(state: dict, idx) -> dict:
-    """The views of a stacked state at one layer's index."""
-    return {key: value[idx] for key, value in state.items()}
-
-
 # ------------------------------------------------------------------ xLSTM
 
 
@@ -162,17 +157,20 @@ def xlstm_init_cache(cfg, batch: int, dtype=torch.float32, *,
 def xlstm_decode_step(model: XLSTM, tokens, cache: dict, cfg
                       ) -> tuple[torch.Tensor, dict]:
     """tokens (B, 1) → (logits (B, V), cache with len + 1); the cache is
-    the caller's dict, written in place and returned."""
+    the caller's dict, written in place and returned.  Each layer's state
+    goes through ``layers.layer_state`` (on a mesh: whole but for the
+    batch rows while the layer runs)."""
     x = model.embed_tokens(tokens)                      # (B, 1, D)
     for gi, (group, slayer) in enumerate(zip(model.mlstm_blocks,
                                              model.slstm_blocks)):
         for mi, layer in enumerate(group):
-            y, _ = xlstm.mlstm_step(rms_norm(x, layer.ln, cfg.norm_eps),
-                                    _states(cache["m"], (gi, mi)),
-                                    layer.mlstm, cfg)
+            with L.layer_state(cache["m"], (gi, mi), "m") as state:
+                y, _ = xlstm.mlstm_step(rms_norm(x, layer.ln, cfg.norm_eps),
+                                        state, layer.mlstm, cfg)
             x = x + y
-        y, _ = xlstm.slstm_step(rms_norm(x, slayer.ln, cfg.norm_eps),
-                                _states(cache["s"], gi), slayer.slstm, cfg)
+        with L.layer_state(cache["s"], (gi,), "s") as state:
+            y, _ = xlstm.slstm_step(rms_norm(x, slayer.ln, cfg.norm_eps),
+                                    state, slayer.slstm, cfg)
         x = x + y
     cache["len"] += 1
     return model.head(x[:, -1], cfg), cache
@@ -294,11 +292,11 @@ def zamba_init_cache(cfg, batch: int, max_len: int, dtype=torch.float32, *,
     return cache
 
 
-def _mamba_steps(x, layers, state: dict, lead: tuple, cfg):
+def _mamba_steps(x, layers, state: dict, lead: tuple, key: str, cfg):
     for i, layer in enumerate(layers):
-        y, _ = mamba2.mamba_step(rms_norm(x, layer.ln, cfg.norm_eps),
-                                 _states(state, lead + (i,)), layer.mamba,
-                                 cfg)
+        with L.layer_state(state, lead + (i,), key) as st:
+            y, _ = mamba2.mamba_step(rms_norm(x, layer.ln, cfg.norm_eps),
+                                     st, layer.mamba, cfg)
         x = x + y
     return x
 
@@ -307,28 +305,36 @@ def _mamba_steps(x, layers, state: dict, lead: tuple, cfg):
 def zamba_decode_step(model: Zamba, tokens, cache: dict, cfg
                       ) -> tuple[torch.Tensor, dict]:
     """As ``xlstm_decode_step``, for zamba2: the shared attention reads
-    and writes its KV cache at position ``cache["len"]``."""
+    and writes its KV cache at position ``cache["len"]`` (on a mesh, this
+    rank's slot and KV heads of it, ``layers.cache_offsets``)."""
     x = model.embed_tokens(tokens)
     ck_all, cv_all = cache["attn_k"], cache["attn_v"]
     pos = cache["len"]
-    if pos >= ck_all.shape[2]:
-        raise ValueError(f"the cache of {ck_all.shape[2]} positions is full")
+    seq0, head0, max_len = L.cache_offsets(cfg, ck_all.shape[3],
+                                           ck_all.shape[2], "attn_k")
+    if pos >= max_len:
+        raise ValueError(f"the cache of {max_len} positions is full")
+    slot = pos - seq0 if 0 <= pos - seq0 < ck_all.shape[2] else None
+    heads = slice(head0, head0 + ck_all.shape[3])
+    seq_axes = L.cache_seq_axes("attn_k")
     sin, cos = L.rope_angles(torch.arange(pos, pos + 1, device=x.device),
                              cfg.hd, cfg.rope_theta)
     sp = model.shared_attn
     for gi, group in enumerate(model.groups):
-        x = _mamba_steps(x, group, cache["ssm"], (gi,), cfg)
+        x = _mamba_steps(x, group, cache["ssm"], (gi,), "ssm", cfg)
         xn = rms_norm(x, sp.ln1, cfg.norm_eps)
         k_new, v_new = L.project_kv(xn, sp.attn, cfg, sin, cos)
         ck, cv = ck_all[gi], cv_all[gi]
-        ck[:, pos:pos + 1] = k_new
-        cv[:, pos:pos + 1] = v_new
+        if slot is not None:
+            ck[:, slot:slot + 1] = k_new[:, :, heads]
+            cv[:, slot:slot + 1] = v_new[:, :, heads]
         h = L.gqa_attention(xn, sp.attn, cfg, sin=sin, cos=cos, causal=True,
                             offset=pos, kv_len_valid=pos + 1,
-                            kv_override=(ck, cv))
+                            kv_override=(ck, cv), seq_axes=seq_axes)
         x = x + h
         x = x + L.swiglu(rms_norm(x, sp.ln2, cfg.norm_eps), sp.ffn)
     if model.tail is not None:
-        x = _mamba_steps(x, model.tail, cache["tail_ssm"], (), cfg)
+        x = _mamba_steps(x, model.tail, cache["tail_ssm"], (), "tail_ssm",
+                         cfg)
     cache["len"] = pos + 1
     return model.head(x[:, -1], cfg), cache

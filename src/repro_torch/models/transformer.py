@@ -12,8 +12,8 @@ whose length is a host ``int``: ``decode_step`` reads no device value, so
 one step issues no host synchronize.  ``prefill`` and ``decode_step``
 write the cache's tensors in place and return a dict with the new length.
 On a mesh (``launch.steps``) the cache is this rank's shard, its chunk of
-the sequence or its KV heads (``layers.cache_offsets``), and they write
-only the positions and heads it holds.
+the sequence, its KV heads or both (``layers.cache_offsets``), and they
+write only the positions and heads it holds.
 """
 
 from __future__ import annotations
@@ -233,6 +233,7 @@ def decode_step(model: Transformer, tokens, cache: dict, cfg
     ck, cv = cache["k"], cache["v"]
     pos = cache["len"]
     seq0, head0, max_len = L.cache_offsets(cfg, ck.shape[3], ck.shape[2])
+    seq_axes = L.cache_seq_axes()
     if pos >= max_len:
         raise ValueError(f"the cache of {max_len} positions is full")
     # this rank's slot and KV heads of the new position, if it holds it
@@ -253,7 +254,7 @@ def decode_step(model: Transformer, tokens, cache: dict, cfg
         h = L.gqa_attention(xn, blk.attn, cfg, sin=sin, cos=cos,
                             causal=True, window=blk.window, offset=pos,
                             kv_len_valid=pos + 1,
-                            kv_override=(ck[i], cv[i]))
+                            kv_override=(ck[i], cv[i]), seq_axes=seq_axes)
         x = x + h
         x = x + blk.ffn_out(L.rms_norm(x, blk.ln2, cfg.norm_eps), cfg)[0]
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)

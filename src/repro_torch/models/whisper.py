@@ -192,26 +192,36 @@ def decode_step(model: Whisper, tokens, cache: dict, cfg
                 ) -> tuple[torch.Tensor, dict]:
     """One decoder token at position ``cache["len"]`` against the
     self-attention cache and the fixed cross K/V → (logits (B, V), the
-    caller's cache written in place, len + 1)."""
+    caller's cache written in place, len + 1).  On a mesh the caches are
+    this rank's shards: it writes its slot and KV heads of the new
+    position (``layers.cache_offsets``)."""
     ck_all, cv_all = cache["k"], cache["v"]
     pos = cache["len"]
-    if pos >= ck_all.shape[2]:
-        raise ValueError(f"the cache of {ck_all.shape[2]} positions is full")
+    seq0, head0, max_len = L.cache_offsets(cfg, ck_all.shape[3],
+                                           ck_all.shape[2])
+    if pos >= max_len:
+        raise ValueError(f"the cache of {max_len} positions is full")
+    slot = pos - seq0 if 0 <= pos - seq0 < ck_all.shape[2] else None
+    heads = slice(head0, head0 + ck_all.shape[3])
+    seq_axes, x_axes = L.cache_seq_axes(), L.cache_seq_axes("xk")
     x = model.embed_tokens(tokens) + model.dec_pos[None, pos:pos + 1]
     for i, blk in enumerate(model.dec_blocks):
         xn = rms_norm(x, blk.ln1, cfg.norm_eps)
         k_new, v_new = L.project_kv(xn, blk.attn, cfg)
         ck, cv = ck_all[i], cv_all[i]
-        ck[:, pos:pos + 1] = k_new
-        cv[:, pos:pos + 1] = v_new
+        if slot is not None:
+            ck[:, slot:slot + 1] = k_new[:, :, heads]
+            cv[:, slot:slot + 1] = v_new[:, :, heads]
         x = x + L.gqa_attention(xn, blk.attn, cfg, sin=None, cos=None,
                                 causal=True, offset=pos,
-                                kv_len_valid=pos + 1, kv_override=(ck, cv))
+                                kv_len_valid=pos + 1, kv_override=(ck, cv),
+                                seq_axes=seq_axes)
         x = x + L.gqa_attention(rms_norm(x, blk.lnx, cfg.norm_eps),
                                 blk.xattn, cfg, sin=None, cos=None,
                                 causal=False,
                                 kv_override=(cache["xk"][i],
-                                             cache["xv"][i]))
+                                             cache["xv"][i]),
+                                seq_axes=x_axes)
         x = x + _mlp(rms_norm(x, blk.ln2, cfg.norm_eps), blk.mlp)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     cache["len"] = pos + 1

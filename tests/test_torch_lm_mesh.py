@@ -28,7 +28,8 @@ zamba2, xlstm and whisper from JAX's weights take a train step on
 (2, 2), held the same way to ``jax.value_and_grad`` of JAX's ``loss_fn``
 (loss and gradients) and to the one-process update, and decode
 data-parallel on (4, 1) within the decode tolerance of the port's
-one-process decode of those weights.  Then the
+one-process decode of those weights; their decode step on (2, 2) builds
+with a cache split over ``model``.  Then the
 single-process cases: a step on ``make_host_mesh()`` equals the plain
 path bit for bit, and the builders' refusals."""
 
@@ -330,7 +331,8 @@ def test_family_train_and_data_parallel_decode(setup, ranks, name):
     """zamba2, xlstm, whisper: the (2, 2) train step against JAX's loss
     and gradients and the one-process update, the (4, 1) decode against
     the one-process decode of the same weights, and the model-axis decode
-    refused."""
+    built, a cache leaf split over ``model`` (its values:
+    ``tests/test_torch_lm_mesh_gaps.py``)."""
     loss, grads, state = setup[0][("family", name)]
     for rank in ranks:
         got = rank[name]
@@ -342,14 +344,7 @@ def test_family_train_and_data_parallel_decode(setup, ranks, name):
         for g, w in zip(got["decode"], got["plain_decode"]):
             np.testing.assert_allclose(g.numpy(), w[d:d + 1].numpy(),
                                        **DECODE_TOL)
-        assert "ROADMAP.md" in got["model_axis"]
-
-
-def test_reshard_moves_a_leaf_between_specs(ranks):
-    whole = torch.arange(32.0).reshape(4, 8)
-    for r, rank in enumerate(ranks):
-        assert torch.equal(rank["reshard"]["moved"], whole[:, 2 * r:2 * r + 2])
-        assert torch.equal(rank["reshard"]["kept"], whole[r:r + 1])
+        assert "model" in got["model_axis"]
 
 
 # ----------------------------------------------------- one process
@@ -413,24 +408,13 @@ def test_lm_meshes_need_their_processes():
 
 def test_builders_refuse_what_local_tensors_cannot_run():
     """On a layout-only (2, 2) mesh (the builders read only its names and
-    sizes): a split MoE batch, the model-axis decode of a state cache, a
-    cache whose sequence would split over data, and flash decode over
-    positions the model axis does not divide."""
+    sizes): flash decode over positions the model axis does not divide,
+    and flash decode asked for as an option.  (A split MoE batch, the
+    model-axis steps of the state and cross-attention caches and a cache
+    whose sequence splits over data run: ``tests/
+    test_torch_lm_mesh_gaps.py``.)"""
     mesh = LMMesh(("data", "model"), (2, 2))
-    moe = build_model(ARCHS["mixtral-8x22b"].reduced())
-    with pytest.raises(NotImplementedError, match="MoE"):
-        steps.make_train_step(moe, mesh, ShapeConfig("t", 8, 4, "train"))
-    for name in FAMILIES:
-        api = build_model(ARCHS[name].reduced())
-        with pytest.raises(NotImplementedError, match="model axis"):
-            steps.make_decode_step(api, mesh,
-                                   ShapeConfig("d", 8, 4, "decode"))
-        with pytest.raises(NotImplementedError, match="model axis"):
-            steps.make_prefill_step(api, mesh,
-                                    ShapeConfig("p", 8, 4, "prefill"))
     api = build_model(ARCHS[ARCH].reduced())
-    with pytest.raises(NotImplementedError, match="sequence"):
-        steps.make_decode_step(api, mesh, ShapeConfig("d", 8, 1, "decode"))
     with pytest.raises(ValueError, match="does not divide"):
         steps.make_decode_step(api, LMMesh(("data", "model"), (1, 4)),
                                ShapeConfig("d", 10, 2, "decode"))
@@ -473,7 +457,8 @@ def test_mesh_hooks_change_no_value():
     """``set_mesh_axes`` / ``clear_mesh_axes`` keep JAX's module state;
     the constrain hooks return their input (a local tensor's rows already
     are this rank's) and check its dims; ``cache_offsets`` is the whole
-    cache off a mesh."""
+    cache off a mesh, and on one follows the cache's specs
+    (``set_cache_layout``)."""
     from repro_torch.models import layers as L
     cfg = ARCHS[ARCH].reduced()
     x = torch.randn(2, 3, 4)
@@ -489,6 +474,8 @@ def test_mesh_hooks_change_no_value():
             L.constrain_batch(torch.zeros(()))
         with pytest.raises(ValueError, match="logits"):
             L.constrain_batch_vocab(torch.zeros(3))
+        L.set_cache_layout({"k": (None, "data", None, "model", None)},
+                           None)
         # qwen2.5-3b's 2 KV heads on 2 ranks: this rank's head is the 2nd
         assert L.cache_offsets(cfg, 1, 16) == (0, 1, 16)
         # every head held: 2 heads divide the axis, so no flash chunks
@@ -496,7 +483,16 @@ def test_mesh_hooks_change_no_value():
         # on 4 ranks flash decode splits the sequence: rank 3's chunk
         L.set_mesh_axes(("data",), 1, 4, mesh=LMMesh(
             ("data", "model"), (1, 4), coords=(0, 3)), flash_decode=True)
+        L.set_cache_layout({"k": (None, "data", "model", None, None)},
+                           None)
+        assert L.cache_seq_axes() == ("model",)
         assert L.cache_offsets(cfg, cfg.n_kv_heads, 8) == (24, 0, 32)
+        # a batch of 1 on 4 data ranks splits the sequence over data
+        L.set_mesh_axes((), 1, 1, mesh=LMMesh(
+            ("data", "model"), (4, 1), coords=(2, 0)))
+        L.set_cache_layout({"k": (None, None, ("data",), None, None)},
+                           None)
+        assert L.cache_offsets(cfg, cfg.n_kv_heads, 8) == (16, 0, 32)
     finally:
         L.clear_mesh_axes()
-    assert L.mesh_axes()[0] == ((), 1, 1)
+    assert L.mesh_axes()[0] == ((), 1, 1) and L.cache_layout() == ({}, None)

@@ -4,7 +4,7 @@ independent counts: model FLOPs and parameter counts for every cell, the
 report's keys and properties, the recording mesh's conventions, a step
 counted on meta against the same step run on CPU tensors, micro-batches
 counted once and multiplied against a whole run, the 80 production
-cells' statuses, two production cells end to end, and the vectorised
+cells' statuses, three production cells end to end, and the vectorised
 ``steps._assemble`` against the per-rank loop it replaced."""
 
 import dataclasses
@@ -29,18 +29,6 @@ from repro_torch.launch.mesh import LMMesh, make_host_mesh  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
 BF16 = torch.bfloat16
-
-# The cells whose builder raises the error naming ROADMAP.md item 6c, on
-# both production meshes (the MoE models on every applicable shape; the
-# model-axis decode and prefill of zamba2, xlstm and whisper).
-NOT_PORTED = {
-    "mixtral-8x22b": ("train_4k", "prefill_32k", "decode_32k"),
-    "phi3.5-moe-42b-a6.6b": ("train_4k", "prefill_32k", "decode_32k"),
-    "whisper-medium": ("prefill_32k", "decode_32k"),
-    "zamba2-1.2b": ("prefill_32k", "decode_32k", "long_500k"),
-    "xlstm-1.3b": ("prefill_32k", "decode_32k", "long_500k"),
-}
-
 
 def small_cfg():
     """A 2-layer, d_model-64 dense configuration (qwen2.5-3b's family:
@@ -254,7 +242,8 @@ def test_micro_batches_counted_once_equal_a_whole_run():
     first micro-batch counted twice plus the update equals a run of both
     (FLOPs, collective bytes and counts); the all-gather bytes equal those
     of the specs, each block gathered twice a micro-batch (forward and
-    remat), the tied embedding twice (lookup and LM head)."""
+    remat), the tied embedding twice (lookup and LM head), plus the whole
+    batch gathered once to deal the micro-batches."""
     runs = []
     for whole in (False, True):
         mesh = roofline.RecordingMesh(("data", "model"), (2, 2))
@@ -278,7 +267,9 @@ def test_micro_batches_counted_once_equal_a_whole_run():
     blocks = sum(v for k, v in units.items() if k.startswith("blocks."))
     top = sum(v for k, v in units.items() if not k.startswith("blocks."))
     assert blocks > 0 and top > 0
-    assert once.coll.bytes_by_op["all-gather"] == 2 * (2 * blocks + 2 * top)
+    batch = sum(t.numel() * t.element_size() for t in structs[2].values())
+    assert once.coll.bytes_by_op["all-gather"] == \
+        2 * (2 * blocks + 2 * top) + batch
     assert once.coll.count_by_op["all-reduce"] > 0
 
 
@@ -288,12 +279,14 @@ def test_micro_batches_counted_once_equal_a_whole_run():
 def _expected_status(arch: str, shape: str) -> str:
     if not shape_applicable(ARCHS[arch], SHAPES[shape])[0]:
         return "skipped"
-    return "not_ported" if shape in NOT_PORTED.get(arch, ()) else "ok"
+    return "ok"
 
 
 def test_production_cell_statuses_from_the_builders():
-    """All 80 cells through the builders alone (no step run): 36 build,
-    16 are skipped, 28 raise the error that names item 6c."""
+    """All 80 cells through ``dryrun.build`` alone (no step run): 64 build
+    (the MoE steps with the batch split, the model-axis prefill and
+    decode of zamba2, xlstm and whisper and the batch-1 long_500k decode
+    among them), 16 are skipped."""
     got = {}
     for arch, shape, mesh_name in itertools.product(
             sorted(ARCHS), SHAPES, dryrun.MESHES):
@@ -301,15 +294,13 @@ def test_production_cell_statuses_from_the_builders():
         if want == "skipped":
             got[arch, shape, mesh_name] = want
             continue
-        built, why = dryrun.build(ARCHS[arch], dryrun.cell_mesh(mesh_name),
-                                  SHAPES[shape])
-        got[arch, shape, mesh_name] = "ok" if built else "not_ported"
-        if built is None:
-            assert steps.ROADMAP_ITEM in why
+        fn, *_, meta = dryrun.build(ARCHS[arch],
+                                    dryrun.cell_mesh(mesh_name),
+                                    SHAPES[shape])
+        got[arch, shape, mesh_name] = "ok" if callable(fn) else "error"
         assert got[arch, shape, mesh_name] == want, (arch, shape, mesh_name)
-    counts = {s: list(got.values()).count(s)
-              for s in ("ok", "skipped", "not_ported")}
-    assert counts == {"ok": 36, "skipped": 16, "not_ported": 28}
+    counts = {s: list(got.values()).count(s) for s in ("ok", "skipped")}
+    assert counts == {"ok": 64, "skipped": 16}
 
 
 def test_decode_cell_end_to_end():
@@ -349,7 +340,8 @@ def test_decode_cell_end_to_end():
 
 def test_prefill_cell_end_to_end_and_the_cli(tmp_path, capsys):
     """qwen2-vl-2b prefill_32k on the single pod through ``main``, with a
-    skipped and a not-ported cell, then ``--tables`` from those records."""
+    skipped cell and whisper-medium's model-axis decode on both meshes,
+    then ``--tables`` from those records."""
     out = str(tmp_path)
     assert dryrun.main(["--arch", "qwen2-vl-2b", "--shape", "prefill_32k",
                         "--out", out]) == 0
@@ -365,17 +357,22 @@ def test_prefill_cell_end_to_end_and_the_cli(tmp_path, capsys):
     assert rec["flops_per_dev"] > 0 and rec["hbm_bytes_per_dev"] > 0
     np_ = json.loads((tmp_path / "dryrun" /
                       "whisper-medium__decode_32k__multipod.json").read_text())
-    assert np_["status"] == "not_ported"
-    assert steps.ROADMAP_ITEM in np_["reason"]
+    # the self- and cross-attention caches split over model: one
+    # all-gather of the head outputs an attention, besides each layer's
+    # weights
+    assert np_["status"] == "ok" and np_["fits"]
+    assert np_["coll_detail"]["count"]["all-gather"] > \
+        3 * ARCHS["whisper-medium"].n_layers
     skip = json.loads((tmp_path / "dryrun" /
                        "qwen2.5-3b__long_500k__single.json").read_text())
     assert skip["status"] == "skipped"
     capsys.readouterr()
     assert dryrun.main(["--tables", "--out", out]) == 0
     text = capsys.readouterr().out
-    assert "1 ran OK, 1 skipped per spec, 2 not ported" in text
+    assert "3 ran OK, 1 skipped per spec, 0 failed" in text
     assert "| qwen2-vl-2b | prefill_32k | single | " in text
-    assert "| whisper-medium | decode_32k | not ported | not ported |" in text
+    assert "| whisper-medium | decode_32k | single | " in text
+    assert "| whisper-medium | decode_32k | multipod | " in text
 
 
 def test_new_modules_import_no_jax():

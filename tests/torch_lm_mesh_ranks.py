@@ -124,9 +124,9 @@ def clone(tree: dict) -> dict:
 
 def family_case(name: str, m22, m41, path: str) -> dict:
     """A family's train step on (2, 2) from JAX's weights and batch
-    (``path/{name}.pt``), and its data-parallel decode on (4, 1) beside
-    the one-process decode of the same weights (every rank computes that
-    too)."""
+    (``path/{name}.pt``), its data-parallel decode on (4, 1) beside the
+    one-process decode of the same weights (every rank computes that
+    too), and the axes its (2, 2) decode cache's specs name."""
     cfg = ARCHS[name].reduced()
     api = build_model(cfg)
     f = torch.load(os.path.join(path, f"{name}.pt"))
@@ -166,20 +166,16 @@ def family_case(name: str, m22, m41, path: str) -> dict:
         t = steps.place({"t": batch["tokens"][:, i:i + 1]},
                         {"t": dmeta["specs"]["tokens"]}, m41)["t"]
         out["decode"].append(dec(served, t, cache)[0])
-    try:
-        steps.make_decode_step(api, m22, dshape, dtype=torch.float32)
-    except NotImplementedError as e:
-        out["model_axis"] = str(e)
+    *_, meta22 = steps.make_decode_step(api, m22, dshape,
+                                        dtype=torch.float32)
+    out["model_axis"] = {a for spec in _leaves(meta22["specs"]["cache"])
+                         for e in spec for a in sh.spec_axes(e)}
     return out
 
 
-def reshard_case(mesh) -> dict:
-    """A (4, 8) tensor held split on dim 0 over ``data``, re-cut on dim 1."""
-    whole = torch.arange(32.0).reshape(4, 8)
-    t = sh.shard_of(whole, ("data", None), mesh)
-    return {"moved": steps.reshard(t, ("data", None), (None, "data"), mesh),
-            "kept": steps.reshard(t, ("data", "model"), ("data", None),
-                                  mesh)}
+def _leaves(tree: dict) -> list:
+    return [s for v in tree.values()
+            for s in (_leaves(v) if isinstance(v, dict) else [v])]
 
 
 def rank_main(rank: int, world: int, port: int, path: str) -> None:
@@ -205,8 +201,7 @@ def rank_main(rank: int, world: int, port: int, path: str) -> None:
                "serve22": serve_case(api, m22, state, f),
                "train": {f"{mode}/{micro}": train_case(api, m22, state, f,
                                                        mode, micro)
-                         for mode, micro in TRAIN_CASES},
-               "reshard": reshard_case(m41)}
+                         for mode, micro in TRAIN_CASES}}
         for name in FAMILIES:
             out[name] = family_case(name, m22, m41, path)
         torch.save(out, os.path.join(path, f"rank{rank}.pt"))
