@@ -75,8 +75,9 @@ Phases, each of which raises on failure:
    count reset just before its run and read just after; the sharded ids
    and per-tier bytes must equal fatrq's, front by front; recall@10 must
    reach 0.5 on the IVF paths and 0.1 (a broken traversal's floor) on the
-   graph paths; then queries/s (median of 5 runs, the paths in turns)
-   and, from one more profiled run of each path, its device time by
+   graph paths; then queries/s (median of 3 runs, the paths in turns)
+   and, from one more profiled run of each path (the graph paths' over
+   their first ``PROFILE_GRAPH_QUERIES`` queries), its device time by
    kernel and idle share (``torch.profiler`` and CUDA events);
 5. the plain ``reference`` backend on the card over a subset of queries
    must give the same ids and ledger as the ``cuda`` backend, unsharded
@@ -110,7 +111,7 @@ Phases, each of which raises on failure:
    ledgers, and without the cache overlap on and off equal row by row on
    the same batches; hits, misses, batches and padded slots, the
    modelled (virtual-clock) latencies, requests/s to drain with overlap
-   on, off and ``batching=False`` (host clock, median of 5, in turns),
+   on, off and ``batching=False`` (host clock, median of 3, in turns),
    and one profiled overlap-on run: device busy, idle share and how long
    the fronts' stream and the refines' stream ran kernels at once;
 6. the tiered layout: a never-rebalanced ``TieredIndex`` must give the
@@ -130,7 +131,7 @@ Phases, each of which raises on failure:
    kernel (one and two levels) against their plain versions at the
    tiered shape with the real hot mask and cold flags (alive and counts
    exact), queries/s of static fatrq, all-warm, cold-only, static fatrq
-   on the Zipfian trace and the hot pass (median of 5, in turns),
+   on the Zipfian trace and the hot pass (median of 3, in turns),
    profiled all-warm and hot passes, and one traced query batch and
    ``rebalance_tiers()``: bit-equal to untraced, the span tree, the
    ``index.rebalance_tiers`` event, ``tiered_rows`` summing to N, a
@@ -138,10 +139,11 @@ Phases, each of which raises on failure:
    modelled time;
 7. the streaming layout: the static paths' partitions and executors are
    freed, the 1M index is wrapped in a ``StreamingIndex`` (its graph taken over, so
-   ``insert_nodes`` runs in every round) and driven through three rounds
-   of churn, each inserting 20,000 perturbed copies of database rows and
-   deleting 20,000 random live ids (round 1 also rebalances over
-   ``--shards`` shards), each insert, delete, rebalance, rebuild and
+   ``insert_nodes`` runs in every round) and driven through
+   ``STREAM_ROUNDS`` rounds of churn (one), each inserting 20,000
+   perturbed copies of database rows and deleting 20,000 random live ids,
+   then rebalanced over ``--shards`` shards; each insert, delete,
+   rebalance, rebuild and
    compaction timed (encode, ``insert_nodes``, ``compact_graph``, the
    host copies and the cycle collection of a dropped snapshot apart);
    round 0's insert and delete traced (``index.insert`` and
@@ -155,12 +157,13 @@ Phases, each of which raises on failure:
    must give ``cuda``'s ids and ledger on 64 queries, both fronts.  In
    round 0: ``pq_adc`` and the fused kernel (with the candidates' real
    delta flags) against their plain versions at the streaming IVF shape,
-   queries/s of both fronts (median of 5, in turns) and one profiled IVF
-   run.  In the last round, ``shards=--shards``: IVF equal to the
+   queries/s of both fronts (median of 3, in turns) and one profiled IVF
+   run.  After each ``compact()`` and after the rebalance: the graph
+   front equal to a static search of the snapshot over the maintained
+   adjacency with ``start(n_live)``, IVF equal to its rebuild, no dead
+   id.  After the rebalance, ``shards=--shards``: IVF equal to the
    unsharded streaming answer, graph equal to the unsharded graph query
-   over the snapshot.  After each ``compact()``: the graph front equal to
-   a static search of the snapshot over the maintained adjacency with
-   ``start(n_live)``, and IVF equal to its rebuild.  The launches of
+   over the snapshot.  The launches of
    ``pq_adc`` and the fused kernel on both streaming fronts and of the
    bounds kernel on the sharded ones must be non-zero.  Then the peak
    device memory, which must stay under 70 GB;
@@ -257,10 +260,11 @@ Phases, each of which raises on failure:
    cache) steps each counted on the card and on the meta device by
    ``launch.roofline``'s counters: FLOPs equal, bytes within 1%, the
    meta live high-water mark within 0.5x-2x of the card's peak above
-   what was allocated before, the median of 5 step times beside the
+   what was allocated before, the median of 3 step times beside the
    modelled ``step_time_s``; then four production cells run on meta by
    ``launch.dryrun.run_cell`` with their expected statuses;
-   then the four examples (``examples/*_torch.py``) at their defaults,
+   then the four examples (``examples/*_torch.py``) at their defaults
+   (``train_lm_torch`` at 60 steps),
    each timed: FaTRQ's recall@10 within 0.1 of the baseline's with fewer
    SSD fetches, a modelled saving after ``rebalance_tiers()``, the RAG
    ids equal to ``db.query``'s, and the training loss (mean of the last
@@ -309,8 +313,23 @@ LEVEL0_TOL = 2e-5               # the level-0 kernels' tolerance there
 ADC_ATOL, ADC_RTOL = 1e-4, 1e-5  # sums of M f32 LUT entries in other orders
 
 
+# host-clock timings: runs of each path or mode, in turns; the median kept
+TIMING_RUNS = 3
+# the graph paths' profiled run covers their first queries (4 of the 16
+# micro-batches): the profiler's cost grows with their ~27 ops a hop
+PROFILE_GRAPH_QUERIES = 256
+
+
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def phase(label: str, t0: float) -> float:
+    """Print the wall seconds since ``t0`` as phase ``label``'s, on a line
+    of its own; → now (the next phase's ``t0``)."""
+    now = time.perf_counter()
+    print(f"phase {label}: {now - t0:.1f} s", flush=True)
+    return now
 
 
 def time_ms(fn, reps: int) -> float:
@@ -403,6 +422,7 @@ def device_breakdown(torch, label: str, fn, top: int = 6):
     run's first launch to after its last.  The profiler slows the host's
     launches, so this share is an upper bound on the unprofiled run's."""
     from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -423,7 +443,8 @@ def device_breakdown(torch, label: str, fn, top: int = 6):
               f"device events)")
         return
     print(f"{label} device time (profiled run): {busy_ms:.3f} ms busy of a "
-          f"{span_ms:.3f} ms span, idle share {1 - busy_ms / span_ms:.3f}")
+          f"{span_ms:.3f} ms span, idle share {1 - busy_ms / span_ms:.3f} "
+          f"(profiled and summed in {time.perf_counter() - t0:.1f} s)")
     # the top kernels, and every kernel of the port's own below them
     for i, (ms, count, name) in enumerate(rows):
         if i < top or name.startswith("(anonymous namespace)::"):
@@ -1163,7 +1184,7 @@ def check_repeatable(torch, one, two) -> None:
 
 
 # the streaming phase: rounds of churn, rows inserted and deleted per round
-STREAM_ROUNDS, STREAM_BATCH = 3, 20_000
+STREAM_ROUNDS, STREAM_BATCH = 1, 20_000
 PEAK_GB = 70.0                 # device memory the whole run may peak at
 
 
@@ -1355,6 +1376,34 @@ def streaming_phase(torch, args, cfg, index, ds, q64, lut64, launches,
         if not bool(live[ids.long()].all()):
             fail(f"{label}: a dead or unknown global id was returned")
 
+    def settled(label: str):
+        """After a compaction or a rebalance: the graph front equal to a
+        static search of the snapshot over the maintained adjacency, IVF
+        equal to the snapshot's; → (the IVF answer, the snapshot, its
+        global ids on the device)."""
+        (snap, gid), reb_s = timed(torch, st.rebuild_static)
+        gid_t = torch.from_numpy(gid).to(dev)
+        gres = sdb.query(queries, plan=plan_graph)
+        ex = SearchExecutor.from_index(snap, front="graph", backend="cuda",
+                                       micro_batch=cfg.micro_batch,
+                                       graph_index=st.graph_index())
+        g_rows, _, g_cost = ex.execute(queries, k=k)
+        same_answer(torch, f"streaming {label} (graph) against the static "
+                    f"search of its adjacency", gres.ids, gres.cost,
+                    gid_t[g_rows.long()], g_cost)
+        del ex
+        res = sdb.query(queries, plan=plan_ivf)
+        ref = Database.wrap(snap).query(queries, plan=plan_ivf)
+        same_answer(torch, f"streaming {label} (IVF) against its static "
+                    f"rebuild", res.ids, res.cost, gid_t[ref.ids.long()],
+                    ref.cost)
+        no_dead(f"streaming {label} (IVF)", res.ids)
+        no_dead(f"streaming {label} (graph)", gres.ids)
+        print(f"streaming {label}: graph equal to the static search over "
+              f"the maintained adjacency, IVF equal to the static rebuild "
+              f"({reb_s:.3f} s), ids and per-tier bytes, no dead id")
+        return res, snap, gid_t
+
     for rnd in range(STREAM_ROUNDS):
         pick = torch.randint(0, ds.x.shape[0], (STREAM_BATCH,),
                              generator=gen, device=dev)
@@ -1389,12 +1438,6 @@ def streaming_phase(torch, args, cfg, index, ds, q64, lut64, launches,
                   f"{tracer.spans[0].attrs} and index.delete "
                   f"{tracer.spans[1].attrs}; streaming_mutations_total "
                   f"insert 1, delete 1")
-        if rnd == 1:
-            stats, reb_s = timed(torch, lambda: st.rebalance(args.shards))
-            print(f"streaming round {rnd}: rebalance({args.shards}) "
-                  f"{reb_s:.3f} s ({timers.take()}), moved "
-                  f"{stats['moved_rows']} rows, shard loads "
-                  f"{stats['shard_loads']}")
         dcap, cap = st.delta_lists.shape[1], st.base_lists.shape[1]
         print(f"streaming round {rnd}: delta pages {dcap} slots wide, base "
               f"lists {cap}, C = {cfg.nprobe * (cap + dcap)} slots per "
@@ -1450,7 +1493,7 @@ def streaming_phase(torch, args, cfg, index, ds, q64, lut64, launches,
             rows["adc"], rows["refine"] = streaming_kernels(
                 torch, st, cfg, q64, lut64)
             runs = {"streaming": [], "streaming_graph": []}
-            for _ in range(5):
+            for _ in range(TIMING_RUNS):
                 for label, plan in (("streaming", plan_ivf),
                                     ("streaming_graph", plan_graph)):
                     runs[label].append(timed(
@@ -1461,53 +1504,40 @@ def streaming_phase(torch, args, cfg, index, ds, q64, lut64, launches,
                       f"(median of {[round(x, 6) for x in r]} s for {nq})")
             device_breakdown(torch, "streaming", lambda: sdb.query(
                 queries, plan=plan_ivf))
-        if rnd == STREAM_ROUNDS - 1:
-            # shards over the snapshot: IVF equals the unsharded streaming
-            # answer; graph partitions the snapshot's own fresh graph, so
-            # it equals the unsharded graph query over the snapshot
-            sres = counted("streaming_sharded",
-                           QueryPlan(shards=args.shards, backend="cuda"),
-                           ("pq_adc", "ternary_refine_fused_bounds"))
-            same_answer(torch, f"streaming shards={args.shards} (IVF)",
-                        sres.ids, sres.cost, res.ids, res.cost)
-            ug, ug_s = timed(torch, lambda: Database.wrap(snap).query(
-                queries, plan=plan_graph))
-            sg = counted("streaming_graph_sharded",
-                         QueryPlan(front="graph", shards=args.shards,
-                                   backend="cuda"),
-                         ("pq_adc", "ternary_refine_fused_bounds"))
-            same_answer(torch, f"streaming shards={args.shards} (graph)",
-                        sg.ids, sg.cost, gid_t[ug.ids.long()], ug.cost)
-            print(f"streaming shards={args.shards}: IVF equal to the "
-                  f"unsharded streaming answer; graph equal to the unsharded "
-                  f"graph query over the snapshot (its graph built in "
-                  f"{ug_s:.1f} s), ids and per-tier bytes")
         del snap, ref, gt
 
         stats, comp_s = timed(torch, st.compact)
         print(f"streaming round {rnd}: compact {comp_s:.3f} s "
               f"({timers.take()}), folded {stats['folded_delta_rows']} delta"
               f" rows, dropped {stats['dropped_tombstones']} tombstones")
-        (snap, gid), reb_s = timed(torch, st.rebuild_static)
-        gid_t = torch.from_numpy(gid).to(dev)
-        gres = sdb.query(queries, plan=plan_graph)
-        ex = SearchExecutor.from_index(snap, front="graph", backend="cuda",
-                                       micro_batch=cfg.micro_batch,
-                                       graph_index=st.graph_index())
-        g_rows, _, g_cost = ex.execute(queries, k=k)
-        same_answer(torch, f"streaming round {rnd} (graph, compacted) "
-                    f"against the static search of its adjacency", gres.ids,
-                    gres.cost, gid_t[g_rows.long()], g_cost)
-        del ex
-        res = sdb.query(queries, plan=plan_ivf)
-        ref = Database.wrap(snap).query(queries, plan=plan_ivf)
-        same_answer(torch, f"streaming round {rnd} (IVF, compacted) against "
-                    f"its static rebuild", res.ids, res.cost,
-                    gid_t[ref.ids.long()], ref.cost)
-        print(f"streaming round {rnd} compacted: graph equal to the static "
-              f"search over the maintained adjacency, IVF equal to the static"
-              f" rebuild ({reb_s:.3f} s), ids and per-tier bytes")
-        del snap, ref
+        settled(f"round {rnd} compacted")
+
+    stats, reb_s = timed(torch, lambda: st.rebalance(args.shards))
+    print(f"streaming: rebalance({args.shards}) {reb_s:.3f} s "
+          f"({timers.take()}), moved {stats['moved_rows']} rows, shard loads "
+          f"{stats['shard_loads']}")
+    res, snap, gid_t = settled("rebalanced")
+    # shards over the snapshot: IVF equals the unsharded streaming answer;
+    # graph partitions the snapshot's own fresh graph, so it equals the
+    # unsharded graph query over the snapshot
+    sres = counted("streaming_sharded",
+                   QueryPlan(shards=args.shards, backend="cuda"),
+                   ("pq_adc", "ternary_refine_fused_bounds"))
+    same_answer(torch, f"streaming shards={args.shards} (IVF)",
+                sres.ids, sres.cost, res.ids, res.cost)
+    ug, ug_s = timed(torch, lambda: Database.wrap(snap).query(
+        queries, plan=plan_graph))
+    sg = counted("streaming_graph_sharded",
+                 QueryPlan(front="graph", shards=args.shards,
+                           backend="cuda"),
+                 ("pq_adc", "ternary_refine_fused_bounds"))
+    same_answer(torch, f"streaming shards={args.shards} (graph)",
+                sg.ids, sg.cost, gid_t[ug.ids.long()], ug.cost)
+    print(f"streaming shards={args.shards}: IVF equal to the unsharded "
+          f"streaming answer; graph equal to the unsharded graph query over "
+          f"the snapshot (its graph built in {ug_s:.1f} s), ids and per-tier "
+          f"bytes")
+    del snap
     rows["adc"]["launches"] = launches["streaming"]["pq_adc"]
     rows["refine"]["launches"] = launches["streaming"]["ternary_refine_fused"]
     return rows["adc"], rows["refine"]
@@ -1774,15 +1804,15 @@ def tiered_phase(torch, args, cfg, db, ds, results, stores2, launches,
                           queries[:64].contiguous(), stores2,
                           launches["tiered"])
 
-    # queries/s, the paths in turns, median of 5; then profiled all-warm
-    # and hot passes
+    # queries/s, the paths in turns, median of TIMING_RUNS; then profiled
+    # all-warm and hot passes
     paths = {"static fatrq": (db, queries),
              "tiered all-warm": (warm_db, queries),
              "tiered cold-only": (cold_db, queries),
              "static fatrq, Zipfian": (db, zq),
              "tiered after rebalance, Zipfian": (zdb, zq)}
     runs = {label: [] for label in paths}
-    for _ in range(5):
+    for _ in range(TIMING_RUNS):
         for label, (pdb, q) in paths.items():
             runs[label].append(timed(
                 torch, lambda: pdb.query(q, plan=plans["ivf"]))[1])
@@ -2303,7 +2333,7 @@ def engine_phase(torch, args, cfg, db, ds, launches, reset_launches,
     runs = {"overlap on": [], "overlap off": [], "batching off": []}
     kws = {"overlap on": {}, "overlap off": {"overlap": False},
            "batching off": {"batching": False}}
-    for _ in range(5):
+    for _ in range(TIMING_RUNS):
         for label, kw in kws.items():
             e, reqs = engine(**kw), requests()
             runs[label].append(timed(torch, lambda: e.run(reqs))[1])
@@ -3223,7 +3253,9 @@ def train_phase(torch, args, dev="cuda") -> None:
 # ------------------------------------------------------ the LM mesh phase
 
 LM_MESH_LAYERS = 4              # depth of the 4-rank cells (full width)
-LM_MESH_PROMPT, LM_MESH_STEPS = 32, 4       # 8 x 32 prompt, 4 decode steps
+# an 8 x 34 prompt and 2 decode steps: a 36-position cache, split in 4
+# chunks of 9 by flash decode on (1, 4)
+LM_MESH_PROMPT, LM_MESH_STEPS = 34, 2
 LM_MESH_JOIN_S = 420            # a gloo rank that takes longer is hung
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6           # tests/test_torch_train_grads.py's
 LOSS_RTOL = 1e-4                            # tests/test_torch_train.py's
@@ -3244,8 +3276,9 @@ def lm_mesh_rank(rank: int, world: int, port: int, path: str, cfg,
     (``dev="cpu"`` to rehearse), ``cfg``'s model with the weights mapped
     from ``path/weights.pt``: on the (1, 4) mesh (sequence-sharded cache,
     flash decode) and on the (2, 2) mesh (batch and KV heads split), the
-    prefill step that fills this rank's shard of a cache from the 8 x 32
-    prompt, then 4 teacher-forced decode steps; on the (2, 2) mesh, one
+    prefill step that fills this rank's shard of a cache from the
+    ``LM_MESH_PROMPT`` prompt, then ``LM_MESH_STEPS`` teacher-forced
+    decode steps; on the (2, 2) mesh, one
     ``"2d"`` train step on this rank's rows, with the gradients it hands
     the optimizer compared on its shards with the parent's one-process
     gradients.  Its logits, errors, step times and peak memory to
@@ -3366,8 +3399,8 @@ def lm_mesh_phase(torch, args, dev="cuda") -> None:
        configuration (float32, TF32 off, weights from ``--seed``): the
        prefill step (last-position logits) equal to
        ``transformer.forward``'s, the prefill step that fills a cache of
-       36 positions (8 x 32 prompt) equal to ``transformer.prefill``'s,
-       then 4 decode steps equal to ``transformer.decode_step``'s, logits
+       36 positions (8 x 34 prompt) equal to ``transformer.prefill``'s,
+       then 2 decode steps equal to ``transformer.decode_step``'s, logits
        and cache bit for bit; one train step on 8 x 128 tokens equal to
        ``train.loop.make_step_fn``'s, loss and every updated parameter
        bit for bit; the step times beside the plain path's (prefill after
@@ -3378,7 +3411,7 @@ def lm_mesh_phase(torch, args, dev="cuda") -> None:
        (1, 4) (flash decode: qwen2.5-3b's 2 KV heads do not divide 4,
        so the cache's 36 positions are split in 4 chunks) and on (2, 2)
        (each rank 4 rows and one KV head), the prefill step filling the
-       rank's shard of the cache from the 8 x 32 prompt, then 4
+       rank's shard of the cache from the 8 x 34 prompt, then 2
        teacher-forced decode steps, each rank's logits within ``LM_TOL``
        of the one-process prefill and decode the parent ran on its rows;
        on (2, 2), ``"2d"``, one train
@@ -3631,7 +3664,7 @@ def lm_mesh_phase(torch, args, dev="cuda") -> None:
 # ---- the LM steps' last gaps: MoE groups over the batch axes, the
 # families' caches split over model, a sequence split over data
 
-GAPS_BATCH, GAPS_LEN, GAPS_STEPS = 8, 16, 2     # the families' decode
+GAPS_BATCH, GAPS_LEN, GAPS_STEPS = 8, 16, 1     # the families' decode
 GAPS_LONG, GAPS_LONG_STEPS = 32768, 4           # zamba2 at batch 1
 GAPS_MOE = "phi3.5-moe-42b-a6.6b"
 # The MoE takes one layer: with two, four ranks do not fit the one card
@@ -3645,7 +3678,7 @@ GAPS_MOE = "phi3.5-moe-42b-a6.6b"
 # gradient is rounded to bfloat16, then summed over up to 4 ranks in
 # bfloat16, so an element may move by several units in the last place
 # of the ranks' partial gradients; the loss and the norm relative
-GAPS_MOE_LAYERS, GAPS_MOE_STEPS = 1, 1          # after the 8 x 32 prompt
+GAPS_MOE_LAYERS, GAPS_MOE_STEPS = 1, 1          # after the 8 x 34 prompt
 GAPS_MOE_LOSS_RTOL, GAPS_MOE_GRAD_RTOL, GAPS_MOE_NORM_RTOL = 2e-3, 3e-2, 1e-2
 GAPS_MESHES = ((1, 4), (2, 2))                  # the families' meshes
 GAPS_JOIN_S = 600               # a gloo rank that takes longer is hung
@@ -3874,7 +3907,7 @@ def lm_mesh_gaps(torch, args, dev="cuda") -> None:
         steps from a cache filled with seeded values up to
         ``GAPS_LONG − GAPS_LONG_STEPS`` (every chunk holds positions),
         the same way;
-      * phi3.5-moe: the prefill that fills the cache (8 x 32) and
+      * phi3.5-moe: the prefill that fills the cache (8 x 34) and
         ``GAPS_MOE_STEPS`` decode steps on (4, 1) and (2, 2) (the
         router's groups spanning ranks), logits within ``LM_TOL``; its
         bfloat16 train step (8 x 128) on both meshes: the loss, the
@@ -4174,7 +4207,7 @@ def dryrun_phase(torch, args, dev="cuda") -> None:
             margs[1]["len"] = seq - 7
         on_meta = dryrun.count_step(mfn, mmeta, mmodel, *margs, mesh=mmesh)
         times = []
-        for _ in range(5):
+        for _ in range(TIMING_RUNS):
             start, end = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
             start.record()
@@ -4200,7 +4233,7 @@ def dryrun_phase(torch, args, dev="cuda") -> None:
             f"{on_meta.live_peak / 1e9:.3f} GB, card counter "
             f"{card.live_peak / 1e9:.3f} GB, card allocator "
             f"{used / 1e9:.3f} GB (ratio {ratio:.3f}); step "
-            f"{ms:.3f} ms (median of 5: "
+            f"{ms:.3f} ms (median of {TIMING_RUNS}: "
             f"{[round(t, 3) for t in times]}) against the modelled "
             f"step_time_s {report.step_time_s * 1e3:.3f} ms (compute "
             f"{report.compute_s * 1e3:.3f}, memory "
@@ -4652,7 +4685,8 @@ EXAMPLES = Path(__file__).resolve().parent / "examples"
 
 
 def examples_phase(torch) -> None:
-    """The four ``examples/*_torch.py`` on the card at their defaults,
+    """The four ``examples/*_torch.py`` on the card at their defaults
+    (``train_lm_torch`` at 60 steps of its 200),
     each timed, each result checked as ``tests/test_torch_examples.py``
     checks it on the host."""
     import importlib
@@ -4663,7 +4697,8 @@ def examples_phase(torch) -> None:
     try:
         for name, argv in (("quickstart_torch", []), ("tiered_torch", []),
                            ("rag_serving_torch", []),
-                           ("train_lm_torch", ["--ckpt-dir", tmp])):
+                           ("train_lm_torch", ["--steps", "60",
+                                               "--ckpt-dir", tmp])):
             print(f"---- example {name} {' '.join(argv)}".rstrip())
             got, s = timed(torch, lambda: importlib.import_module(name)
                            .main(argv))
@@ -4724,7 +4759,7 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
 
     # ---- data + index build
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    t = time.perf_counter()
+    t = t_phase = time.perf_counter()
     ds = make_dataset(n=args.n, d=768, n_queries=args.queries, k_gt=100,
                       generator=gen)
     torch.cuda.synchronize()
@@ -4787,6 +4822,7 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
           f"{time.perf_counter() - t:.2f} s (rows per shard "
           f"{gsi.shard_rows.tolist()}; halo vectors xs_loc "
           f"{tuple(xs_loc.shape)}, {xs_loc.numel() * 4 / 1e9:.2f} GB)")
+    t_phase = phase("dataset, index, graphs and partitions", t_phase)
 
     # ---- kernel phase, at the main path's shapes
     q64 = ds.queries[:64].contiguous()
@@ -4941,6 +4977,7 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
         cand.valid, tr.ternary_refine_fused(*refine_args, **refine_kw),
         k=cfg.final_k)
     del cand, stores1, every, lo_b, hi_b
+    t_phase = phase("kernels at the index paths' shapes", t_phase)
 
     # ---- main path
     queries = ds.queries
@@ -4974,6 +5011,7 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
                 fail(f"the {mode} path never launched {name}")
         print(f"{mode} path launches over {queries.shape[0]} queries in "
               f"{cfg.micro_batch}-query micro-batches: {launches[mode]}")
+    t_phase = phase("static, sharded and graph paths: counted runs", t_phase)
     # the multi-level kernels are each path's only refine scoring
     for mode, others in (("fatrq", ("ternary_refine_fused_bounds",
                                     "ternary_refine_batch",
@@ -4987,14 +5025,15 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
                     fail(f"the {path} path launched {name}")
 
     # queries/s: host clock around whole searches ended by a synchronize,
-    # the paths in turns, median of 5
+    # the paths in turns, median of TIMING_RUNS
     runs = {mode: [] for mode in plans}
-    for _ in range(5):
+    for _ in range(TIMING_RUNS):
         for mode, plan in plans.items():
             t = time.perf_counter()
             db.query(queries, plan=plan)
             torch.cuda.synchronize()
             runs[mode].append(time.perf_counter() - t)
+    t_phase = phase("static, sharded and graph paths: timed runs", t_phase)
     nq = queries.shape[0]
     for label, r in results.items():
         secs = sorted(runs[label])[len(runs[label]) // 2]
@@ -5015,8 +5054,10 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
         floor = 0.1 if label.startswith("graph") else 0.5
         if recall < floor:
             fail(f"{label}: recall@10 {recall:.4f} below {floor}")
-        device_breakdown(torch, label, lambda: db.query(
-            queries, plan=plans[label]))
+        prof_q = queries[:PROFILE_GRAPH_QUERIES] \
+            if label.startswith("graph") else queries
+        device_breakdown(torch, f"{label} ({prof_q.shape[0]} queries)",
+                         lambda: db.query(prof_q, plan=plans[label]))
     tier_bytes = lambda c: {t.value: v.bytes                  # noqa: E731
                             for t, v in c.by_tier().items()}
     for flat, sharded in (("fatrq", "sharded"), ("graph", "graph_sharded")):
@@ -5032,6 +5073,9 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
                  f"{tier_bytes(results[flat].cost)}")
         print(f"{sharded} ({args.shards} shards): ids and per-tier bytes "
               f"equal to the unsharded {flat} path's")
+
+    t_phase = phase("static, sharded and graph paths: checks and profiles",
+                    t_phase)
 
     # ---- the plain reference backend on the card, over a subset
     sub = queries[:64]
@@ -5050,16 +5094,18 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
         print(f"{label}: the reference backend on {sub.shape[0]} queries "
               f"gives the cuda backend's ids and ledger")
 
+    t_phase = phase("static, sharded and graph paths: the reference "
+                    "backend", t_phase)
+
     # ---- the paper's storage and distortion comparators on the index
     baselines_phase(torch, args, index, ds)
     gc.collect()
+    t_phase = phase("baselines", t_phase)
 
     # ---- the serving path over the same index
-    t = time.perf_counter()
     v_adc, v_refine = serving_phase(torch, args, cfg, db, ds, launches,
                                     reset_launches, read_launches)
-    print(f"serving phase (static and sharded): "
-          f"{time.perf_counter() - t:.1f} s")
+    t_phase = phase("serving (static and sharded)", t_phase)
 
     def serve_check(label, idx, q):
         t = time.perf_counter()
@@ -5069,13 +5115,12 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
         print(f"serving phase ({label}): {time.perf_counter() - t:.1f} s")
 
     # ---- the tiered layout over the same index
-    t = time.perf_counter()
     t_adc, t_refine = tiered_phase(torch, args, cfg, db, ds, results,
                                    stores2, launches, reset_launches,
                                    read_launches, serve_check)
     del stores2
     gc.collect()          # the tiered indexes and their executors
-    print(f"tiered phase: {time.perf_counter() - t:.1f} s")
+    t_phase = phase("tiered", t_phase)
 
     # ---- the streaming layout over the same index; the static paths are
     # done, so their partitions (the graph's 11.9 GB) and executors (each
@@ -5097,15 +5142,14 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
         fail(f"peak device memory {max(peak_static, peak):.1f} GB reaches "
              f"{PEAK_GB} GB")
     gc.collect()          # the streaming index and its snapshots
-    t = time.perf_counter()
+    t_phase = phase("streaming", t_phase)
     invalidation_phase(torch, args, cfg, index, ds)
-    print(f"serving phase (invalidation): {time.perf_counter() - t:.1f} s")
+    t_phase = phase("serving (invalidation)", t_phase)
 
     # ---- the sharded search across processes, over the same index
-    t = time.perf_counter()
     mesh_rows = mesh_phase(torch, args, cfg, db, queries, results, launches,
                            reset_launches, read_launches)
-    print(f"mesh phase: {time.perf_counter() - t:.1f} s")
+    phase("mesh", t_phase)
 
     print("library_ms: pq_adc's is one embedding_bag call at the fatrq "
           "shape (int32 indices built outside the timer, no +inf mask; the "
@@ -5199,6 +5243,7 @@ def main() -> int:
     print(prune_attributes(build))
     level0_attrs = level0_attributes(build, 154)
     sass_profile(build._target("ternary_refine"), "level0_kernelILb1E")
+    t = phase("kernel build and attributes", t)
     edge_prune(torch, tr,
                torch.Generator(device="cuda").manual_seed(args.seed + 3))
     edge_err, edge_bounds_err = edge_shapes(
@@ -5210,6 +5255,7 @@ def main() -> int:
     edge_level0_err = edge_level0(
         torch, tr, ops,
         torch.Generator(device="cuda").manual_seed(args.seed + 4))
+    t = phase("edge shapes", t)
 
     rows, launches = index_paths(
         torch, args, (edge_err, edge_bounds_err, edge_adc_err,
@@ -5217,24 +5263,31 @@ def main() -> int:
         read_launches)
     gc.collect()
     torch.cuda.empty_cache()
+    t = time.perf_counter()
     rag, db = rag_phase(torch, args, launches, reset_launches,
                         read_launches)
     gc.collect()
     torch.cuda.empty_cache()
+    t = phase("rag", t)
     families_phase(torch, args, db, launches, reset_launches, read_launches)
     del db
     gc.collect()
     torch.cuda.empty_cache()
+    t = phase("families", t)
     train_phase(torch, args)
     gc.collect()
     torch.cuda.empty_cache()
+    t = phase("train", t)
     lm_mesh_phase(torch, args)
     gc.collect()
     torch.cuda.empty_cache()
+    t = phase("lm_mesh (lm_mesh_gaps within)", t)
     dryrun_phase(torch, args)
     gc.collect()
     torch.cuda.empty_cache()
+    t = phase("dryrun", t)
     examples_phase(torch)
+    phase("examples", t)
     rows["pq_adc"]["rag"] = rag["pq_adc"]
     rows["ternary_refine_fused"]["rag"] = rag["ternary_refine_fused"]
     print("rag entries: pq_adc and ternary_refine_fused at the round "

@@ -331,6 +331,38 @@ class SearchExecutor:
         ids, _, cost = self.execute(queries, k=k, cost=cost)
         return ids, cost
 
+    def recall_by_cut(self, queries: torch.Tensor, gt: torch.Tensor, *,
+                      k: int | None = None) -> dict[str, float]:
+        """Where ``execute`` loses true neighbours: the share of the first
+        ``k`` ids of ``gt`` (Q, ≥k) still held after each cut, in order:
+        ``candidates`` (the front's valid slots, which the baseline
+        reranks whole, so its recall), ``survivors`` (alive after the last
+        level's prune), ``fetched`` (the top-``budget`` survivors by
+        estimate, which the rerank reads) and ``answer`` (the top-k).  The
+        static layout only; a diagnostic, not on the query path."""
+        cfg = self.index.config
+        k = k or cfg.final_k
+        budget = search_budget(cfg, k, self.refine_budget)
+        held = dict.fromkeys(("candidates", "survivors", "fetched",
+                              "answer"), 0)
+        for chunk, want in zip(iter_chunks(queries, self.micro_batch),
+                               iter_chunks(gt[:, :k], self.micro_batch)):
+            cand = self.front.candidates(chunk)
+            refined = self.backend.refine(chunk, cand, self.index.trq, k=k,
+                                          bound=cfg.bound, z=cfg.z)
+            topk, _, order, fetch_alive = stages_mod._rerank_fetch(
+                self.index.x, chunk, cand.ids, refined.est, refined.alive,
+                k=k, budget=budget)
+            for name, ids, keep in (
+                    ("candidates", cand.ids, cand.valid),
+                    ("survivors", cand.ids, refined.alive),
+                    ("fetched", torch.gather(cand.ids, 1, order),
+                     fetch_alive),
+                    ("answer", topk, torch.ones_like(topk, dtype=bool))):
+                hit = (want[:, :, None] == ids[:, None, :]) & keep[:, None]
+                held[name] += int(hit.any(-1).sum())
+        return {name: n / (queries.shape[0] * k) for name, n in held.items()}
+
     def execute_baseline(self, queries: torch.Tensor, *,
                          k: int | None = None, pad: bool = False
                          ) -> tuple[torch.Tensor, torch.Tensor, QueryCost]:

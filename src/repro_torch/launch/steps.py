@@ -128,7 +128,13 @@ class _Units:
     def reduce(self, key, grads, kinds) -> list:
         """Each whole gradient summed over the batch axes, divided by
         their size, and cut back to this rank's shard (``kinds``: the
-        shards' dtypes and devices, for a gradient autograd left None)."""
+        shards' dtypes and devices, for a gradient autograd left None).
+
+        Where the batch axes are above 1 the gradients are summed packed,
+        one flat buffer per dtype; every gradient returned is then a copy
+        out of it (a shard, or a replicated leaf whole), never a view, so
+        the buffer dies with this unit's backward instead of being pinned
+        by ``.grad`` until the update."""
         entries = self.units[key]
         gs = [g if g is not None else torch.zeros(e[2], dtype=dt, device=dv)
               for g, e, (dt, dv) in zip(grads, entries, kinds)]
@@ -143,7 +149,8 @@ class _Units:
                     gs[i] = flat[off:off + gs[i].numel()].view(gs[i].shape)
                     off += gs[i].numel()
         return [sh.shard_of(g, e[1], self.mesh).clone()
-                if sh.sharded(self.mesh, e[1]) else g
+                if sh.sharded(self.mesh, e[1]) else
+                g.clone() if n > 1 else g
                 for g, e in zip(gs, entries)]
 
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)        # xdist workers share the cores
 
 from repro_torch.anns import (Database, PipelineConfig,  # noqa: E402
                               QueryPlan, StreamingConfig, StreamingIndex,

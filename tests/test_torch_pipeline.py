@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)        # xdist workers share the cores
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -110,6 +111,30 @@ def test_micro_batches_and_buckets_change_nothing(data, pindex, mode):
     np.testing.assert_array_equal(split.distances.numpy(),
                                   whole.distances.numpy())
     assert _ledger(split.cost) == _ledger(whole.cost)
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_recall_by_cut(data, pindex, backend):
+    """The cuts hold ever fewer true neighbours; the candidates' share is
+    the baseline's recall, the answer's the query's, in micro-batches
+    too."""
+    from repro_torch.anns import recall_at_k
+    from repro_torch.anns.executor import SearchExecutor
+    q, gt = torch.from_numpy(data[1]), torch.from_numpy(data[2])
+    db = Database.wrap(pindex)
+    for micro_batch in (None, 7):
+        ex = SearchExecutor.from_index(pindex, backend=backend,
+                                       micro_batch=micro_batch)
+        cuts = ex.recall_by_cut(q, gt)
+        assert list(cuts) == ["candidates", "survivors", "fetched",
+                              "answer"]
+        vals = list(cuts.values())
+        assert vals == sorted(vals, reverse=True) and vals[-1] > 0
+        k = pindex.config.final_k
+        assert cuts["candidates"] == recall_at_k(db.query(
+            q, plan=QueryPlan(mode="baseline")).ids, gt, k)
+        assert cuts["answer"] == recall_at_k(db.query(
+            q, plan=QueryPlan(backend=backend)).ids, gt, k)
 
 
 def test_default_backend_follows_the_device(pindex):

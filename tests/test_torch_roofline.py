@@ -3,9 +3,12 @@
 independent counts: model FLOPs and parameter counts for every cell, the
 report's keys and properties, the recording mesh's conventions, a step
 counted on meta against the same step run on CPU tensors, micro-batches
-counted once and multiplied against a whole run, the 80 production
-cells' statuses, three production cells end to end, and the vectorised
-``steps._assemble`` against the per-rank loop it replaced."""
+counted once and multiplied against a whole run, a train step's
+gradients owning their storage (no view of a packed all-reduce buffer)
+and its live peak growing with depth by less than such buffers would
+add, the 80 production cells' statuses, three production cells end to
+end, and the vectorised ``steps._assemble`` against the per-rank loop it
+replaced."""
 
 import dataclasses
 import itertools
@@ -17,23 +20,27 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)        # xdist workers share the cores
 
 from repro.configs import ARCHS as JARCHS  # noqa: E402
 from repro.configs import SHAPES as JSHAPES  # noqa: E402
 from repro.launch import roofline as jroofline  # noqa: E402
 from repro_torch.configs import ARCHS, SHAPES, ShapeConfig, \
     shape_applicable  # noqa: E402
-from repro_torch.launch import dryrun, roofline, steps  # noqa: E402
+from repro_torch.launch import dryrun, input_specs, roofline, \
+    steps  # noqa: E402
 from repro_torch.launch import shardings as sh  # noqa: E402
 from repro_torch.launch.mesh import LMMesh, make_host_mesh  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.train import optimizer  # noqa: E402
 
 BF16 = torch.bfloat16
 
-def small_cfg():
-    """A 2-layer, d_model-64 dense configuration (qwen2.5-3b's family:
-    GQA, QKV bias, tied embeddings)."""
-    return dataclasses.replace(ARCHS["qwen2.5-3b"].reduced(), n_layers=2,
+def small_cfg(n_layers: int = 2):
+    """A 2-layer (or ``n_layers``), d_model-64 dense configuration
+    (qwen2.5-3b's family: GQA, QKV bias, tied embeddings)."""
+    return dataclasses.replace(ARCHS["qwen2.5-3b"].reduced(),
+                               n_layers=n_layers,
                                d_model=64, n_heads=4, n_kv_heads=2,
                                head_dim=16, d_ff=128, vocab=512)
 
@@ -135,8 +142,8 @@ def test_empty_factories_move_no_bytes(device):
 # ------------------------------------------------ meta against CPU tensors
 
 
-def _step(kind: str, mesh, num_micro=None):
-    cfg = small_cfg()
+def _step(kind: str, mesh, num_micro=None, n_layers: int = 2):
+    cfg = small_cfg(n_layers)
     api = build_model(cfg)
     if kind == "train":
         return api, steps.make_train_step(
@@ -271,6 +278,62 @@ def test_micro_batches_counted_once_equal_a_whole_run():
     assert once.coll.bytes_by_op["all-gather"] == \
         2 * (2 * blocks + 2 * top) + batch
     assert once.coll.count_by_op["all-reduce"] > 0
+
+
+def _counted_train(n_layers: int, monkeypatch):
+    """A train step of ``small_cfg(n_layers)`` counted on a (2, 2)
+    recording mesh; → (the gradients it handed to ``optimizer.update``,
+    its counts, the placed model, its parameters at their whole shapes)."""
+    handed = {}
+    update = optimizer.update
+
+    def spy(grads, *args, **kwargs):
+        handed.update(grads)
+        return update(grads, *args, **kwargs)
+    monkeypatch.setattr(optimizer, "update", spy)
+    mesh = roofline.RecordingMesh(("data", "model"), (2, 2))
+    api, (fn, structs, _, _, meta) = _step("train", mesh, n_layers=n_layers)
+    assert meta["num_micro"] == 1
+    model, args, _ = dryrun.place_inputs(structs, meta, mesh)
+    counts = dryrun.count_step(fn, meta, model, *args, mesh=mesh)
+    return handed, counts, model, input_specs.params_structs(api, BF16)
+
+
+def test_train_step_gradients_own_their_storage(monkeypatch):
+    """Every gradient the step hands to the update owns its storage: none
+    is a view into a unit's packed all-reduce buffer (which such a view
+    would keep alive until the update)."""
+    handed, _, model, _ = _counted_train(2, monkeypatch)
+    assert set(handed) == {n for n, _ in model.named_parameters()}
+    for name, g in handed.items():
+        assert g.untyped_storage().nbytes() == g.numel() * g.element_size(), \
+            name
+
+
+def test_train_step_peak_grows_by_less_than_pinned_buffers(monkeypatch):
+    """Two more blocks raise the step's live peak by less than two blocks'
+    whole gradient bytes W (bf16).
+
+    The layout on a (2, 2) mesh in "2d" FSDP mode: each block's matrices
+    and biases are split four ways and its norms replicated.  After a
+    block's backward the step keeps, until the update, its gradient
+    shards (the bytes of its placed parameters, S) and remat's saved
+    block input (2 rows × 16 positions × d_model 64, bf16, A): S + A < W
+    a block, so two more blocks add less than 2W wherever the peak falls.
+    A block whose gradients still viewed its packed, all-reduced buffer
+    would keep that whole buffer (W) besides, and two more blocks would
+    add more than 2W."""
+    peaks, whole, kept = {}, {}, {}
+    for n_layers in (2, 4):
+        _, counts, model, full = _counted_train(n_layers, monkeypatch)
+        peaks[n_layers] = counts.live_peak
+        kept[n_layers], whole[n_layers] = (
+            sum(p.numel() * p.element_size() for n, p in m.named_parameters()
+                if n.startswith("blocks.0.")) for m in (model, full))
+        kept[n_layers] += 2 * 16 * 64 * 2
+    w = whole[2]
+    assert whole[4] == w and kept[4] == kept[2] < w
+    assert 0 <= peaks[4] - peaks[2] < 2 * w
 
 
 # --------------------------------------------------- the production cells
