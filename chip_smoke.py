@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port of FaTRQ on one NVIDIA GPU.
 
     python3 chip_smoke.py            # 1M x 768 index, 1000 queries, 4 shards,
+                                     # then 100,000-row indexes at D = 2048
+                                     # and 8192 (pq_m = d / 8),
                                      # then qwen2.5-3b over a 1M x 2048 index,
                                      # then zamba2, xlstm and whisper, then
                                      # qwen2.5-3b training
@@ -11,7 +13,8 @@ Phases, each of which raises on failure:
 1. print the card (``nvidia-smi``), build every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel) and
    print each kernel's registers, stack and shared memory (``cuobjdump
-   -res-usage``), and the prune kernel's cluster width (CUDA runtime);
+   -res-usage``, each form of each kernel), and the prune kernel's cluster
+   width (CUDA runtime, both forms);
 2. make a synthetic 1M x 768 dataset with exact ground truth, build the
    index (PQ M=96, K=256; IVF nlist=1024; one TRQ level) twice from one
    seed, require the two builds' index arrays to be bit-equal, and
@@ -21,26 +24,32 @@ Phases, each of which raises on failure:
    partition the graph into ``--shards`` range + halo shards (timed);
 3. edge-shape phase: the fused and bounds refine kernels against their
    plain versions, and the bounds est against the fused est bit for bit,
-   on random code stores at G in {1, 13, 20, 154, 410} (410: D = 2048,
-   rows of three passes) and L in {1, 2, 3}, with
+   on random code stores at G in {1, 13, 20, 154, 410, 1437, 1438, 1639}
+   (410: D = 2048, rows of three passes; 1438 and 1639 past the shared
+   tables: the global forms, timed at 1639) and L in {1, 2, 3}, with
    C = 4133 slots (not a multiple of 32 or of a block's tile) and C = 64
    (the graph beam, every odd slot repeating the id and d0 of the slot
    before it), one query with no valid slot and one with every slot
    valid; ``pq_adc`` against its
-   plain version with +inf on exactly the invalid slots, at M in {4, 16,
-   20, 96, 128} and K in {16, 256} on the same slots, both row paths
-   giving the same bits where M % 16 == 0; the prune alone
+   plain version with +inf on exactly the invalid slots, at M in {4, 6,
+   16, 20, 96, 128, 220, 256, 1024} and K in {16, 256} on the same slots
+   (M = 220, 256, 1024 at K = 256 past the shared LUT: the global form,
+   timed at 1024 beside one ``embedding_bag``), the store read at offsets
+   0, 4 and 1 (the 16-byte, word and byte row paths) giving the same
+   bits; the prune alone
    (``ternary_refine_prune``) against ``prune_plain`` exactly (mask,
-   counts, tau) at C in {1, 31, 48, 64, 4133, 46,880, 446,000 (near its
-   capacity)} and k in {1, 10, 64}, three levels with the mask written
+   counts, tau) at C in {1, 31, 48, 64, 4133, 46,880, 446,000 (near the
+   shared form's capacity), 446,465, 1,048,576 (the global form, timed)}
+   and k in {1, 10, 64}, three levels with the mask written
    over the alive buffer it reads, forced ties at tau, queries with every,
    no and fewer than k alive slots, with and without delta rows; both
    level-0 forms (``ternary_refine_batch``, ``ternary_refine``) against
-   ``refine_level0_plain`` at each G and at G = 319, at Q = 5 and Q = 1
-   with C = 4133, on
+   ``refine_level0_plain`` at each G and at G = 319, 503 and 504 (past
+   the shared pair tables from 504), at Q = 5 and Q = 1 with C = 4133, on
    code bytes from 0..255 (243..255 decode as y - 243), on fresh tensors
    and on views whose code rows and scalars start at a base that is not
-   16-byte aligned;
+   16-byte aligned; at every shape where a kernel's shared form fits, its
+   global form (``form="global"``) must give the same bits;
    kernel phase: each kernel against its plain PyTorch version on the card
    at the shapes its path gives it (64 queries x nprobe 16 lists):
    ``pq_adc`` at the fatrq shape and on shard 0's candidates (its own code
@@ -61,7 +70,10 @@ Phases, each of which raises on failure:
    scored; the prune alone at the fatrq shape on those candidates' level-0
    bounds, exactly the fused call's survivors, timed beside its bound, its
    plain version and one ``torch.topk`` of the masked upper bounds (the
-   select of tau only) as its library time; then at the graph front's
+   select of tau only) as its library time; each of the six entry points
+   also in its global form at these shapes, bit-equal to the shared form
+   the shapes select and timed beside it in turns; then at the graph
+   front's
    shapes (the final 64-slot beams of 64 queries): ``pq_adc``, the fused
    refine kernel (both bounds, one and two levels, delta rows) and the
    prune alone on those beams, the bounds kernel on graph shard 0's beam
@@ -187,6 +199,23 @@ Phases, each of which raises on failure:
    and the bounds kernel launched on every rank; each rank's launches,
    times and peak memory, and the phase's wall time (gloo on one card:
    not a multi-GPU throughput);
+   then the wide phase (``wide_phase``), after the 1M x 768 tensors are
+   freed: the port's own build of 100,000 rows at (D, pq_m) = (2048, 256)
+   and (8192, 1024) (``make_embeddings`` rows, their spread scaled to keep
+   the 768-wide rows' ratio of noise to centre), K 256, nlist 100, nprobe
+   16, budget 40, one TRQ level, and 1000 queries through
+   ``Database.query`` (``cuda``), every count reset just before and read
+   just after: ``pq_adc`` (both widths) and the fused kernel (D = 8192,
+   G = 1639) in their global forms, the refine tables once a fused call,
+   no global form of the fused kernel at D = 2048; distances the
+   ids' exact L2; the ``reference`` backend's ids and ledger on 64
+   queries; recall@10 at least 0.5 and at least 0.9 of the IVF front's
+   ceiling (the share of the true top-10 among the candidates); queries/s
+   (median of 3), each kernel's device ms in one run of the path,
+   ``pq_adc`` and the fused kernel against their plain
+   versions at the path's shape with their bounds and ``embedding_bag``;
+   at D = 8192 the level-0 ops path on 8 queries' candidates (its global
+   form);
 9. the RAG round trip at the full width of qwen2.5-3b (36 layers,
    d_model 2048, 3,085,697,024 parameters in float32), after every
    earlier phase's tensors are freed: a 1M x 2048 index (``make_dataset``,
@@ -277,8 +306,11 @@ Phases, each of which raises on failure:
    kernel with ``rag`` entries at the RAG index's shape with the round
    trip's launches; ``launches_by_path`` also has ``rag_zamba2`` and
    ``rag_xlstm``, and the mesh phase's runs, one a rank; ``pq_adc`` and
-   the bounds kernel have a ``mesh`` entry with those launches), then the
-   result line
+   the bounds kernel have a ``mesh`` entry with those launches; every
+   kernel has a ``global`` entry: its global form at its widest run
+   shape, with its global-form launches over the wide paths, beside the
+   shared form at the fatrq shape (bit-equal) and at the edge shapes),
+   then the result line
    ``{"ok": true,
    "device": {...}}`` last.
 
@@ -357,10 +389,15 @@ def print_resources(libs) -> None:
                              capture_output=True, text=True,
                              check=True).stdout.splitlines()
         for name, usage in zip(out, out[1:]):
-            kernel = re.search(r"(\w+_kernel)", name)
+            kernel = re.search(r"\d((?:adc|score|bounds|prune|level0|"
+                               r"pair_tables|tables)_kernel)"
+                               r"(I((?:Lb[01]E)+)E)?", name)
             if name.strip().startswith("Function") and kernel:
-                print(f"{Path(lib).name.split('-')[0]} "
-                      f"{kernel.group(1)}: {usage.strip()}")
+                flags = re.findall(r"Lb([01])E", kernel.group(3) or "")
+                args = ",".join("true" if f == "1" else "false"
+                                for f in flags)
+                print(f"{Path(lib).name.split('-')[0]} {kernel.group(1)}"
+                      f"{f'<{args}>' if args else ''}: {usage.strip()}")
 
 
 def kernel_ms(torch, fn, reps: int) -> dict:
@@ -415,6 +452,36 @@ def close(a, b, atol: float, rtol: float):
     return ok, err
 
 
+def form_times(torch, label: str, shared, glob) -> dict:
+    """One kernel call at one shape in its shared form (``shared()``) and
+    its global form (``glob()``): their outputs (a tensor or a tuple of
+    them) must be equal bit for bit; each is timed twice in turns (shared,
+    global, global, shared; CUDA events, 20 calls a turn), and its own
+    kernels' device ms per call (``kernel_ms``: the port's kernels, the
+    global form's tables kernel included).  Returns the global form's ms
+    and device ms and the shared form's (means of the two turns)."""
+    a, b = shared(), glob()
+    torch.cuda.synchronize()
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail(f"{label}: the global form's output is not the shared form's "
+             f"bit for bit")
+    turns = [time_ms(f, 20) for f in (shared, glob, glob, shared)]
+    device = [sum(ms for name, ms in kernel_ms(torch, f, 20).items()
+                  if re.match(r"(void )?\(anonymous namespace\)::", name))
+              for f in (shared, glob)]
+    row = {"ms": (turns[1] + turns[2]) / 2,
+           "shared_ms": (turns[0] + turns[3]) / 2,
+           "device_ms": device[1], "shared_device_ms": device[0],
+           "bit_equal": True}
+    print(f"{label}: the global form bit-equal to the shared form; "
+          f"{row['ms']:.4f} ms per call against the shared form's "
+          f"{row['shared_ms']:.4f} (turns shared, global, global, shared: "
+          f"{', '.join(f'{t:.4f}' for t in turns)}); device "
+          f"{device[1]:.4f} ms against {device[0]:.4f}")
+    return row
+
+
 def device_breakdown(torch, label: str, fn, top: int = 6):
     """Device time by kernel over one more run of ``fn`` under
     ``torch.profiler``, and the device's idle share in that same run: one
@@ -466,10 +533,17 @@ def adc_cost(torch, label: str, ids, valid, m: int, k: int) -> dict:
                     bound(label, nbytes, n_valid * m)))
 
 
-def adc_library(torch, codes, ids, lut):
+#: most indices one embedding_bag call takes (it counts them in int32)
+EMBEDDING_BAG_MAX = 2**31 - 1
+
+
+def adc_library(torch, codes, ids, lut, valid=None):
     """One ``embedding_bag(idx, lut.reshape(-1, 1), mode="sum")`` call over
     every slot, ``idx`` the int32 indices q·M·K + m·K + code built outside
-    the timer (no +inf mask): its ms and its (Q, C) output."""
+    the timer (no +inf mask): its ms and its (Q, C) output.  Where every
+    slot's M indices would pass ``EMBEDDING_BAG_MAX``, the call takes the
+    ``valid`` slots only (the slots the kernel scores); the output then
+    holds +inf on the others."""
     nq, c = ids.shape
     m, k = lut.shape[1:]
     dev = ids.device
@@ -477,11 +551,19 @@ def adc_library(torch, codes, ids, lut):
     idx += torch.arange(m, device=dev, dtype=torch.int32) * k
     idx += (torch.arange(nq, device=dev, dtype=torch.int32)
             * (m * k))[:, None, None]
-    idx = idx.reshape(nq * c, m)
+    some = valid is not None and nq * c * m > EMBEDDING_BAG_MAX
+    idx = idx[valid] if some else idx.reshape(nq * c, m)
     weight = lut.reshape(-1, 1)
     call = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
         idx, weight, mode="sum")
-    return time_ms(call, 5), call().reshape(nq, c)
+    ms, out = time_ms(call, 5), call()
+    if not some:
+        return ms, out.reshape(nq, c)
+    print(f"embedding_bag over the {idx.shape[0]} valid slots only: "
+          f"{nq * c * m} indices for every slot pass its int32 count")
+    full = torch.full((nq, c), float("inf"), device=dev)
+    full[valid] = out[:, 0]
+    return ms, full
 
 
 def check_adc(torch, pq_adc_mod, codes, ids, valid, lut, label: str):
@@ -520,23 +602,28 @@ def check_adc(torch, pq_adc_mod, codes, ids, valid, lut, label: str):
     return got, row
 
 
-# M = 128 rows are longer than the kernel's 96-byte register chunk
-EDGE_ADC_M, EDGE_ADC_K = (4, 16, 20, 96, 128), (16, 256)
+# M = 128 rows are longer than the kernel's 96-byte register chunk; M = 6
+# is read as bytes; at K = 256, M = 220, 256 and 1024 are past the shared
+# LUT (the global form), while M = 1024 at K = 16 still fits it
+EDGE_ADC_M, EDGE_ADC_K = (4, 6, 16, 20, 96, 128, 220, 256, 1024), (16, 256)
+EDGE_ADC_WIDE = (1024, 256)     # the global form's timed edge shape
 
 
-def edge_adc(torch, pq_adc_mod, gen) -> float:
+def edge_adc(torch, pq_adc_mod, ops, gen) -> tuple[float, dict]:
     """``pq_adc`` against its plain version on random code stores at each
     M of ``EDGE_ADC_M`` and K of ``EDGE_ADC_K``, C = 4133 slots (not a
     multiple of 32 or of the 4096-slot tile); query 0 has no valid slot,
-    query 1 only valid ones, the rest ~30%.  Where M % 16 == 0 the same
-    store is also read at a 4-byte offset (the 4-byte-word row path) and
-    must give the same bits.  Returns the max error."""
+    query 1 only valid ones, the rest ~30%.  The same store is also read
+    at a 4-byte and a 1-byte offset (the word and the byte row paths) and
+    must give the same bits, and where the shared LUT fits, the global
+    form must too.  Returns the max error and the global form's row at
+    ``EDGE_ADC_WIDE``."""
     dev = gen.device
     valid = torch.rand((EDGE_Q, EDGE_C), generator=gen, device=dev) < 0.3
     valid[0], valid[1] = False, True
     ids = torch.randint(0, EDGE_N, (EDGE_Q, EDGE_C), generator=gen,
                         device=dev, dtype=torch.int32)
-    worst = 0.0
+    worst, row = 0.0, None
     for m in EDGE_ADC_M:
         for k in EDGE_ADC_K:
             codes = torch.randint(0, k, (EDGE_N, m), generator=gen,
@@ -553,20 +640,40 @@ def edge_adc(torch, pq_adc_mod, gen) -> float:
                 fail(f"pq_adc edge M={m} K={k}: +inf is not on exactly the "
                      f"invalid slots")
             paths = [pq_adc_mod.row_path(m, codes.data_ptr())]
-            if m % 16 == 0:
-                buf = torch.empty(EDGE_N * m + 16, dtype=torch.uint8,
-                                  device=dev)
-                shifted = buf[4:4 + EDGE_N * m].view(EDGE_N, m)
+            buf = torch.empty(EDGE_N * m + 16, dtype=torch.uint8, device=dev)
+            for off in (4, 1):
+                shifted = buf[off:off + EDGE_N * m].view(EDGE_N, m)
                 shifted.copy_(codes)
                 paths.append(pq_adc_mod.row_path(m, shifted.data_ptr()))
                 if not torch.equal(
                         pq_adc_mod.pq_adc(shifted, ids, valid, lut), got):
-                    fail(f"pq_adc edge M={m} K={k}: the {paths[1]} row path "
-                         f"differs from the {paths[0]} path")
+                    fail(f"pq_adc edge M={m} K={k}: the {paths[-1]} row "
+                         f"path differs from the {paths[0]} path")
+            form = ops.adc_form(m, k)
+            if form == "shared" and not torch.equal(pq_adc_mod._pq_adc(
+                    codes, ids, valid, lut, form="global"), got):
+                fail(f"pq_adc edge M={m} K={k}: the global form differs "
+                     f"from the shared form")
             worst = max(worst, err)
             print(f"pq_adc edge M={m} K={k}: max err {err:.3g}, row paths "
-                  f"{paths}")
-    return worst
+                  f"{paths} (equal bits), {form} form"
+                  + (", the global form bit-equal" if form == "shared"
+                     else ""))
+            if (m, k) == EDGE_ADC_WIDE:
+                row = dict(max_abs_err=err,
+                           ms=time_ms(lambda: pq_adc_mod.pq_adc(
+                               codes, ids, valid, lut), 20),
+                           plain_ms=time_ms(lambda: pq_adc_mod.pq_adc_plain(
+                               codes, ids, valid, lut), 3),
+                           library_ms=adc_library(torch, codes, ids, lut)[0],
+                           **adc_cost(torch, f"pq_adc edge M={m} K={k}", ids,
+                                      valid, m, k))
+                print(f"pq_adc edge M={m} K={k} (global form): "
+                      f"{row['ms']:.4f} ms per call (bound "
+                      f"{row['bound_ms']:.4f} ms), plain "
+                      f"{row['plain_ms']:.3f} ms, embedding_bag "
+                      f"{row['library_ms']:.4f} ms")
+    return worst, row
 
 
 def check_refine(torch, tr, ops, stores, model, cand, q, is_delta, *, k,
@@ -747,17 +854,20 @@ def check_level0(torch, tr, ops, model, q, packed, cols, counted, edge_err,
     return rows
 
 
-def edge_level0(torch, tr, ops, gen) -> tuple[float, float]:
-    """Both level-0 forms against ``refine_level0_plain`` at each G of
-    ``EDGE_L0_G``, at Q = ``EDGE_Q`` with C = ``EDGE_C`` slots (not a multiple
-    of a warp's 32-slot chunk) and at Q = 1, on code bytes drawn from
-    0..255 (every 7th from 243..255, which decode as y - 243): once on
+def edge_level0(torch, tr, ops, gen) -> tuple[float, float, dict]:
+    """Both level-0 entry points against ``refine_level0_plain`` at each G
+    of ``EDGE_L0_G``, at Q = ``EDGE_Q`` with C = ``EDGE_C`` slots (not a
+    multiple of a warp's 32-slot chunk) and at Q = 1, on code bytes drawn
+    from 0..255 (every 7th from 243..255, which decode as y - 243): once on
     fresh tensors and once on views whose code rows start at slot 1 of a
     buffer (a base that is not 16-byte aligned) and whose scalars start one
-    float in.  Returns the batch and the single-query form's max error."""
+    float in; where the shared form fits, the global form must give the
+    same bits.  Returns the batch and the single-query entry point's max
+    error and their global form's rows at G = ``EDGE_WIDE_G``."""
     dev = gen.device
-    errs = [0.0, 0.0]
+    errs, rows = [0.0, 0.0], {}
     for g in EDGE_L0_G:
+        form = ops.level0_form(g)
         for nq in (EDGE_Q, 1):
             c = EDGE_C
             packed = torch.randint(0, 256, (nq, c, g), generator=gen,
@@ -796,24 +906,52 @@ def edge_level0(torch, tr, ops, gen) -> tuple[float, float]:
                              f"{label} (code base % 16 = "
                              f"{pk.data_ptr() % 16}): max err {err}")
                     errs[i] = max(errs[i], err)
+                if form == "shared" and not (
+                        torch.equal(tr._level0_batch(pk, planes, sc, params,
+                                                     form="global"), got[0])
+                        and torch.equal(tr._level0_single(
+                            pk[0], planes[0], sc[0], params[:1],
+                            form="global"), got[1])):
+                    fail(f"level-0 edge G={g} Q={nq} {label}: the global "
+                         f"form differs from the shared form")
+            if g == EDGE_WIDE_G:
+                name = "ternary_refine_batch" if nq > 1 else "ternary_refine"
+                call = (lambda: tr.ternary_refine_batch(
+                    packed, planes, scalars, params)) if nq > 1 else (
+                    lambda: tr.ternary_refine(packed[0], planes[0],
+                                              scalars[0], params[:1]))
+                rows[name] = dict(
+                    max_abs_err=errs[nq == 1], ms=time_ms(call, 20),
+                    plain_ms=time_ms(lambda: tr.refine_level0_plain(
+                        packed, planes, scalars, params), 3),
+                    library_ms=None,
+                    **level0_cost(f"{name} edge G={g}", nq, c, g))
+                print(f"{name} edge G={g} Q={nq} (global form): "
+                      f"{rows[name]['ms']:.4f} ms per call (bound "
+                      f"{rows[name]['bound_ms']:.4f} ms), plain "
+                      f"{rows[name]['plain_ms']:.3f} ms")
         print(f"level-0 edge G={g}: Q={EDGE_Q} and Q=1, C={EDGE_C}, bytes "
               f"0..255, aligned and misaligned bases: max err "
-              f"{max(errs):.3g}")
-    return errs[0], errs[1]
+              f"{max(errs):.3g}; {form} form"
+              + (", the global form bit-equal" if form == "shared" else ""))
+    return errs[0], errs[1], rows
 
 
-def level0_attributes(build, g: int) -> dict:
+def level0_attributes(build, g: int, form: str = "shared") -> dict:
     """The level-0 kernel's registers, stack, warps per block, dynamic
-    shared memory and resident blocks per SM at width ``g``, as the CUDA
-    runtime reports them."""
+    shared memory and resident blocks per SM at width ``g`` in ``form``,
+    as the CUDA runtime reports them."""
     import ctypes
     fn = build.entry("ternary_refine", "fatrq_level0_attributes",
-                     [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+                     [ctypes.c_int, ctypes.c_int,
+                      ctypes.POINTER(ctypes.c_int)])
     out = (ctypes.c_int * 5)()
-    build.check("ternary_refine", fn(g, out), "fatrq_level0_attributes")
+    build.check("ternary_refine", fn(g, int(form == "global"), out),
+                "fatrq_level0_attributes")
     attrs = dict(zip(("registers", "stack_bytes", "warps_per_block",
                       "smem_bytes", "blocks_per_sm"), out))
-    print(f"level0_kernel (runtime, G={g}): {attrs['registers']} registers, "
+    print(f"level0_kernel ({form} form, runtime, G={g}): "
+          f"{attrs['registers']} registers, "
           f"{attrs['stack_bytes']} B stack, {attrs['warps_per_block']} warps "
           f"per block, {attrs['smem_bytes']} B dynamic shared memory, "
           f"{attrs['blocks_per_sm']} block(s) per SM")
@@ -863,30 +1001,39 @@ def sass_profile(lib, function: str) -> None:
 
 
 # packed widths of the edge-shape phase; G = 410 (D = 2048, the RAG
-# index) has rows of 3 passes
-EDGE_G = (1, 13, 20, 154, 410)
-EDGE_L0_G = EDGE_G + (319,)    # and G = 319 at level 0
+# index) has rows of 3 passes; 1437 is the widest the shared tables hold,
+# 1438 and 1639 (D = 8192) run the global form
+EDGE_G = (1, 13, 20, 154, 410, 1437, 1438, 1639)
+# and G = 319, 503 (the widest shared level-0 form) and 504 at level 0
+EDGE_L0_G = EDGE_G + (319, 503, 504)
+EDGE_WIDE_G = 1639             # the global forms' timed edge width
 EDGE_Q, EDGE_C, EDGE_N = 5, 4133, 20_000
 GRAPH_C = 64                   # the graph front's beam: its candidate slots
 
 
-# C = 446,000 is near the prune's 446,464-slot capacity (ops.prune_smem_bytes);
-# 1, 31 and 4133 take its 1-byte path (C % 16 != 0), the rest 16-byte
+# C = 446,000 is near the prune's shared form's 446,464-slot capacity
+# (ops.prune_smem_bytes), 446,465 and 1,048,576 run its global form; 1, 31,
+# 4133 and 446,465 take its 1-byte path (C % 16 != 0), the rest 16-byte
 # vectors; 64 is the graph beam
-EDGE_PRUNE_C, EDGE_PRUNE_K = (1, 31, 48, GRAPH_C, 4133, 46_880, 446_000), \
-    (1, 10, 64)
+EDGE_PRUNE_C, EDGE_PRUNE_K = (1, 31, 48, GRAPH_C, 4133, 46_880, 446_000,
+                              446_465, 1_048_576), (1, 10, 64)
+EDGE_PRUNE_WIDE = 1_048_576    # the global form's timed edge shape
 
 
-def edge_prune(torch, tr, gen) -> None:
+def edge_prune(torch, tr, ops, gen) -> dict:
     """The prune alone against ``prune_plain`` at each C of ``EDGE_PRUNE_C``
     and k of ``EDGE_PRUNE_K``, over three levels of random bounds with the
     mask written over the alive buffer it reads from level 1 on, as the
     fused kernel runs them.  Query 0 has every slot alive, query 1 none,
     query 2 hi and lo drawn from five values (ties at tau, lo on it),
     query 3 k − 1 alive slots.  Masks and counts must be equal, tau equal
-    as floats."""
+    as floats; where the shared form fits, the global form's chain must
+    give the same masks, counts and tau.  Returns the global form's row at
+    C = ``EDGE_PRUNE_WIDE``, k = 10."""
     dev, nq, nl = gen.device, 6, 3
+    row = None
     for c in EDGE_PRUNE_C:
+        form = ops.prune_form(c)
         lo, hi = [], []
         for _ in range(nl):
             h = torch.randn((nq, c), generator=gen, device=dev)
@@ -905,11 +1052,21 @@ def edge_prune(torch, tr, gen) -> None:
                 counts = torch.full((nq, 2 * nl), -1, dtype=torch.int32,
                                     device=dev)
                 buf = torch.empty_like(alive)
+                g_counts, g_buf = counts.clone(), torch.empty_like(alive)
                 want, cnts = alive, []
                 for lv in range(nl):
                     tau = tr.ternary_refine_prune(
                         lo[lv], hi[lv], alive if lv == 0 else buf, delta,
                         counts, buf, k=k, level=lv)
+                    if form == "shared":
+                        g_tau = tr._prune(lo[lv], hi[lv],
+                                          alive if lv == 0 else g_buf, delta,
+                                          g_counts, g_buf, k=k, level=lv,
+                                          form="global")
+                        if not (torch.equal(g_buf, buf)
+                                and torch.equal(g_tau, tau)):
+                            fail(f"prune edge C={c} k={k} level {lv}: the "
+                                 f"global form differs from the shared form")
                     want, cnt, dcnt, want_tau = tr.prune_plain(
                         lo[lv], hi[lv], want, delta, k=k)
                     cnts.append((cnt, dcnt))
@@ -921,24 +1078,59 @@ def edge_prune(torch, tr, gen) -> None:
                              f"prune_plain")
                 want_counts = torch.stack([x[0] for x in cnts]
                                           + [x[1] for x in cnts], dim=1)
-                if not torch.equal(counts, want_counts):
+                if not torch.equal(counts, want_counts) or (
+                        form == "shared"
+                        and not torch.equal(g_counts, counts)):
                     fail(f"prune edge C={c} k={k} delta={delta is not None}: "
-                         f"counts {counts.tolist()} vs {want_counts.tolist()}")
+                         f"counts {counts.tolist()} vs {want_counts.tolist()}"
+                         f" (global form {g_counts.tolist()})")
+            if c == EDGE_PRUNE_WIDE and k == 10:
+                row = prune_row(torch, tr, lo[0], hi[0], alive, k,
+                                f"prune edge C={c}")
         print(f"prune edge C={c}: k {EDGE_PRUNE_K}, {nl} levels in place, "
               f"delta rows and none: masks, counts and tau equal to "
-              f"prune_plain")
+              f"prune_plain; {form} form"
+              + (", the global form equal" if form == "shared" else ""))
+    return row
 
 
-def prune_attributes(build) -> str:
+def prune_row(torch, tr, lo, hi, alive, k: int, label: str) -> dict:
+    """The prune alone's ms, bound, plain ms and one ``torch.topk`` of the
+    masked upper bounds (τ only) on one input, as ``check_prune`` times
+    them."""
+    nq, c = hi.shape
+    out = torch.empty_like(alive)
+    counts = torch.zeros((nq, 2), dtype=torch.int32, device=alive.device)
+    masked = torch.where(alive, hi, float("inf"))
+    n_alive = int(alive.sum())
+    row = dict(max_abs_err=0.0,
+               ms=time_ms(lambda: tr.ternary_refine_prune(
+                   lo, hi, alive, None, counts, out, k=k), 20),
+               plain_ms=time_ms(lambda: tr.prune_plain(lo, hi, alive, None,
+                                                       k=k), 3),
+               library_ms=time_ms(lambda: torch.topk(masked, k,
+                                                     largest=False), 20),
+               **dict(zip(("bound_ms", "bound_by"), bound(
+                   label, nq * c * 2 + n_alive * 8 + nq * 2 * 4,
+                   2 * n_alive))))
+    print(f"{label}: {row['ms']:.4f} ms per call (bound {row['bound_ms']:.4f}"
+          f" ms), plain {row['plain_ms']:.3f} ms, torch.topk "
+          f"{row['library_ms']:.4f} ms")
+    return row
+
+
+def prune_attributes(build, form: str = "shared") -> str:
     """The prune kernel's registers, stack, static shared memory and
-    cluster width as the CUDA runtime reports them."""
+    cluster width in ``form`` as the CUDA runtime reports them."""
     import ctypes
     fn = build.entry("ternary_refine", "fatrq_prune_attributes",
-                     [ctypes.POINTER(ctypes.c_int)])
+                     [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
     out = (ctypes.c_int * 4)()
-    build.check("ternary_refine", fn(out), "fatrq_prune_attributes")
-    return (f"prune_kernel (runtime): {out[0]} registers, {out[1]} B stack, "
-            f"{out[2]} B static shared memory, cluster width {out[3]}")
+    build.check("ternary_refine", fn(int(form == "global"), out),
+                "fatrq_prune_attributes")
+    return (f"prune_kernel ({form} form, runtime): {out[0]} registers, "
+            f"{out[1]} B stack, {out[2]} B static shared memory, cluster "
+            f"width {out[3]}")
 
 
 def check_prune(torch, tr, lo, hi, alive, fused, *, k,
@@ -990,7 +1182,7 @@ def check_prune(torch, tr, lo, hi, alive, fused, *, k,
 
 
 def edge_shapes(torch, tr, ops, alive_chain, trq_mod, cal, Candidates,
-                gen) -> tuple[float, float]:
+                gen) -> tuple[float, float, dict]:
     """The fused and bounds kernels against their plain versions, and the
     bounds est against the fused est, on random code stores: each G of
     ``EDGE_G`` (rows at every byte alignment G allows) and L = 1, 2, 3,
@@ -1000,7 +1192,11 @@ def edge_shapes(torch, tr, ops, alive_chain, trq_mod, cal, Candidates,
     est, lo and hi).  Query 0 has no valid slot, query 1 only valid ones,
     the rest ~30%.  Invalid slots carry d0 = +inf (as the front gives), or
     a finite d0 at L = 2 so that the kernels' invalid-slot values are
-    compared too.  Returns the fused and the bounds kernel's max error."""
+    compared too.  Where the shared tables fit, each kernel's global form
+    (its prune's too) must give the shared form's bits, with one launch of
+    the refine tables for all L levels of a call.  Returns the fused
+    and the bounds kernel's max error and their global form's rows at
+    G = ``EDGE_WIDE_G``, C = 4133, L = 1, Cauchy."""
     dev = gen.device
 
     def rand(*shape):
@@ -1010,7 +1206,7 @@ def edge_shapes(torch, tr, ops, alive_chain, trq_mod, cal, Candidates,
         w=torch.tensor([1.0, 1.1, 0.95, 2.1], device=dev),
         bias=torch.tensor(0.3, device=dev),
         resid_std=torch.tensor(0.05, device=dev))
-    errs, ties = [0.0, 0.0], 0
+    errs, ties, rows = [0.0, 0.0], 0, {}
     for c in (EDGE_C, GRAPH_C):
         valid = rand(EDGE_Q, c) < 0.3
         valid[0], valid[1] = False, True
@@ -1052,9 +1248,78 @@ def edge_shapes(torch, tr, ops, alive_chain, trq_mod, cal, Candidates,
                                               label=label)
                     errs = [max(errs[0], err), max(errs[1], b_err)]
                     ties += n + b_n
+                    args = (stores, q, ids, cand.d0, valid)
+                    kw = dict(bound=bnd, z=3.0)
+                    if ops.refine_form(g) == "shared":
+                        for name, shared, glob, calls in (
+                                ("ternary_refine_fused",
+                                 lambda: tr.ternary_refine_fused(
+                                     *args, is_delta, model, k=10, **kw),
+                                 lambda: tr._fused(
+                                     *args, is_delta, model, k=10,
+                                     form="global", **kw),
+                                 lambda: tr.global_launches),
+                                ("ternary_refine_fused_bounds",
+                                 lambda: tr.ternary_refine_fused_bounds(
+                                     *args, model, **kw),
+                                 lambda: tr._bounds(*args, model,
+                                                    form="global", **kw),
+                                 lambda: tr.bounds_global_launches * nl)):
+                            before = (tr.tables_launches, calls())
+                            pair = (shared(), glob())
+                            built = (tr.tables_launches - before[0],
+                                     calls() - before[1])
+                            if not all(torch.equal(a, b)
+                                       for a, b in zip(*pair)):
+                                fail(f"{name} {label}: the global form "
+                                     f"differs from the shared form")
+                            if built != (1, nl):
+                                fail(f"{name} {label}: {built[0]} refine "
+                                     f"table launches for {built[1]} "
+                                     f"global-form levels (1 and {nl} "
+                                     f"expected)")
+                    if (g, c, nl, bnd) == (EDGE_WIDE_G, EDGE_C, 1, "cauchy"):
+                        rows = edge_refine_rows(torch, tr, ops, stores, model,
+                                                cand, q, label, (err, b_err))
+            print(f"edge G={g} C={c}: {ops.refine_form(g)} form"
+                  + (", the global forms bit-equal (est, alive, counts; "
+                     "est, lo, hi), their tables built once a call for "
+                     "every level" if ops.refine_form(g) == "shared"
+                     else ""))
     print(f"edge-shape phase: {2 * len(EDGE_G) * 6} configurations, max err "
           f"{max(errs):.3g}, alive mismatches at near-ties {ties}")
-    return errs[0], errs[1]
+    return errs[0], errs[1], rows
+
+
+def edge_refine_rows(torch, tr, ops, stores, model, cand, q, label,
+                     errs) -> dict:
+    """The fused and bounds kernels' ms, bound and plain ms at one edge
+    shape (their global forms at G = ``EDGE_WIDE_G``)."""
+    g = stores.packed[0].shape[1]
+    planes = ops.make_query_planes(q, g)
+    params = ops.query_params(q, model.w, model.bias, model.resid_std, 3.0)
+    args = (stores, q, cand.ids, cand.d0, cand.valid)
+    rows = {
+        "ternary_refine_fused": dict(
+            max_abs_err=errs[0],
+            ms=time_ms(lambda: tr.ternary_refine_fused(
+                *args, None, model, k=10, bound="cauchy", z=3.0), 20),
+            plain_ms=time_ms(lambda: tr.refine_plain(
+                stores, planes, params, *args[2:], None, k=10,
+                bound="cauchy"), 3),
+            library_ms=None, **refine_cost(torch, stores, cand, q)),
+        "ternary_refine_fused_bounds": dict(
+            max_abs_err=errs[1],
+            ms=time_ms(lambda: tr.ternary_refine_fused_bounds(
+                *args, model, bound="cauchy", z=3.0), 20),
+            plain_ms=time_ms(lambda: tr.refine_bounds_plain(
+                stores, planes, params, *args[2:], bound="cauchy"), 3),
+            library_ms=None, **bounds_cost(torch, stores, cand, q))}
+    for name, row in rows.items():
+        print(f"{name} {label} ({ops.refine_form(g)} form): "
+              f"{row['ms']:.4f} ms per call (bound {row['bound_ms']:.4f} ms),"
+              f" plain {row['plain_ms']:.3f} ms")
+    return rows
 
 
 def graph_kernels(torch, tr, ops, alive_chain, pq_adc_mod, Candidates,
@@ -2046,7 +2311,7 @@ def path_kernels(torch, db, cfg, q, label: str, qvalid=None,
     if not torch.equal(d0, cand.d0):
         fail(f"pq_adc {label}: the front's d0 differs from a second call's")
     adc["library_ms"], lib_d = adc_library(torch, index.pq_codes, cand.ids,
-                                           lut)
+                                           lut, cand.valid)
     ok, lib_err = close(lib_d[cand.valid], d0[cand.valid], ADC_ATOL,
                         ADC_RTOL)
     if not ok:
@@ -4372,19 +4637,39 @@ def baselines_phase(torch, args, index, ds) -> None:
 
 def zero_launches(pq_adc_mod, tr) -> None:
     """Set every kernel wrapper's launch count to 0."""
-    pq_adc_mod.launches = 0
+    pq_adc_mod.launches = pq_adc_mod.global_launches = 0
     tr.launches = tr.bounds_launches = 0
     tr.batch_launches = tr.single_launches = tr.prune_launches = 0
+    tr.global_launches = tr.bounds_global_launches = 0
+    tr.level0_global_launches = tr.prune_global_launches = 0
+    tr.tables_launches = tr.pair_tables_launches = 0
+
+
+#: the launch counts of the kernels' global forms (``launch_counts``)
+GLOBAL_COUNTS = ("pq_adc (global)", "ternary_refine_fused (global)",
+                 "ternary_refine_fused_bounds (global)", "level-0 (global)",
+                 "prune (global)", "refine tables (global)",
+                 "pair tables (global)")
 
 
 def launch_counts(pq_adc_mod, tr) -> dict:
-    """Every kernel wrapper's launch count, by kernel name."""
+    """Every kernel wrapper's launch count, by kernel name, and of them the
+    global forms' (``GLOBAL_COUNTS``: the level-0 kernel's over both entry
+    points, the prune's over the fused kernel's and its own launches, and
+    the table kernels' that only the global forms launch: the refine
+    tables once a fused or bounds call, the pair tables once a level-0
+    call)."""
     return {"pq_adc": pq_adc_mod.launches,
             "ternary_refine_fused": tr.launches,
             "ternary_refine_fused_bounds": tr.bounds_launches,
             "ternary_refine_batch": tr.batch_launches,
             "ternary_refine": tr.single_launches,
-            "ternary_refine_prune": tr.prune_launches}
+            "ternary_refine_prune": tr.prune_launches,
+            **dict(zip(GLOBAL_COUNTS, (
+                pq_adc_mod.global_launches, tr.global_launches,
+                tr.bounds_global_launches, tr.level0_global_launches,
+                tr.prune_global_launches, tr.tables_launches,
+                tr.pair_tables_launches)))}
 
 
 # -------------------------------------------------------- the mesh phase
@@ -4842,6 +5127,14 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
           f"(int32 indices built outside the timer, no +inf mask), max err "
           f"on valid slots {lib_err:.3g}")
     del lib_d
+    # each kernel's global form at the fatrq shape, where the shared form
+    # fits: bit-equal to it, timed beside it
+    glob = {"pq_adc": form_times(
+        torch, "pq_adc fatrq shape",
+        lambda: pq_adc_mod.pq_adc(index.pq_codes, cand.ids, cand.valid,
+                                  lut64),
+        lambda: pq_adc_mod._pq_adc(index.pq_codes, cand.ids, cand.valid,
+                                   lut64, form="global"))}
     stores1 = tr.RefineStores.from_trq(index.trq)
     x_c = pq_mod.decode(index.codebook, index.pq_codes)
     trq2 = trq_mod.encode_database(index.x, x_c, num_levels=2)
@@ -4918,6 +5211,12 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
     print_launches(torch, "ternary_refine_fused_bounds",
                    lambda: tr.ternary_refine_fused_bounds(
                        *b_args, model, bound="cauchy", z=cfg.z), 20)
+    glob["ternary_refine_fused_bounds"] = form_times(
+        torch, "ternary_refine_fused_bounds shard 0",
+        lambda: tr.ternary_refine_fused_bounds(*b_args, model,
+                                               bound="cauchy", z=cfg.z),
+        lambda: tr._bounds(*b_args, model, bound="cauchy", z=cfg.z,
+                           form="global"))
     print(f"ternary_refine_fused_bounds: {bounds_row['ms']:.3f} ms with "
           f"{int(sh_cand.valid.sum())} valid slots of {sh_cand.valid.numel()}"
           f", {no_skip_ms:.3f} ms with every slot scored")
@@ -4943,6 +5242,20 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
             fail(f"the ops path never launched {name}")
     level0_rows = check_level0(torch, tr, ops, model, q64, packed64, cols,
                                counted, edge_level0_err, level0_attrs)
+    l0 = ops.level0_inputs(q64, packed64.shape[-1], *cols, model.w,
+                           model.bias)
+    glob["ternary_refine_batch"] = form_times(
+        torch, "ternary_refine_batch fatrq shape",
+        lambda: tr.ternary_refine_batch(packed64, l0[0], l0[2], l0[1]),
+        lambda: tr._level0_batch(packed64, l0[0], l0[2], l0[1],
+                                 form="global"))
+    glob["ternary_refine"] = form_times(
+        torch, "ternary_refine fatrq shape (query 0)",
+        lambda: tr.ternary_refine(packed64[0], l0[0][0], l0[2][0],
+                                  l0[1][:1]),
+        lambda: tr._level0_single(packed64[0], l0[0][0], l0[2][0],
+                                  l0[1][:1], form="global"))
+    del l0
     del packed64, rec64, cols, counted
     refine_args = (stores1, q64, cand.ids, cand.d0, cand.valid, None, model)
     refine_kw = dict(k=cfg.final_k, bound="cauchy", z=cfg.z)
@@ -4976,6 +5289,22 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
         torch, tr, lo_b[:, 0].contiguous(), hi_b[:, 0].contiguous(),
         cand.valid, tr.ternary_refine_fused(*refine_args, **refine_kw),
         k=cfg.final_k)
+    glob["ternary_refine_fused"] = form_times(
+        torch, "ternary_refine_fused fatrq shape",
+        lambda: tr.ternary_refine_fused(*refine_args, **refine_kw),
+        lambda: tr._fused(*refine_args, **refine_kw, form="global"))
+
+    def prune_in(form):
+        out = torch.empty_like(cand.valid)
+        counts = torch.zeros((cand.valid.shape[0], 2), dtype=torch.int32,
+                             device=out.device)
+        tau = tr._prune(lo_b[:, 0].contiguous(), hi_b[:, 0].contiguous(),
+                        cand.valid, None, counts, out, k=cfg.final_k,
+                        form=form)
+        return tau, out, counts
+    glob["prune"] = form_times(torch, "prune fatrq shape",
+                               lambda: prune_in(None),
+                               lambda: prune_in("global"))
     del cand, stores1, every, lo_b, hi_b
     t_phase = phase("kernels at the index paths' shapes", t_phase)
 
@@ -5009,6 +5338,8 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
         for name in needs[mode]:
             if launches[mode][name] == 0:
                 fail(f"the {mode} path never launched {name}")
+        if any(launches[mode][name] for name in GLOBAL_COUNTS):
+            fail(f"the {mode} path ran a global form at the 768-wide shapes")
         print(f"{mode} path launches over {queries.shape[0]} queries in "
               f"{cfg.micro_batch}-query micro-batches: {launches[mode]}")
     t_phase = phase("static, sharded and graph paths: counted runs", t_phase)
@@ -5190,10 +5521,262 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
     adc["mesh"] = mesh_rows["pq_adc"]
     bounds_row["mesh"] = mesh_rows["ternary_refine_fused_bounds"]
 
+    for name, row in (("pq_adc", adc), ("ternary_refine_fused", refine),
+                      ("ternary_refine_fused_bounds", bounds_row),
+                      ("prune", refine["prune"]),
+                      *level0_rows.items()):
+        row["global"] = {"fatrq_shape": glob[name]}
     return {"pq_adc": adc, "ternary_refine_fused": refine,
             "ternary_refine_fused_bounds": bounds_row,
             "ternary_refine_batch": level0_rows["ternary_refine_batch"],
             "ternary_refine": level0_rows["ternary_refine"]}, launches
+
+
+# ------------------------------------------------------- the wide phase
+
+#: (D, pq_m) of the wide cells: backbone widths at the JAX package's
+#: pq_m = d // 8 (qwen2.5-3b, xlstm, zamba2: 2048; qwen2-72b: 8192), K = 256
+WIDE_SHAPES = ((2048, 256), (8192, 1024))
+WIDE_N, WIDE_QUERIES, WIDE_RECALL = 100_000, 1000, 0.5
+#: fatrq's recall@10 against the IVF front's ceiling (the share of the true
+#: top-10 among the candidates: what an exact rerank of them all reaches)
+WIDE_CEILING_SHARE = 0.9
+#: the within-cluster spread of ``make_embeddings`` at D = 768; the wide
+#: rows take 0.35 * sqrt(768 / D), which keeps the 768-wide rows' ratio of
+#: the within-cluster noise's norm to the cluster centre's (at a fixed
+#: spread the noise's norm grows as sqrt(D), and at the default spread the
+#: rows are so diffuse at D = 8192 that the IVF front holds 38% of the
+#: true top-10)
+WIDE_BASE_SPREAD, WIDE_BASE_D = 0.35, 768
+
+
+def wide_dataset(torch, n: int, dim: int, n_queries: int, seed: int):
+    """``make_dataset``'s rows, queries and exact top-10 at width ``dim``
+    with the within-cluster spread scaled as ``WIDE_BASE_SPREAD`` says,
+    drawn on the card from ``seed``."""
+    from repro_torch.data import Dataset, brute_force_topk, make_embeddings
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = make_embeddings(gen, n, dim, spread=WIDE_BASE_SPREAD
+                        * (WIDE_BASE_D / dim) ** 0.5)
+    pick = torch.randint(0, n, (n_queries,), generator=gen,
+                         device=gen.device)
+    noise = torch.randn((n_queries, dim), generator=gen, device=gen.device)
+    q = x[pick] + 0.25 * noise / dim ** 0.5
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return Dataset(x=x, queries=q, gt=brute_force_topk(x, q, 10))
+WIDE_OPS_QUERIES = 8            # queries of the level-0 ops path at D = 8192
+
+
+def wide_phase(torch, args, launches, reset_launches, read_launches,
+               build) -> dict:
+    """The port's own build and search at the backbones' widths, where
+    ``pq_adc`` (both) and the fused kernel (D = 8192, G = 1639) run their
+    global forms: for each (D, M) of ``WIDE_SHAPES`` a 100,000-row index
+    (``wide_dataset``; nlist 100, nprobe 16, budget 40, one TRQ level) and
+    1000 queries through ``QueryPlan(backend="cuda")``, every count reset
+    just before and read just after (``wide_<D>``): the global forms
+    launched, the refine tables once a fused call, distances the ids'
+    exact L2, the ``reference`` backend's ids and ledger on 64 queries,
+    recall@10 of at least 0.5 and of at least 0.9 of the IVF front's
+    ceiling (the share of the true top-10 among the candidates), queries/s
+    (median of 3), each kernel's device ms in one run of the path, and the
+    kernels against their plain versions at the path's shape
+    (``path_kernels``); at D = 8192 also the level-0 ops path
+    (``wide_ops``: ``ops.refine_scores_batch`` / ``refine_scores`` on 8
+    queries' candidates, its global form).  Returns the rows by cell."""
+    from repro_torch.anns import Database, PipelineConfig, QueryPlan, \
+        recall_at_k
+    from repro_torch.anns.stages import make_ivf_front
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_refine as tr
+    rows = {}
+    ledger = lambda c: {k: (v.accesses, v.bytes)              # noqa: E731
+                        for k, v in c.ledger.items()}
+    for dim, m in WIDE_SHAPES:
+        t0 = time.perf_counter()
+        label = f"wide_{dim}"
+        ds = wide_dataset(torch, WIDE_N, dim, WIDE_QUERIES, args.seed)
+        cfg = PipelineConfig(dim=dim, pq_m=m, pq_k=256, nlist=100,
+                             nprobe=16, trq_levels=1, final_k=10,
+                             refine_budget=40, bound="cauchy",
+                             micro_batch=64)
+        db, build_s = timed(torch, lambda: Database.build(
+            ds.x, cfg, generator=torch.Generator(device="cuda")
+            .manual_seed(args.seed)))
+        index = db.index
+        g = index.trq.levels[0].packed.shape[1]
+        forms = {"pq_adc": ops.adc_form(m, cfg.pq_k),
+                 "ternary_refine_fused": ops.refine_form(g)}
+        print(f"{label}: {WIDE_N} x {dim}, PQ M={m} K={cfg.pq_k}, G={g}, "
+              f"IVF cap {index.ivf.cap} (C = {cfg.nprobe * index.ivf.cap}); "
+              f"data and build {time.perf_counter() - t0:.1f} s (build "
+              f"{build_s:.1f}); forms {forms}")
+        if forms["pq_adc"] != "global":
+            fail(f"{label}: pq_adc selects the {forms['pq_adc']} form")
+        plan = QueryPlan(backend="cuda")
+        db.query(ds.queries[:64], plan=plan)        # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        res = db.query(ds.queries, plan=plan)
+        torch.cuda.synchronize()
+        launches[label] = got = read_launches()
+        print(f"{label} path launches over {WIDE_QUERIES} queries: {got}")
+        for name in ("pq_adc", "ternary_refine_fused", "pq_adc (global)"):
+            if got[name] == 0:
+                fail(f"the {label} path never launched {name}")
+        if (got["ternary_refine_fused (global)"] > 0) != (
+                forms["ternary_refine_fused"] == "global"):
+            fail(f"the {label} path ran the fused kernel in a form its "
+                 f"shapes do not select")
+        if got["refine tables (global)"] * cfg.trq_levels != \
+                got["ternary_refine_fused (global)"]:
+            fail(f"the {label} path did not build the refine tables once "
+                 f"per fused call")
+        runs = []
+        for _ in range(TIMING_RUNS):
+            t = time.perf_counter()
+            db.query(ds.queries, plan=plan)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t)
+        exact = ((index.x[res.ids.long()] - ds.queries[:, None]) ** 2).sum(-1)
+        ok, err = close(res.distances, exact, 1e-5, 1e-5)
+        if not ok:
+            fail(f"{label}: distances are not the ids' exact L2 ({err})")
+        sub = ds.queries[:64]
+        ref = db.query(sub, plan=QueryPlan(backend="reference",
+                                           micro_batch=8))
+        cud = db.query(sub, plan=plan)
+        if not torch.equal(ref.ids, cud.ids) or \
+                ledger(ref.cost) != ledger(cud.cost):
+            fail(f"{label}: the reference and cuda backends differ (ids or "
+                 f"ledger)")
+        print(f"{label}: the reference backend on {sub.shape[0]} queries "
+              f"gives the cuda backend's ids and ledger")
+        recall = recall_at_k(res.ids, ds.gt, cfg.final_k)
+        ceiling = ivf_ceiling(torch, make_ivf_front(index), ds.queries,
+                              ds.gt[:, :cfg.final_k])
+        print(f"{label}: recall@10 {recall:.4f} (the IVF front's ceiling "
+              f"{ceiling:.4f}: the share of the true top-10 among the "
+              f"candidates), {WIDE_QUERIES / statistics.median(runs):.1f} "
+              f"queries/s (median of {[round(r, 6) for r in runs]} s), SSD "
+              f"fetches/query "
+              f"{res.cost.ledger['rerank:ssd'].accesses / WIDE_QUERIES:.1f}")
+        if recall < WIDE_CEILING_SHARE * ceiling:
+            fail(f"{label}: recall@10 {recall:.4f} below {WIDE_CEILING_SHARE}"
+                 f" of the IVF front's ceiling {ceiling:.4f}")
+        if recall < WIDE_RECALL:
+            fail(f"{label}: recall@10 {recall:.4f} below {WIDE_RECALL}")
+        print_launches(torch, f"{label} path (ms per path run of "
+                              f"{WIDE_QUERIES} queries)",
+                       lambda: db.query(ds.queries, plan=plan), 1)
+        del res, ref, cud, exact
+        adc, refine, *_ = path_kernels(torch, db, cfg,
+                                       ds.queries[:64].contiguous(),
+                                       f"{label} shape")
+        adc["launches"] = got["pq_adc"]
+        refine["launches"] = got["ternary_refine_fused"]
+        rows[label] = {"pq_adc": adc, "ternary_refine_fused": refine,
+                       "queries_per_s": WIDE_QUERIES / statistics.median(runs),
+                       "recall_at_10": recall, "ivf_ceiling": ceiling}
+        if forms["ternary_refine_fused"] == "global":
+            rows["wide_ops"] = wide_ops(torch, tr, ops, build, index,
+                                        make_ivf_front, ds.queries, launches,
+                                        reset_launches, read_launches)
+        print(f"{label}: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+        del db, index, ds
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{label}: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def ivf_ceiling(torch, front, queries, gt) -> float:
+    """The share of the true top-k ``gt`` (Q, k) that lies among the IVF
+    front's valid candidates, over 64-query micro-batches: the recall@k
+    an exact rerank of every candidate reaches."""
+    found = 0
+    for a in range(0, queries.shape[0], 64):
+        cand = front.candidates(queries[a:a + 64].contiguous())
+        hit = (cand.ids[:, :, None].long() == gt[a:a + 64, None, :]) \
+            & cand.valid[:, :, None]
+        found += int(hit.any(1).sum())
+    return found / gt.numel()
+
+
+def wide_ops(torch, tr, ops, build, index, make_ivf_front, queries,
+             launches, reset_launches, read_launches) -> dict:
+    """The level-0 ops path at the wide index's width: the first
+    ``WIDE_OPS_QUERIES`` queries' IVF candidates gathered (Q, C, G) and
+    scored once through ``ops.refine_scores_batch`` / ``refine_scores``,
+    every count reset just before and read just after (``wide_ops``: the
+    level-0 kernel's global form), then against the plain version and
+    timed (``check_level0``)."""
+    q = queries[:WIDE_OPS_QUERIES].contiguous()
+    cand = make_ivf_front(index).candidates(q)
+    stores = tr.RefineStores.from_trq(index.trq)
+    ids = cand.ids.long()
+    rec, packed = stores.records[ids], stores.packed[0][ids]
+    cols = (cand.d0, rec[..., 0], rec[..., 1], rec[..., 2], rec[..., 3])
+    model = index.trq.model
+    reset_launches()
+    counted = (ops.refine_scores_batch(packed, q, *cols, model.w,
+                                       model.bias),
+               ops.refine_scores(packed[0], q[0], *(t[0] for t in cols),
+                                 model.w, model.bias))
+    torch.cuda.synchronize()
+    launches["wide_ops"] = got = read_launches()
+    print(f"wide_ops path launches: {got}")
+    if got["level-0 (global)"] != 2 or got["pair tables (global)"] != 2:
+        fail("the wide ops path did not run the level-0 kernel's global "
+             "form twice, each after its pair tables")
+    g = packed.shape[-1]
+    return check_level0(torch, tr, ops, model, q, packed, cols, counted,
+                        (0.0, 0.0), level0_attributes(build, g, "global"))
+
+
+def global_entries(rows, wide, edge_rows, launches) -> None:
+    """Each kernel's ``global`` entry of the ``kernels`` line: its global
+    form's numbers at the widest shape that runs it (the wide_8192 path for
+    ``pq_adc`` and the fused kernel, the wide_ops path for the level-0
+    entry points, the edge shapes for the bounds kernel and the prune,
+    which no path of this script runs in that form), ``launches`` its
+    global-form launches over the wide paths' runs (``tables_launches``
+    and ``pair_tables_launches`` its table kernel's there, over both
+    level-0 entry points), ``fatrq_shape`` the global form beside the
+    shared one at the fatrq shape (bit-equal), and its other
+    wide and edge shapes; the fused kernel's ``wide_2048`` entry holds its
+    shared form at G = 410."""
+    wide_runs = [launches[p] for p in ("wide_2048", "wide_8192", "wide_ops")]
+    count = lambda key: sum(r[key] for r in wide_runs)        # noqa: E731
+    refine = rows["ternary_refine_fused"]
+    big = wide["wide_8192"]
+    rows["pq_adc"]["global"].update(
+        big["pq_adc"], launches=count("pq_adc (global)"),
+        wide_2048=wide["wide_2048"]["pq_adc"], edge=edge_rows["pq_adc"])
+    refine["global"].update(
+        big["ternary_refine_fused"],
+        launches=count("ternary_refine_fused (global)"),
+        tables_launches=count("refine tables (global)"),
+        edge=edge_rows["ternary_refine_fused"])
+    refine["wide_2048"] = wide["wide_2048"]["ternary_refine_fused"]
+    rows["ternary_refine_fused_bounds"]["global"].update(
+        edge_rows["ternary_refine_fused_bounds"],
+        launches=count("ternary_refine_fused_bounds (global)"))
+    refine["prune"]["global"].update(
+        edge_rows["prune"], launches=count("prune (global)"))
+    for name in ("ternary_refine_batch", "ternary_refine"):
+        rows[name]["global"].update(
+            wide["wide_ops"][name], launches=launches["wide_ops"][name],
+            pair_tables_launches=launches["wide_ops"]["pair tables (global)"],
+            edge=edge_rows[name])
+    print("global entries: each kernel's global form (its state in device "
+          "scratch) at its widest shape with its global-form launches over "
+          "the wide paths (wide_2048, wide_8192, wide_ops); fatrq_shape: "
+          "the global form beside the shared form at the fatrq shape, "
+          "bit-equal; edge: at the edge shapes (pq_adc M=1024 K=256; the "
+          "refine kernels G=1639, C=4133, Q=5 (the single-query form Q=1); "
+          "the prune C=1,048,576, k=10)")
 
 
 def main() -> int:
@@ -5241,20 +5824,23 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
     print_resources(build._target(name) for name in build.SOURCES)
     print(prune_attributes(build))
+    print(prune_attributes(build, "global"))
     level0_attrs = level0_attributes(build, 154)
-    sass_profile(build._target("ternary_refine"), "level0_kernelILb1E")
+    sass_profile(build._target("ternary_refine"), "level0_kernelILb1ELb0E")
     t = phase("kernel build and attributes", t)
-    edge_prune(torch, tr,
-               torch.Generator(device="cuda").manual_seed(args.seed + 3))
-    edge_err, edge_bounds_err = edge_shapes(
+    edge_rows = {"prune": edge_prune(
+        torch, tr, ops,
+        torch.Generator(device="cuda").manual_seed(args.seed + 3))}
+    edge_err, edge_bounds_err, refine_rows = edge_shapes(
         torch, tr, ops, alive_chain, trq_mod, cal, Candidates,
         torch.Generator(device="cuda").manual_seed(args.seed + 1))
-    edge_adc_err = edge_adc(
-        torch, pq_adc_mod,
+    edge_adc_err, edge_rows["pq_adc"] = edge_adc(
+        torch, pq_adc_mod, ops,
         torch.Generator(device="cuda").manual_seed(args.seed + 2))
-    edge_level0_err = edge_level0(
+    *edge_level0_err, level0_rows = edge_level0(
         torch, tr, ops,
         torch.Generator(device="cuda").manual_seed(args.seed + 4))
+    edge_rows.update(refine_rows, **level0_rows)
     t = phase("edge shapes", t)
 
     rows, launches = index_paths(
@@ -5264,6 +5850,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    wide = wide_phase(torch, args, launches, reset_launches, read_launches,
+                      build)
+    t = phase("wide", t)
     rag, db = rag_phase(torch, args, launches, reset_launches,
                         read_launches)
     gc.collect()
@@ -5294,6 +5883,7 @@ def main() -> int:
           "trip's shape (its 8 embedded prompts over the 1M x 2048 index, "
           "k = 5, G = 410) with the round trip's launches (the Retriever "
           "form; rag_serving the ServingEngine form's)")
+    global_entries(rows, wide, edge_rows, launches)
 
     print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all")
     src = "src/repro_torch/kernels/csrc/ternary_refine.cu"

@@ -56,9 +56,20 @@
 //     each tile's ramp-up behind the last one's tail.
 //  5. The dynamic shared-memory opt-in is set once per process (the
 //     first call), to the largest a block may have.
+//  6. Any M, any store: where M % 4 != 0 or the store is not 4-byte
+//     aligned (rows at id * M then start at any byte), a row is read with
+//     byte loads packed into the same 32-bit words, and the last word's
+//     missing bytes are not looked up: the same lookups in the same order
+//     (kBytes).
 //
 // Shared memory: the LUT (M*K*4 B, 96 KiB at M = 96, K = 256), the list
-// (kTile * 2 B) and the warps' counts: ops.adc_smem_bytes.
+// (kTile * 2 B) and the warps' counts: ops.adc_smem_bytes.  Where the LUT
+// does not fit (M > 218 at K = 256: every backbone width from 2048 on at
+// the JAX package's pq_m = d / 8), the global form (kGlobal) reads each
+// lookup straight from the caller's (Q, M, K) LUT with __ldg instead of
+// copying it: the same adds in the same order, so the same bits, with the
+// LUT served from L1 and the 50 MB L2 (1 MiB a query at M = 1024).  The
+// host picks the form from M and K (ops.adc_form) before the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,7 +116,36 @@ __device__ __forceinline__ void load_chunk(Chunk& c, const uint8_t* row,
   }
 }
 
-// Adds the chunk's nb lookups, subspaces m0, m0 + 1, ..., to s in order.
+// Bytes [b0, b0 + nb) of a row at any address and any nb, one byte load
+// each, packed little-endian into the words load_chunk gives (bytes past
+// nb left 0 and never looked up).
+__device__ __forceinline__ void load_chunk_bytes(Chunk& c, const uint8_t* row,
+                                                 int b0, int nb) {
+#pragma unroll
+  for (int j = 0; j < kChunkWords; ++j) {
+    if (4 * j < nb) {
+      uint32_t w = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (4 * j + b < nb)
+          w |= (uint32_t)__ldg(row + b0 + 4 * j + b) << (8 * b);
+      c.w[j] = w;
+    }
+  }
+}
+
+// One LUT entry: from shared memory, or (kGlobal) from device memory.
+template <bool kGlobal>
+__device__ __forceinline__ float lut_at(const float* l, int i) {
+  if constexpr (kGlobal)
+    return __ldg(l + i);
+  else
+    return l[i];
+}
+
+// Adds the chunk's nb lookups, subspaces m0, m0 + 1, ..., to s in order
+// (kBytes: nb need not be a multiple of 4).
+template <bool kGlobal, bool kBytes>
 __device__ __forceinline__ float score_chunk(const Chunk& c, float s,
                                              const float* s_lut, int m0,
                                              int nb, int K) {
@@ -114,14 +154,27 @@ __device__ __forceinline__ float score_chunk(const Chunk& c, float s,
   for (int j = 0; j < kChunkWords; ++j) {
     if (4 * j < nb) {
       const uint32_t v = c.w[j];
-      s += l[v & 0xffu];
-      s += l[K + ((v >> 8) & 0xffu)];
-      s += l[2 * K + ((v >> 16) & 0xffu)];
-      s += l[3 * K + (v >> 24)];
+      s += lut_at<kGlobal>(l, v & 0xffu);
+      if (!kBytes || 4 * j + 1 < nb)
+        s += lut_at<kGlobal>(l, K + ((v >> 8) & 0xffu));
+      if (!kBytes || 4 * j + 2 < nb)
+        s += lut_at<kGlobal>(l, 2 * K + ((v >> 16) & 0xffu));
+      if (!kBytes || 4 * j + 3 < nb)
+        s += lut_at<kGlobal>(l, 3 * K + (v >> 24));
       l += 4 * K;
     }
   }
   return s;
+}
+
+// A row's chunk by the path the wrapper picked (kBytes: byte loads).
+template <bool kBytes>
+__device__ __forceinline__ void load_row_chunk(Chunk& c, const uint8_t* row,
+                                               int b0, int nb, bool vec) {
+  if (kBytes)
+    load_chunk_bytes(c, row, b0, nb);
+  else
+    load_chunk(c, row, b0, nb, vec);
 }
 
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
@@ -139,6 +192,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+template <bool kGlobal, bool kBytes>
 __global__ void __launch_bounds__(kThreads, 1)
     adc_kernel(const uint8_t* __restrict__ codes,  // (N, M)
                const int32_t* __restrict__ ids,    // (Q, C)
@@ -147,8 +201,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                float* __restrict__ out,            // (Q, C)
                int C, int M, int K, int vec) {
   extern __shared__ float4 s_mem[];
-  float* s_lut = reinterpret_cast<float*>(s_mem);  // (M, K)
-  uint16_t* s_list = reinterpret_cast<uint16_t*>(s_lut + M * K);  // (kTile,)
+  float* s_lut = reinterpret_cast<float*>(s_mem);  // (M, K); none if global
+  uint16_t* s_list =
+      reinterpret_cast<uint16_t*>(s_lut + (kGlobal ? 0 : M * K));  // (kTile,)
   int* s_cnt = reinterpret_cast<int*>(s_list + kTile);            // (kWarps,)
 
   const int q = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -179,17 +234,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   if (total == 0) return;  // the whole block: no LUT, no rows
 
-  // 4. start the LUT copy
+  // 4. start the LUT copy (the global form reads the LUT in place)
   const float* lq = lut + (size_t)q * M * K;
   const int mk = M * K;
-  if ((mk & 3) == 0 && (reinterpret_cast<uintptr_t>(lq) & 15) == 0) {
-    for (int i = 4 * threadIdx.x; i < mk; i += 4 * kThreads)
-      cp_async(s_lut + i, lq + i, true);
-  } else {
-    for (int i = threadIdx.x; i < mk; i += kThreads)
-      cp_async(s_lut + i, lq + i, false);
+  if (!kGlobal) {
+    if ((mk & 3) == 0 && (reinterpret_cast<uintptr_t>(lq) & 15) == 0) {
+      for (int i = 4 * threadIdx.x; i < mk; i += 4 * kThreads)
+        cp_async(s_lut + i, lq + i, true);
+    } else {
+      for (int i = threadIdx.x; i < mk; i += kThreads)
+        cp_async(s_lut + i, lq + i, false);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  const float* l_src = kGlobal ? lq : s_lut;
 
   // the valid slots' offsets, in slot order
   const unsigned below = (1u << lane) - 1u;
@@ -212,10 +270,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (i < total) {
     slot = s_list[i];
     row_cur = codes + (size_t)ids[row + slot] * M;
-    load_chunk(cur, row_cur, 0, first, wide);
+    load_row_chunk<kBytes>(cur, row_cur, 0, first, wide);
   }
-  cp_async_wait_all();
-  __syncthreads();
+  if (!kGlobal) {
+    cp_async_wait_all();
+    __syncthreads();
+  }
 
   for (; i < total; i += kThreads) {
     const int i_next = i + kThreads;
@@ -225,15 +285,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (i_next < total) {
       slot_next = s_list[i_next];
       row_next = codes + (size_t)ids[row + slot_next] * M;
-      load_chunk(next, row_next, 0, first, wide);
+      load_row_chunk<kBytes>(next, row_next, 0, first, wide);
     }
     // 3. one accumulator, subspaces in order
-    float s = score_chunk(cur, 0.f, s_lut, 0, first, K);
+    float s = score_chunk<kGlobal, kBytes>(cur, 0.f, l_src, 0, first, K);
     for (int b0 = kChunk; b0 < M; b0 += kChunk) {  // rows beyond kChunk
       const int nb = min(M - b0, kChunk);
       Chunk more;
-      load_chunk(more, row_cur, b0, nb, wide);
-      s = score_chunk(more, s, s_lut, b0, nb, K);
+      load_row_chunk<kBytes>(more, row_cur, b0, nb, wide);
+      s = score_chunk<kGlobal, kBytes>(more, s, l_src, b0, nb, K);
     }
     out[row + slot] = s;
     cur = next;
@@ -242,25 +302,46 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-}  // namespace
-
-extern "C" int fatrq_pq_adc(const void* codes, const void* ids,
-                            const void* valid, const void* lut, void* out,
-                            int Q, int C, int M, int K, int vec,
-                            void* stream) {
-  // 5. once per process: the kernel may take up to the block maximum
+// One form and row path of the kernel.  The dynamic shared-memory opt-in
+// is set once per process for each (the first call).
+template <bool kGlobal, bool kBytes>
+int launch_adc(const void* codes, const void* ids, const void* valid,
+               const void* lut, void* out, int Q, int C, int M, int K,
+               int vec, cudaStream_t stream) {
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      adc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
+      adc_kernel<kGlobal, kBytes>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
   if (opt_in != cudaSuccess) return (int)opt_in;
   if (C == 0 || Q == 0) return (int)cudaGetLastError();
-  const size_t smem = (size_t)M * K * sizeof(float) +
+  const size_t smem = (kGlobal ? 0 : (size_t)M * K * sizeof(float)) +
                       kTile * sizeof(uint16_t) + kWarps * sizeof(int);
   dim3 grid((C + kTile - 1) / kTile, Q);
-  adc_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  adc_kernel<kGlobal, kBytes><<<grid, kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(ids),
       static_cast<const uint8_t*>(valid), static_cast<const float*>(lut),
       static_cast<float*>(out), C, M, K, vec);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// path: 0 words, 1 16-byte loads, 2 bytes (pq_adc.row_path); global: the
+// LUT read in place (ops.adc_form).
+extern "C" int fatrq_pq_adc(const void* codes, const void* ids,
+                            const void* valid, const void* lut, void* out,
+                            int Q, int C, int M, int K, int path, int global,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = path == 1;
+  if (path == 2)
+    return global ? launch_adc<true, true>(codes, ids, valid, lut, out, Q, C,
+                                           M, K, vec, s)
+                  : launch_adc<false, true>(codes, ids, valid, lut, out, Q,
+                                            C, M, K, vec, s);
+  return global ? launch_adc<true, false>(codes, ids, valid, lut, out, Q, C,
+                                          M, K, vec, s)
+                : launch_adc<false, false>(codes, ids, valid, lut, out, Q, C,
+                                           M, K, vec, s);
 }
 
 extern "C" const char* fatrq_error_string(int status) {

@@ -133,6 +133,34 @@
 // coalesced spans.  What sets its pace is the shared-memory pipe: 85
 // lookup wavefronts per 4 rows of a warp (refine_variants.py).  A byte
 // y >= 243 scores and counts as y - 243, as the TPU kernels decode it.
+//
+// Global forms.  Every kernel above keeps some per-query state in shared
+// memory, which caps its shapes: the multi-level tables at G = 1437, the
+// prune's staged slice at C = 446,464, the level-0 pair tables beside one
+// warp's two stages at G = 503.  Past those (the JAX package indexes any
+// width: G = 1639 at D = 8192) each runs a global form, picked by the host
+// from the shapes alone before the launch (ops.refine_form, prune_form,
+// level0_form), that keeps only that state in a device scratch buffer the
+// wrapper allocates, cached by the 50 MB L2, and is otherwise the same
+// code (a template flag, kGlobal):
+//
+//  * tables_kernel writes each query's T27/T9 tables once per call with
+//    load_tables into a (Q, 37, Gp) f32 buffer (pair_tables_kernel the
+//    level-0 pair tables into a (Q, 37, Gp) float2 one); score_kernel,
+//    bounds_kernel and level0_kernel read s_b from there instead of
+//    building it in shared memory.  row_dot and level0_row take a generic
+//    pointer, so every lookup adds the same float: the same bits.  The
+//    fused call builds the tables once for all of its levels.  level0's
+//    stages keep the shared memory (up to 16 warps' two stages each); past
+//    G = 3517 even one warp's do not fit (ops.LEVEL0_MAX_G).
+//  * prune_kernel stages each block's slice of keys and alive bits in a
+//    (Q, 8, span + span / 32) uint32 buffer; the digit counts, the
+//    cluster's exchange and the select stay in shared memory, so masks,
+//    counts and tau are the shared form's.
+//
+// A global form is slower than its shared form (every lookup or staged key
+// goes to L1/L2); redesigning it around shared-memory chunks over G or C
+// is later work.
 
 #include <algorithm>
 #include <cooperative_groups.h>
@@ -280,6 +308,15 @@ __device__ __forceinline__ void load_tables(float* s_t, const float* qplanes,
   __syncthreads();
 }
 
+// The global form's tables: each query's, by one block, into device memory
+// in load_tables' layout ((Q, 27 + kT9Rows, Gp) f32).
+__global__ void tables_kernel(const float* __restrict__ qplanes,  // (Q, 5, G)
+                              float* __restrict__ tables, int G) {
+  const int gp = table_width(G);
+  load_tables(tables + (size_t)blockIdx.x * (27 + kT9Rows) * gp,
+              qplanes + (size_t)blockIdx.x * 5 * G, G, gp);
+}
+
 __device__ __forceinline__ float lds(const char* s_b, uint32_t byte_ofs) {
   return *reinterpret_cast<const float*>(s_b + byte_ofs);
 }
@@ -425,6 +462,7 @@ __device__ __forceinline__ int warp_first(int lane) {
   return (int)blockIdx.x * kSlotTile + (int)(threadIdx.x - lane);
 }
 
+template <bool kGlobal>
 __global__ void score_kernel(const uint8_t* __restrict__ packed,   // (N, G)
                              const int32_t* __restrict__ ids,      // (Q, C)
                              const float* __restrict__ d0,         // (Q, C)
@@ -436,13 +474,15 @@ __global__ void score_kernel(const uint8_t* __restrict__ packed,   // (N, G)
                              float* est,  // (Q, C), read at deeper levels
                              float* __restrict__ lo,
                              float* __restrict__ hi,
+                             const float* __restrict__ tables,  // or null
                              int C, int G, int level, int quantile) {
   extern __shared__ float s_t[];  // T27 (27, Gp), T9 (kT9Rows, Gp)
   const int q = blockIdx.y, gp = table_width(G);
-  load_tables(s_t, qplanes + (size_t)q * 5 * G, G, gp);
+  if (!kGlobal) load_tables(s_t, qplanes + (size_t)q * 5 * G, G, gp);
 
   const Params p = load_params(params + (size_t)q * 8);
-  const char* s_b = reinterpret_cast<const char*>(s_t);
+  const char* s_b = reinterpret_cast<const char*>(
+      kGlobal ? tables + (size_t)q * (27 + kT9Rows) * gp : s_t);
   const int lane = threadIdx.x & 31, end = tile_end(C);
   const size_t row = (size_t)q * C;
   const float* xs = level == 0 ? d0 : est;  // what a slot carries in
@@ -476,6 +516,7 @@ __global__ void score_kernel(const uint8_t* __restrict__ packed,   // (N, G)
 
 // st is read in place from the launch's parameter space (__grid_constant__),
 // so indexing it by level makes no local copy.
+template <bool kGlobal>
 __global__ void bounds_kernel(const __grid_constant__ LevelStores st,
                               const int32_t* __restrict__ ids,      // (Q, C)
                               const float* __restrict__ d0,         // (Q, C)
@@ -486,13 +527,15 @@ __global__ void bounds_kernel(const __grid_constant__ LevelStores st,
                               float* __restrict__ est,              // (Q, C)
                               float* __restrict__ lo,               // (Q, L, C)
                               float* __restrict__ hi,
+                              const float* __restrict__ tables,  // or null
                               int C, int G, int L, int quantile) {
   extern __shared__ float s_t[];  // T27 (27, Gp), T9 (kT9Rows, Gp)
   const int q = blockIdx.y, gp = table_width(G);
-  load_tables(s_t, qplanes + (size_t)q * 5 * G, G, gp);
+  if (!kGlobal) load_tables(s_t, qplanes + (size_t)q * 5 * G, G, gp);
 
   const Params p = load_params(params + (size_t)q * 8);
-  const char* s_b = reinterpret_cast<const char*>(s_t);
+  const char* s_b = reinterpret_cast<const char*>(
+      kGlobal ? tables + (size_t)q * (27 + kT9Rows) * gp : s_t);
   const int lane = threadIdx.x & 31, end = tile_end(C);
   const size_t row = (size_t)q * C;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -545,16 +588,18 @@ long level0_table_bytes(int G) {
   return (long)sizeof(float2) * (27 + kT9Rows) * table_width(G);
 }
 
-// The tables and every warp's two stages.
-size_t level0_smem(int G, int warps) {
-  return (size_t)(level0_table_bytes(G) + 2L * warps * level0_stage_bytes(G));
+// The tables (not in the global form) and every warp's two stages.
+size_t level0_smem(int G, int warps, bool global = false) {
+  return (size_t)((global ? 0 : level0_table_bytes(G)) +
+                  2L * warps * level0_stage_bytes(G));
 }
 
 // Warps of a level-0 block: as many as the shared memory holds, up to
-// kL0MaxWarps (< 1: G too wide for one block).
-int level0_warps(int G) {
+// kL0MaxWarps (< 1: G too wide for one block).  The global form's shared
+// memory holds only the stages.
+int level0_warps(int G, bool global = false) {
   return (int)std::min((long)kL0MaxWarps,
-                       (kSmemLimit - level0_table_bytes(G)) /
+                       (kSmemLimit - (global ? 0 : level0_table_bytes(G))) /
                            (2L * level0_stage_bytes(G)));
 }
 
@@ -583,6 +628,15 @@ __device__ __forceinline__ void load_pair_tables(float2* s_t,
     }
   }
   __syncthreads();
+}
+
+// The level-0 global form's pair tables: each query's, by one block, into
+// device memory in load_pair_tables' layout ((Q, 27 + kT9Rows, Gp) float2).
+__global__ void pair_tables_kernel(const float* __restrict__ qplanes,
+                                   float2* __restrict__ tables, int G) {
+  const int gp = table_width(G);
+  load_pair_tables(tables + (size_t)blockIdx.x * (27 + kT9Rows) * gp,
+                   qplanes + (size_t)blockIdx.x * 5 * G, G, gp);
 }
 
 __device__ __forceinline__ float2 lds2(const char* s_b, uint32_t byte_ofs) {
@@ -716,15 +770,17 @@ __device__ __forceinline__ T group_reduce_scatter(T (&v)[8], int sub) {
 
 // (minimum 1 block per SM: without it ptxas held the kernel to 64
 // registers, which serialised its table lookups)
-template <bool kOnePass>
+template <bool kOnePass, bool kGlobal = false>
 __global__ void __launch_bounds__(kL0MaxWarps * 32, 1)
     level0_kernel(const uint8_t* __restrict__ packed,  // (Q, C, G)
                   const float* __restrict__ qplanes,   // (Q, 5, G)
                   const float* __restrict__ scal,      // (Q, C, 5)
                   const float* __restrict__ params,    // (Q, 8)
                   float* __restrict__ out,             // (Q, C, 3)
+                  const float2* __restrict__ tables,   // or null
                   int Q, int C, int G) {
-  // the pair tables T27 and T9, then two stages per warp
+  // the pair tables T27 and T9 (not in the global form), then two stages
+  // per warp
   extern __shared__ __align__(16) float2 s_t2[];
   const int gp = table_width(G), passes = row_passes(G);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -733,7 +789,8 @@ __global__ void __launch_bounds__(kL0MaxWarps * 32, 1)
   const uint32_t gp8 = 8u * gp;
   const int stage = level0_stage_bytes(G);
   uint8_t* s_stage = reinterpret_cast<uint8_t*>(s_t2) +
-                     (27 + kT9Rows) * gp8 + (size_t)warp * 2 * stage;
+                     (kGlobal ? 0 : (27 + kT9Rows) * gp8) +
+                     (size_t)warp * 2 * stage;
   const char* s_b = reinterpret_cast<const char*>(s_t2);
   const int nchunks = (C + kL0Rows - 1) / kL0Rows;
   // output float f = lane + 32 j of a chunk is component f % 3 of row f / 3
@@ -763,8 +820,11 @@ __global__ void __launch_bounds__(kL0MaxWarps * 32, 1)
     };
     __syncthreads();  // no warp still reads the last query's tables
     if (k < c_hi) issue(k, s_stage);
-    load_pair_tables(s_t2, qplanes + (size_t)q * 5 * G, G, gp);
+    if (!kGlobal) load_pair_tables(s_t2, qplanes + (size_t)q * 5 * G, G, gp);
     const Params p = load_params(params + (size_t)q * 8);
+    const char* s_bq = kGlobal ? reinterpret_cast<const char*>(
+                                     tables + (size_t)q * (27 + kT9Rows) * gp)
+                               : s_b;
 
     for (int it = 0; k < c_hi; k += warps, ++it) {
       const uint8_t* cur = s_stage + (it & 1) * stage;
@@ -800,7 +860,7 @@ __global__ void __launch_bounds__(kL0MaxWarps * 32, 1)
         if (r < n)
           level0_row<kOnePass>(
               reinterpret_cast<const uint32_t*>(cur + ((a + r * G) & ~3)),
-              ln, s_b, gp8, passes, sub, &acc[rd], &cnt[rd]);
+              ln, s_bq, gp8, passes, sub, &acc[rd], &cnt[rd]);
       }
       __syncwarp();  // the stage is read; the next issue may overwrite it
       // lane (grp, sub) sums row 4 sub + grp; lane i takes row i
@@ -900,6 +960,7 @@ __device__ __forceinline__ int reserve_keys(PruneShared& sh, int n,
 
 // (no __launch_bounds__: with it ptxas capped this kernel at 32 registers
 // and spilled one to the stack)
+template <bool kGlobal>
 __global__ void __cluster_dims__(kPruneCluster, 1, 1)
     prune_kernel(const float* __restrict__ lo,           // (Q, C)
                  const float* __restrict__ hi,
@@ -908,13 +969,19 @@ __global__ void __cluster_dims__(kPruneCluster, 1, 1)
                  const uint8_t* __restrict__ is_delta,   // or null
                  int32_t* __restrict__ counts,           // (Q, 2L)
                  float* __restrict__ tau_out,            // (Q,) or null
+                 uint32_t* __restrict__ scratch,  // (Q, 8, span + span/32)
                  int C, int k, int level, int L, int vec) {
-  extern __shared__ uint32_t s_key[];  // alive keys, then the alive bits
+  extern __shared__ uint32_t s_dyn[];  // alive keys, then the alive bits
   __shared__ PruneShared sh;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int span = prune_span(C);
+  // the global form stages the slice in this block's part of scratch
+  uint32_t* s_key =
+      kGlobal ? scratch + ((size_t)blockIdx.y * kPruneCluster + rank) *
+                              (span + span / 32)
+              : s_dyn;
   const int s0 = rank * span;
   const int n = max(0, min(C, s0 + span) - s0);  // this block's slots
   const size_t row = (size_t)blockIdx.y * C + s0;
@@ -1087,74 +1154,101 @@ size_t tables_smem(Kernel kernel, int G) {
                 (size_t)(27 + kT9Rows) * table_width(G) * sizeof(float));
 }
 
-// The prune over one level's (lo, hi): k in [1, kMaxK], C within the
-// staged slice's shared memory.
+// The prune over one level's (lo, hi): k in [1, kMaxK]; scratch null (the
+// shared form: C within the staged slice's shared memory) or the global
+// form's (Q, 8, span + span / 32) words.
 cudaError_t launch_prune(const void* lo, const void* hi, const void* alive_in,
                          void* alive_out, const void* is_delta, void* counts,
-                         void* tau, int Q, int C, int k, int level, int L,
-                         cudaStream_t s) {
+                         void* tau, void* scratch, int Q, int C, int k,
+                         int level, int L, cudaStream_t s) {
   const uintptr_t any = reinterpret_cast<uintptr_t>(lo) |
                         reinterpret_cast<uintptr_t>(hi) |
                         reinterpret_cast<uintptr_t>(alive_in) |
                         reinterpret_cast<uintptr_t>(alive_out) |
                         reinterpret_cast<uintptr_t>(is_delta);
   const int vec = C % 16 == 0 && (any & 15) == 0;
-  const size_t smem = opt_in(prune_kernel, prune_dynamic_smem(C));
-  prune_kernel<<<dim3(kPruneCluster, Q), kPruneThreads, smem, s>>>(
+  const bool global = scratch != nullptr;
+  const auto kernel = global ? prune_kernel<true> : prune_kernel<false>;
+  const size_t smem = opt_in(kernel, global ? 0 : prune_dynamic_smem(C));
+  kernel<<<dim3(kPruneCluster, Q), kPruneThreads, smem, s>>>(
       static_cast<const float*>(lo), static_cast<const float*>(hi),
       static_cast<const uint8_t*>(alive_in),
       static_cast<uint8_t*>(alive_out),
       static_cast<const uint8_t*>(is_delta), static_cast<int32_t*>(counts),
-      static_cast<float*>(tau), C, k, level, L, vec);
+      static_cast<float*>(tau), static_cast<uint32_t*>(scratch), C, k, level,
+      L, vec);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The global forms' tables of Q queries from their (Q, 5, G) planes: the
+// multi-level kernels' f32 tables (pairs = 0, (Q, 37, Gp) floats) or the
+// level-0 kernel's pair tables (pairs = 1, (Q, 37, Gp) float2).
+extern "C" int fatrq_refine_tables(const void* qplanes, void* tables, int Q,
+                                   int G, int pairs, void* stream) {
+  if (Q == 0) return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pairs)
+    pair_tables_kernel<<<Q, kScoreThreads, 0, s>>>(
+        static_cast<const float*>(qplanes), static_cast<float2*>(tables), G);
+  else
+    tables_kernel<<<Q, kScoreThreads, 0, s>>>(
+        static_cast<const float*>(qplanes), static_cast<float*>(tables), G);
+  return (int)cudaGetLastError();
+}
+
+// tables: null (the shared form) or the query's tables built by
+// fatrq_refine_tables; prune_scratch: null or the prune's global form's.
 extern "C" int fatrq_refine_level(
     const void* packed, const void* ids, const void* d0, const void* valid,
     const void* qplanes, const void* rec, const void* lvl,
     const void* params, const void* alive_in, const void* is_delta, void* est,
-    void* lo, void* hi, void* alive_out, void* counts, int Q, int C, int G,
-    int level, int L, int k, int quantile, void* stream) {
+    void* lo, void* hi, void* alive_out, void* counts, const void* tables,
+    void* prune_scratch, int Q, int C, int G, int level, int L, int k,
+    int quantile, void* stream) {
   if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
   if (Q == 0 || C == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = tables_smem(score_kernel, G);
+  const bool global = tables != nullptr;
+  const auto kernel = global ? score_kernel<true> : score_kernel<false>;
+  const size_t smem = global ? 0 : tables_smem(kernel, G);
   dim3 grid((C + kSlotTile - 1) / kSlotTile, Q);
-  score_kernel<<<grid, kScoreThreads, smem, s>>>(
+  kernel<<<grid, kScoreThreads, smem, s>>>(
       static_cast<const uint8_t*>(packed), static_cast<const int32_t*>(ids),
       static_cast<const float*>(d0), static_cast<const uint8_t*>(valid),
       static_cast<const float*>(qplanes),
       static_cast<const float4*>(rec), static_cast<const float4*>(lvl),
       static_cast<const float*>(params), static_cast<float*>(est),
-      static_cast<float*>(lo), static_cast<float*>(hi), C, G, level,
-      quantile);
+      static_cast<float*>(lo), static_cast<float*>(hi),
+      static_cast<const float*>(tables), C, G, level, quantile);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_prune(lo, hi, alive_in, alive_out, is_delta, counts,
-                           nullptr, Q, C, k, level, L, s);
+                           nullptr, prune_scratch, Q, C, k, level, L, s);
 }
 
-// The prune alone on given (lo, hi): tau (Q,) is written where not null.
+// The prune alone on given (lo, hi): tau (Q,) is written where not null;
+// scratch as in fatrq_refine_level.
 extern "C" int fatrq_refine_prune(const void* lo, const void* hi,
                                   const void* alive_in, void* alive_out,
                                   const void* is_delta, void* counts,
-                                  void* tau, int Q, int C, int k, int level,
-                                  int L, void* stream) {
+                                  void* tau, void* scratch, int Q, int C,
+                                  int k, int level, int L, void* stream) {
   if (k < 1 || k > kMaxK || level < 0 || level >= L)
     return (int)cudaErrorInvalidValue;
   if (Q == 0 || C == 0) return (int)cudaGetLastError();
   return (int)launch_prune(lo, hi, alive_in, alive_out, is_delta, counts, tau,
-                           Q, C, k, level, L,
+                           scratch, Q, C, k, level, L,
                            static_cast<cudaStream_t>(stream));
 }
 
 // The prune kernel's registers, local (stack) bytes, static shared bytes
-// and cluster width, as the runtime reports them.
-extern "C" int fatrq_prune_attributes(int* out) {
+// and cluster width in either form, as the runtime reports them.
+extern "C" int fatrq_prune_attributes(int global, int* out) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, prune_kernel);
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, global ? prune_kernel<true> : prune_kernel<false>);
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)a.sharedSizeBytes;
@@ -1162,12 +1256,13 @@ extern "C" int fatrq_prune_attributes(int* out) {
   return (int)err;
 }
 
-// packed / lvl: host arrays of L device pointers (the per-level stores).
+// packed / lvl: host arrays of L device pointers (the per-level stores);
+// tables as in fatrq_refine_level.
 extern "C" int fatrq_refine_bounds(
     const void* const* packed, const void* const* lvl, const void* ids,
     const void* d0, const void* valid, const void* qplanes, const void* rec,
-    const void* params, void* est, void* lo, void* hi, int Q, int C, int G,
-    int L, int quantile, void* stream) {
+    const void* params, void* est, void* lo, void* hi, const void* tables,
+    int Q, int C, int G, int L, int quantile, void* stream) {
   if (L < 1 || L > kMaxLevels) return (int)cudaErrorInvalidValue;
   if (Q == 0 || C == 0) return (int)cudaGetLastError();
   LevelStores st = {};
@@ -1175,35 +1270,45 @@ extern "C" int fatrq_refine_bounds(
     st.packed[lv] = static_cast<const uint8_t*>(packed[lv]);
     st.lvl[lv] = static_cast<const float4*>(lvl[lv]);
   }
-  const size_t smem = tables_smem(bounds_kernel, G);
+  const bool global = tables != nullptr;
+  const auto kernel = global ? bounds_kernel<true> : bounds_kernel<false>;
+  const size_t smem = global ? 0 : tables_smem(kernel, G);
   dim3 grid((C + kSlotTile - 1) / kSlotTile, Q);
-  bounds_kernel<<<grid, kScoreThreads, smem,
-                  static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kScoreThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       st, static_cast<const int32_t*>(ids), static_cast<const float*>(d0),
       static_cast<const uint8_t*>(valid), static_cast<const float*>(qplanes),
       static_cast<const float4*>(rec), static_cast<const float*>(params),
       static_cast<float*>(est), static_cast<float*>(lo),
-      static_cast<float*>(hi), C, G, L, quantile);
+      static_cast<float*>(hi), static_cast<const float*>(tables), C, G, L,
+      quantile);
   return (int)cudaGetLastError();
 }
 
-// The level-0 kernel for width G: one pass over a row's words or several.
+// The level-0 kernel for width G: one pass over a row's words or several;
+// the shared form or (global) the global form.
 using Level0Kernel = void (*)(const uint8_t*, const float*, const float*,
-                              const float*, float*, int, int, int);
+                              const float*, float*, const float2*, int, int,
+                              int);
 
-Level0Kernel level0_for(int G) {
+Level0Kernel level0_for(int G, bool global) {
+  if (global)
+    return row_passes(G) == 1 ? level0_kernel<true, true>
+                              : level0_kernel<false, true>;
   return row_passes(G) == 1 ? level0_kernel<true> : level0_kernel<false>;
 }
 
+// tables: null (the shared form) or the queries' pair tables built by
+// fatrq_refine_tables (the global form).
 extern "C" int fatrq_refine_level0(const void* packed, const void* qplanes,
                                    const void* scal, const void* params,
-                                   void* out, int Q, int C, int G,
-                                   void* stream) {
+                                   void* out, const void* tables, int Q,
+                                   int C, int G, void* stream) {
   if (Q == 0 || C == 0) return (int)cudaGetLastError();
-  const int warps = level0_warps(G);
+  const bool global = tables != nullptr;
+  const int warps = level0_warps(G, global);
   if (G < 1 || warps < 1) return (int)cudaErrorInvalidValue;
-  const Level0Kernel kernel = level0_for(G);
-  const size_t smem = opt_in(kernel, level0_smem(G, warps));
+  const Level0Kernel kernel = level0_for(G, global);
+  const size_t smem = opt_in(kernel, level0_smem(G, warps, global));
   // every resident block busy, each with a share of the Q x C / 32 chunks
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
@@ -1215,17 +1320,19 @@ extern "C" int fatrq_refine_level0(const void* packed, const void* qplanes,
   kernel<<<blocks, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(packed),
       static_cast<const float*>(qplanes), static_cast<const float*>(scal),
-      static_cast<const float*>(params), static_cast<float*>(out), Q, C, G);
+      static_cast<const float*>(params), static_cast<float*>(out),
+      static_cast<const float2*>(tables), Q, C, G);
   return (int)cudaGetLastError();
 }
 
-// The level-0 kernel for width G: its registers, local (stack) bytes, warps
-// per block, dynamic shared memory and resident blocks per SM.
-extern "C" int fatrq_level0_attributes(int G, int* out) {
-  const int warps = level0_warps(G);
+// The level-0 kernel for width G in either form: its registers, local
+// (stack) bytes, warps per block, dynamic shared memory and resident blocks
+// per SM.
+extern "C" int fatrq_level0_attributes(int G, int global, int* out) {
+  const int warps = level0_warps(G, global);
   if (G < 1 || warps < 1) return (int)cudaErrorInvalidValue;
-  const Level0Kernel kernel = level0_for(G);
-  const size_t smem = opt_in(kernel, level0_smem(G, warps));
+  const Level0Kernel kernel = level0_for(G, global);
+  const size_t smem = opt_in(kernel, level0_smem(G, warps, global));
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   int per_sm = 0;

@@ -1,4 +1,4 @@
-"""Input assembly for the kernels, the shared-memory budget check and the
+"""Input assembly for the kernels, the choice of each kernel's form and the
 level-0 scoring entry points.
 
 The refine kernels read a query as 5 digit planes of (G,) floats (byte g's
@@ -9,6 +9,15 @@ shared memory (``refine_smem_bytes``, ``level0_smem_bytes``).
 ``refine_scores_batch`` / ``refine_scores`` keep the JAX package's
 signatures (``repro.kernels.ops``): they assemble those inputs from
 per-candidate arrays and run the level-0 kernel.
+
+Each kernel has two forms.  The ``"shared"`` form keeps its per-query
+state (the ADC LUT, the refine tables, the prune's staged keys) in shared
+memory; where the shapes need more than a block has, the ``"global"``
+form runs the same arithmetic in the same order with that state in device
+memory (the caller's LUT, or a scratch buffer the wrapper allocates, which
+the 50 MB L2 caches), so both give the same bits.  ``*_form`` picks the
+form from the shapes alone, before any launch; ``*_scratch_bytes`` is the
+global form's scratch.
 """
 
 from __future__ import annotations
@@ -37,6 +46,28 @@ def check_smem_budget(what: str, nbytes: int) -> int:
     return nbytes
 
 
+FORMS = ("shared", "global")
+
+
+def _form(nbytes: int) -> str:
+    """The shared form where its ``nbytes`` fit one block, else global."""
+    return "shared" if nbytes <= SMEM_LIMIT_BYTES else "global"
+
+
+def pick_form(what: str, form: str, forced: str | None) -> str:
+    """``form``, the one the shapes select, unless a caller that holds the
+    two forms against each other names one (``forced``); the shared form
+    only where it fits."""
+    if forced is None:
+        return form
+    if forced not in FORMS:
+        raise ValueError(f"{what}: form {forced!r} is not one of {FORMS}")
+    if forced == "shared" and form != "shared":
+        raise SharedMemoryBudgetError(
+            f"{what}: the shared form does not fit these shapes")
+    return forced
+
+
 #: slots per block and warps per block of the ADC kernel (kTile and kWarps
 #: in ``csrc/pq_adc.cu``)
 _ADC_TILE, _ADC_WARPS = 4096, 16
@@ -46,6 +77,13 @@ def adc_smem_bytes(m: int, k: int) -> int:
     """The ADC kernel holds one query's (M, K) f32 LUT, its tile's list of
     valid slot offsets (uint16 each) and one valid count per warp."""
     return m * k * 4 + _ADC_TILE * 2 + _ADC_WARPS * 4
+
+
+def adc_form(m: int, k: int) -> str:
+    """``"shared"`` where the LUT fits a block (M ≤ 218 at K = 256), else
+    ``"global"``: each lookup read from the caller's (Q, M, K) LUT in
+    device memory, so the global form needs no scratch."""
+    return _form(adc_smem_bytes(m, k))
 
 
 #: 32-bit words a lane group of the multi-level kernels reads per pass
@@ -73,6 +111,19 @@ def refine_smem_bytes(g: int) -> int:
     of y / 27, row 9 for byte values 243-255), each ``table_width`` wide;
     the planes are read from device memory while building them."""
     return (27 + 10) * table_width(g) * 4
+
+
+def refine_form(g: int) -> str:
+    """The fused and bounds kernels' form: ``"shared"`` up to G = 1437,
+    else ``"global"`` (a small kernel writes each query's tables once per
+    call to scratch, and the scoring kernels read them from there)."""
+    return _form(refine_smem_bytes(g))
+
+
+def refine_scratch_bytes(q: int, g: int) -> int:
+    """The global form's scratch: Q queries' tables, ``refine_smem_bytes``
+    each."""
+    return q * refine_smem_bytes(g)
 
 
 #: slots of a level-0 warp's chunk and most warps of a level-0 block
@@ -105,9 +156,42 @@ def level0_smem_bytes(g: int) -> int:
     """The level-0 kernel holds one query's pair tables
     (``level0_table_bytes``) and two stages per warp (``level0_warps``, at
     least one): 220,160 B with 16 warps at G = 154.  Past G = 503 even one
-    warp does not fit."""
+    warp does not fit beside the tables."""
     return (level0_table_bytes(g)
             + 2 * max(1, level0_warps(g)) * level0_stage_bytes(g))
+
+
+def level0_global_warps(g: int) -> int:
+    """Warps of a level-0 block in the global form, whose shared memory
+    holds only the stages: at most 16 (below 1: g is too wide)."""
+    return min(_L0_MAX_WARPS, SMEM_LIMIT_BYTES // (2 * level0_stage_bytes(g)))
+
+
+def _level0_max_g() -> int:
+    g = 1
+    while level0_global_warps(g + 1) >= 1:
+        g += 1
+    return g
+
+
+#: widest G the level-0 kernel takes: one warp's two stages fill a block
+LEVEL0_MAX_G = _level0_max_g()
+
+
+def level0_form(g: int) -> str:
+    """``"shared"`` where the pair tables and one warp's two stages fit a
+    block (G ≤ 503), else ``"global"`` (the pair tables in scratch, the
+    stages in shared memory) up to ``LEVEL0_MAX_G``; past it raises
+    ``SharedMemoryBudgetError``."""
+    if level0_warps(g) >= 1:
+        return "shared"
+    check_smem_budget(f"level0 at G={g}", 2 * level0_stage_bytes(g))
+    return "global"
+
+
+def level0_scratch_bytes(q: int, g: int) -> int:
+    """The global form's scratch: Q queries' pair tables."""
+    return q * level0_table_bytes(g)
 
 
 #: blocks per query in the prune's cluster, and its static shared memory
@@ -121,6 +205,19 @@ def prune_smem_bytes(c: int) -> int:
     counts and reduction scratch: C up to 8 × 55,808 = 446,464 fits."""
     span = (-(-c // _PRUNE_CLUSTER) + 31) // 32 * 32
     return span * 4 + span // 8 + _PRUNE_STATIC
+
+
+def prune_form(c: int) -> str:
+    """``"shared"`` up to C = 446,464, else ``"global"``: each block's
+    slice of keys and alive bits in scratch, the digit counts, the
+    cluster's exchange and the select in shared memory as before."""
+    return _form(prune_smem_bytes(c))
+
+
+def prune_scratch_bytes(q: int, c: int) -> int:
+    """The global form's scratch: every block's slice of keys and alive
+    bits, for Q queries of 8 blocks."""
+    return q * _PRUNE_CLUSTER * (prune_smem_bytes(c) - _PRUNE_STATIC)
 
 
 def make_query_planes(q: torch.Tensor, g: int) -> torch.Tensor:

@@ -28,6 +28,12 @@ record scalars by candidate id from per-index stores (``RefineStores``),
 so no (Q, C, G) gathered copy of the codes is made, and score only valid
 slots: an invalid slot reads no code row and no scalar, and takes align
 and every scalar as 0 (``_plain_levels`` applies the same rule).
+
+Every kernel takes any G and C.  Where a query's tables (or the prune's
+staged slice) do not fit a block's shared memory, the wrapper runs the
+kernel's global form, which keeps them in a scratch buffer it allocates
+and gives the same bits (``ops.refine_form``, ``prune_form``,
+``level0_form``); the level-0 kernel stops at G = ``ops.LEVEL0_MAX_G``.
 """
 
 from __future__ import annotations
@@ -52,6 +58,19 @@ single_launches = 0
 #: launches of the prune alone by ``ternary_refine_prune`` (the fused
 #: kernel's own prune launches count in ``launches``)
 prune_launches = 0
+#: of those launches, the global forms': fused levels whose scoring read
+#: scratch tables, bounds calls, level-0 calls (both entry points), and
+#: prune launches staged in scratch (the fused kernel's and the prune's
+#: alone)
+global_launches = 0
+bounds_global_launches = 0
+level0_global_launches = 0
+prune_global_launches = 0
+#: launches of the global forms' table kernels: the refine tables (one per
+#: fused or bounds call, for all of its levels) and the level-0 pair tables
+#: (one per level-0 call)
+tables_launches = 0
+pair_tables_launches = 0
 
 #: largest k the pruning step takes (kMaxK in the source)
 MAX_K = 64
@@ -59,11 +78,12 @@ MAX_K = 64
 #: most TRQ levels the bounds kernel walks (kMaxLevels in the source)
 MAX_LEVELS = 8
 
-_ARGS = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-_BOUNDS_ARGS = ([ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p] * 9
+_ARGS = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+_BOUNDS_ARGS = ([ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p] * 10
                 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-_LEVEL0_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_PRUNE_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_LEVEL0_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_PRUNE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_TABLES_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 #: queries per step of the plain version (bounds its (Q, C, G) temporaries)
 _PLAIN_QUERIES = 8
 
@@ -282,6 +302,33 @@ def _check_bound(bound: str) -> None:
         raise ValueError(f"unknown bound {bound!r}")
 
 
+def _tables(q_planes: torch.Tensor, *, pairs: bool) -> torch.Tensor:
+    """The global forms' per-query tables, built on the card from the
+    planes (Q, 5, G) by ``fatrq_refine_tables``: (Q, 37, Gp) f32, or the
+    level-0 kernel's (Q, 37, Gp, 2) pairs."""
+    nq, _, g = q_planes.shape
+    shape = (nq, 37, ops.table_width(g)) + ((2,) if pairs else ())
+    tables = torch.empty(shape, dtype=torch.float32, device=q_planes.device)
+    fn = build.entry("ternary_refine", "fatrq_refine_tables", _TABLES_ARGS)
+    status = fn(build.ptr(q_planes), build.ptr(tables), nq, g, int(pairs),
+                torch.cuda.current_stream(q_planes.device).cuda_stream)
+    build.check("ternary_refine", status, "fatrq_refine_tables")
+    global tables_launches, pair_tables_launches
+    if pairs:
+        pair_tables_launches += 1
+    else:
+        tables_launches += 1
+    return tables
+
+
+def _prune_scratch(nq: int, c: int, form: str, dev) -> torch.Tensor | None:
+    """The prune's global form's scratch (None in the shared form)."""
+    if form != "global":
+        return None
+    return torch.empty(ops.prune_scratch_bytes(nq, c) // 4,
+                       dtype=torch.int32, device=dev)
+
+
 def ternary_refine_fused(stores: RefineStores, q: torch.Tensor,
                          ids: torch.Tensor, d0: torch.Tensor,
                          valid: torch.Tensor, is_delta: torch.Tensor | None,
@@ -299,11 +346,17 @@ def ternary_refine_fused(stores: RefineStores, q: torch.Tensor,
     level; with d0 = +inf there, as the IVF front gives, that is what the
     TPU kernel writes.
     """
+    return _fused(stores, q, ids, d0, valid, is_delta, model, k=k,
+                  bound=bound, z=z)
+
+
+def _fused(stores, q, ids, d0, valid, is_delta, model, *, k, bound, z,
+           form: str | None = None):
+    """``ternary_refine_fused``; ``form`` names the form of the scoring
+    and the prune launches instead of the shapes (to hold the two forms
+    against each other)."""
     _check_bound(bound)
     g = stores.packed[0].shape[1]
-    ops.check_smem_budget("ternary_refine_fused", ops.refine_smem_bytes(g))
-    ops.check_smem_budget("ternary_refine_fused (prune)",
-                          ops.prune_smem_bytes(ids.shape[1]))
     q_planes = ops.make_query_planes(q, g)
     params = ops.query_params(q, model.w, model.bias, model.resid_std, z)
     if ids.device.type == "cpu":
@@ -330,9 +383,16 @@ def ternary_refine_fused(stores: RefineStores, q: torch.Tensor,
     alive = torch.empty((nq, c), dtype=torch.bool, device=dev)
     # every entry is stored by one level's prune
     counts = torch.empty((nq, 2 * nl), dtype=torch.int32, device=dev)
+    # the tables depend on the query alone: built once for every level
+    glob = ops.pick_form("ternary_refine_fused", ops.refine_form(g),
+                         form) == "global"
+    tables = _tables(q_planes, pairs=False) if glob else None
+    p_form = ops.pick_form("ternary_refine_fused (prune)",
+                           ops.prune_form(c), form)
+    scratch = _prune_scratch(nq, c, p_form, dev)
     fn = build.entry("ternary_refine", "fatrq_refine_level", _ARGS)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    global launches
+    global launches, global_launches, prune_global_launches
     for lv in range(nl):
         status = fn(build.ptr(stores.packed[lv]), build.ptr(ids),
                     build.ptr(d0), build.ptr(valid), build.ptr(q_planes),
@@ -340,9 +400,12 @@ def ternary_refine_fused(stores: RefineStores, q: torch.Tensor,
                     build.ptr(params), build.ptr(valid if lv == 0 else alive),
                     build.ptr(is_delta), build.ptr(est), build.ptr(lo),
                     build.ptr(hi), build.ptr(alive), build.ptr(counts),
-                    nq, c, g, lv, nl, k, int(bound == "quantile"), stream)
+                    build.ptr(tables), build.ptr(scratch), nq, c, g, lv, nl,
+                    k, int(bound == "quantile"), stream)
         build.check("ternary_refine", status, "ternary_refine_fused")
         launches += 1
+        global_launches += int(glob)
+        prune_global_launches += int(scratch is not None)
     return est, alive, counts
 
 
@@ -360,10 +423,16 @@ def ternary_refine_prune(lo: torch.Tensor, hi: torch.Tensor,
     (Q,).  CPU tensors take the plain version; a CUDA tensor launches the
     kernel or raises.
     """
+    return _prune(lo, hi, alive, is_delta, counts, out, k=k, level=level)
+
+
+def _prune(lo, hi, alive, is_delta, counts, out, *, k: int, level: int = 0,
+           form: str | None = None):
+    """``ternary_refine_prune``; ``form`` names the prune's form instead of
+    the shapes."""
     nq, c = hi.shape
     if not 1 <= k <= MAX_K:
         raise ValueError(f"ternary_refine_prune: k={k} outside [1, {MAX_K}]")
-    ops.check_smem_budget("ternary_refine_prune", ops.prune_smem_bytes(c))
     nl = counts.shape[1] // 2
     if not 0 <= level < nl:
         raise ValueError(f"ternary_refine_prune: level {level} outside the "
@@ -385,14 +454,17 @@ def ternary_refine_prune(lo: torch.Tensor, hi: torch.Tensor,
     build.require("counts", counts, dtype=torch.int32, shape=(nq, 2 * nl),
                   device=dev)
     tau = torch.empty((nq,), dtype=torch.float32, device=dev)
+    scratch = _prune_scratch(nq, c, ops.pick_form(
+        "ternary_refine_prune", ops.prune_form(c), form), dev)
     fn = build.entry("ternary_refine", "fatrq_refine_prune", _PRUNE_ARGS)
     status = fn(build.ptr(lo), build.ptr(hi), build.ptr(alive),
                 build.ptr(out), build.ptr(is_delta), build.ptr(counts),
-                build.ptr(tau), nq, c, k, level, nl,
+                build.ptr(tau), build.ptr(scratch), nq, c, k, level, nl,
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check("ternary_refine", status, "ternary_refine_prune")
-    global prune_launches
+    global prune_launches, prune_global_launches
     prune_launches += 1
+    prune_global_launches += int(scratch is not None)
     return tau
 
 
@@ -408,10 +480,15 @@ def ternary_refine_fused_bounds(stores: RefineStores, q: torch.Tensor,
     kernel's.  CPU tensors take the plain version; a CUDA tensor launches
     the kernel or raises.
     """
+    return _bounds(stores, q, ids, d0, valid, model, bound=bound, z=z)
+
+
+def _bounds(stores, q, ids, d0, valid, model, *, bound, z,
+            form: str | None = None):
+    """``ternary_refine_fused_bounds``; ``form`` names the kernel's form
+    instead of the shapes."""
     _check_bound(bound)
     g = stores.packed[0].shape[1]
-    ops.check_smem_budget("ternary_refine_fused_bounds",
-                          ops.refine_smem_bytes(g))
     q_planes = ops.make_query_planes(q, g)
     params = ops.query_params(q, model.w, model.bias, model.resid_std, z)
     if ids.device.type == "cpu":
@@ -431,6 +508,9 @@ def ternary_refine_fused_bounds(stores: RefineStores, q: torch.Tensor,
     est = torch.empty((nq, c), dtype=torch.float32, device=dev)
     lo = torch.empty((nq, nl, c), dtype=torch.float32, device=dev)
     hi = torch.empty_like(lo)
+    glob = ops.pick_form("ternary_refine_fused_bounds", ops.refine_form(g),
+                         form) == "global"
+    tables = _tables(q_planes, pairs=False) if glob else None
     ptrs = ctypes.c_void_p * nl
     fn = build.entry("ternary_refine", "fatrq_refine_bounds", _BOUNDS_ARGS)
     status = fn(ptrs(*(build.ptr(p) for p in stores.packed)),
@@ -438,21 +518,31 @@ def ternary_refine_fused_bounds(stores: RefineStores, q: torch.Tensor,
                 build.ptr(ids), build.ptr(d0), build.ptr(valid),
                 build.ptr(q_planes), build.ptr(stores.records),
                 build.ptr(params), build.ptr(est), build.ptr(lo),
-                build.ptr(hi), nq, c, g, nl, int(bound == "quantile"),
+                build.ptr(hi), build.ptr(tables), nq, c, g, nl,
+                int(bound == "quantile"),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check("ternary_refine", status, "ternary_refine_fused_bounds")
-    global bounds_launches
+    global bounds_launches, bounds_global_launches
     bounds_launches += 1
+    bounds_global_launches += int(glob)
     return est, lo, hi
 
 
 def _launch_level0(what: str, packed, q_planes, scalars, params, out,
-                   nq: int, c: int, g: int) -> None:
+                   nq: int, c: int, g: int, form: str | None) -> None:
+    """The level-0 kernel in the form G selects (``ops.level0_form``,
+    which raises past ``ops.LEVEL0_MAX_G``) or in ``form``; q_planes
+    (Q, 5, G)."""
+    glob = ops.pick_form(what, ops.level0_form(g), form) == "global"
+    tables = _tables(q_planes.reshape(nq, TRITS_PER_BYTE, g), pairs=True) \
+        if glob else None
     fn = build.entry("ternary_refine", "fatrq_refine_level0", _LEVEL0_ARGS)
     status = fn(build.ptr(packed), build.ptr(q_planes), build.ptr(scalars),
-                build.ptr(params), build.ptr(out), nq, c, g,
-                torch.cuda.current_stream(packed.device).cuda_stream)
+                build.ptr(params), build.ptr(out), build.ptr(tables), nq, c,
+                g, torch.cuda.current_stream(packed.device).cuda_stream)
     build.check("ternary_refine", status, what)
+    global level0_global_launches
+    level0_global_launches += int(glob)
 
 
 def ternary_refine_batch(packed: torch.Tensor, q_planes: torch.Tensor,
@@ -463,8 +553,14 @@ def ternary_refine_batch(packed: torch.Tensor, q_planes: torch.Tensor,
     rho] and params (Q, 8) [||q||, w0..w3, bias, 0, 0] → (Q, C, 3)
     f32 [est, est_raw, margin].  CPU tensors take the plain version; a
     CUDA tensor launches the kernel or raises."""
+    return _level0_batch(packed, q_planes, scalars, params)
+
+
+def _level0_batch(packed, q_planes, scalars, params, *,
+                  form: str | None = None):
+    """``ternary_refine_batch``; ``form`` names the kernel's form instead
+    of the shapes."""
     nq, c, g = packed.shape
-    ops.check_smem_budget("ternary_refine_batch", ops.level0_smem_bytes(g))
     if packed.device.type == "cpu":
         return refine_level0_plain(packed, q_planes, scalars, params)
     dev = packed.device
@@ -478,7 +574,7 @@ def ternary_refine_batch(packed: torch.Tensor, q_planes: torch.Tensor,
                   device=dev)
     out = torch.empty((nq, c, 3), dtype=torch.float32, device=dev)
     _launch_level0("ternary_refine_batch", packed, q_planes, scalars, params,
-                   out, nq, c, g)
+                   out, nq, c, g, form)
     global batch_launches
     batch_launches += 1
     return out
@@ -491,8 +587,14 @@ def ternary_refine(packed: torch.Tensor, q_planes: torch.Tensor,
     (5, G), scalars (C, 5), params (1, 8) → (C, 3).  CPU tensors take the
     plain version; a CUDA tensor launches the kernel (with Q = 1) or
     raises."""
+    return _level0_single(packed, q_planes, scalars, params)
+
+
+def _level0_single(packed, q_planes, scalars, params, *,
+                   form: str | None = None):
+    """``ternary_refine``; ``form`` names the kernel's form instead of the
+    shapes."""
     c, g = packed.shape
-    ops.check_smem_budget("ternary_refine", ops.level0_smem_bytes(g))
     if packed.device.type == "cpu":
         return refine_level0_plain(packed[None], q_planes[None],
                                    scalars[None], params)[0]
@@ -507,7 +609,7 @@ def ternary_refine(packed: torch.Tensor, q_planes: torch.Tensor,
                   device=dev)
     out = torch.empty((c, 3), dtype=torch.float32, device=dev)
     _launch_level0("ternary_refine", packed, q_planes, scalars, params, out,
-                   1, c, g)
+                   1, c, g, form)
     global single_launches
     single_launches += 1
     return out

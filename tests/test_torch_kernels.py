@@ -335,14 +335,14 @@ def test_pq_adc_ignores_ids_on_invalid_slots():
 
 def test_pq_adc_row_paths():
     """16-byte loads where M % 16 == 0 and the store is 16-byte aligned,
-    else 4-byte words; a store neither path can read raises."""
+    4-byte words where M % 4 == 0 and it is 4-byte aligned, else bytes:
+    every M and every store is read."""
     assert pq_adc_mod.row_path(96, 1 << 20) == "uint4"
     assert pq_adc_mod.row_path(96, (1 << 20) + 4) == "word"
     assert pq_adc_mod.row_path(20, 1 << 20) == "word"
     assert pq_adc_mod.row_path(4, 8) == "word"
-    for m, address in ((6, 1 << 20), (96, (1 << 20) + 2)):
-        with pytest.raises(ValueError, match="pq_adc"):
-            pq_adc_mod.row_path(m, address)
+    for m, address in ((6, 1 << 20), (96, (1 << 20) + 2), (1, 3)):
+        assert pq_adc_mod.row_path(m, address) == "byte"
 
 
 def test_adc_table_matches():
@@ -360,21 +360,32 @@ def test_adc_table_matches():
 
 
 def test_shared_memory_budget_named_error():
+    """A (256, 256) LUT and G = 12,000 tables are over the 227 KB a block
+    has: the calls answer (the plain version on the CPU), the shapes select
+    the global forms, and only a caller that forces the shared form there
+    gets the named error."""
     big_lut = torch.zeros((1, 256, 256))
+    got = pq_adc_mod.pq_adc(torch.zeros((4, 256), dtype=torch.uint8),
+                            torch.zeros((1, 2), dtype=torch.int32),
+                            torch.ones((1, 2), dtype=torch.bool), big_lut)
+    assert torch.equal(got, torch.zeros((1, 2)))
+    assert ops.adc_form(256, 256) == "global"
     with pytest.raises(ops.SharedMemoryBudgetError, match="pq_adc"):
-        pq_adc_mod.pq_adc(torch.zeros((4, 256), dtype=torch.uint8),
-                          torch.zeros((1, 2), dtype=torch.int32),
-                          torch.ones((1, 2), dtype=torch.bool), big_lut)
+        ops.pick_form("pq_adc", ops.adc_form(256, 256), "shared")
     g = 12_000   # (37, 12,192) f32 tables: 1.8 MB, over the 227 KB a block
     #              has
     stores = tr.RefineStores(packed=(torch.zeros((2, g), dtype=torch.uint8),),
                              records=torch.zeros((2, 4)),
                              levels=(torch.zeros((2, 4)),), dim=5 * g)
+    est, alive, counts = tr.ternary_refine_fused(
+        stores, torch.zeros((1, 5 * g)),
+        torch.zeros((1, 2), dtype=torch.int32), torch.zeros((1, 2)),
+        torch.ones((1, 2), dtype=torch.bool), None, cal.identity_model(),
+        k=1, bound="cauchy", z=3.0)
+    assert est.shape == alive.shape == (1, 2) and counts.shape == (1, 2)
+    assert ops.refine_form(g) == "global"
     with pytest.raises(ops.SharedMemoryBudgetError, match="refine"):
-        tr.ternary_refine_fused(
-            stores, torch.zeros((1, 5 * g)), torch.zeros((1, 2), dtype=torch.int32),
-            torch.zeros((1, 2)), torch.ones((1, 2), dtype=torch.bool), None,
-            cal.identity_model(), k=1, bound="cauchy", z=3.0)
+        ops.pick_form("ternary_refine_fused", ops.refine_form(g), "shared")
     # the LUT, the tile's 4096 uint16 slot offsets, 16 warp counts
     assert ops.check_smem_budget("fits", ops.adc_smem_bytes(96, 256)) == \
         96 * 256 * 4 + 4096 * 2 + 16 * 4
@@ -392,17 +403,20 @@ def test_refine_smem_is_the_tables():
     fits = [g for g in (1437, 1438)
             if ops.refine_smem_bytes(g) <= ops.SMEM_LIMIT_BYTES]
     assert fits == [1437]
-    g = 1438
+    assert [ops.refine_form(g) for g in (1437, 1438)] == ["shared", "global"]
+    g = 1438     # the global form: the bounds call answers
     stores = tr.RefineStores(packed=(torch.zeros((2, g), dtype=torch.uint8),),
                              records=torch.zeros((2, 4)),
                              levels=(torch.zeros((2, 4)),), dim=5 * g)
     args = (stores, torch.zeros((1, 5 * g)),
             torch.zeros((1, 2), dtype=torch.int32), torch.zeros((1, 2)),
             torch.ones((1, 2), dtype=torch.bool))
-    with pytest.raises(ops.SharedMemoryBudgetError, match="bounds"):
-        tr.ternary_refine_fused_bounds(*args, cal.identity_model(),
-                                       bound="cauchy", z=3.0)
+    est, lo, hi = tr.ternary_refine_fused_bounds(*args, cal.identity_model(),
+                                                 bound="cauchy", z=3.0)
+    assert est.shape == (1, 2) and lo.shape == hi.shape == (1, 1, 2)
+    assert ops.refine_scratch_bytes(3, g) == 3 * ops.refine_smem_bytes(g)
     assert ops.level0_smem_bytes(g) > ops.refine_smem_bytes(g)
+    assert ops.level0_form(g) == "global"
     with pytest.raises(ops.SharedMemoryBudgetError, match="level0"):
         ops.check_smem_budget("level0", ops.level0_smem_bytes(g))
 

@@ -141,9 +141,11 @@ def test_level0_smem_is_pair_tables_and_stages(g, warps, nbytes):
 @pytest.mark.parametrize("entry", ["refine_scores_batch", "refine_scores",
                                    "ternary_refine_batch", "ternary_refine"])
 def test_level0_wrappers_raise_past_the_budget(entry):
-    """G = 504 needs more shared memory than a block has, even with one
-    warp; G = 503 fits."""
-    for g, fits in ((503, True), (504, False)):
+    """G = 503 fits the shared form; at G = 504 even one warp does not fit
+    beside the pair tables, and the global form (tables in scratch) takes
+    it: both answer.  Only past ``ops.LEVEL0_MAX_G`` does the card's form
+    raise; a CPU tensor still takes the plain version there."""
+    for g, form in ((503, "shared"), (504, "global")):
         args = [torch.from_numpy(a) for a in
                 _problem(np.random.default_rng(g), (1, 3), 5 * g)]
         if entry in ("refine_scores", "ternary_refine"):
@@ -158,10 +160,7 @@ def test_level0_wrappers_raise_past_the_budget(entry):
                 q if batch else q[None], g, *cols, w, bias)
             call = lambda: getattr(tr, entry)(  # noqa: E731
                 packed, planes if batch else planes[0], scalars, params)
-        if fits:
-            assert call().shape[-1] == 3
-        else:
-            with pytest.raises(ops.SharedMemoryBudgetError,
-                               match=entry.replace("refine_scores",
-                                                   "ternary_refine")):
-                call()
+        assert ops.level0_form(g) == form
+        assert call().shape == packed.shape[:-1] + (3,)
+    with pytest.raises(ops.SharedMemoryBudgetError, match="level0"):
+        ops.level0_form(ops.LEVEL0_MAX_G + 1)

@@ -119,8 +119,9 @@ def test_prune_wrapper_in_place_at_a_deeper_level():
 
 
 def test_prune_wrapper_rejects_what_the_kernel_does_not_take():
-    """k outside [1, 64], a level outside the counts, and a C whose block
-    slices overflow shared memory (446,464 slots per query fit)."""
+    """k outside [1, 64] and a level outside the counts; a C whose block
+    slices overflow shared memory (446,464 slots per query fit) answers,
+    in the global form on the card."""
     lo = hi = torch.zeros((1, 8))
     alive = torch.ones((1, 8), dtype=torch.bool)
     counts = torch.zeros((1, 2), dtype=torch.int32)
@@ -133,10 +134,13 @@ def test_prune_wrapper_rejects_what_the_kernel_does_not_take():
     fits = 446_464
     assert ops.prune_smem_bytes(fits) <= ops.SMEM_LIMIT_BYTES \
         < ops.prune_smem_bytes(fits + 1)
+    assert [ops.prune_form(c) for c in (fits, fits + 1)] == \
+        ["shared", "global"]
     big = torch.zeros((1, fits + 1))
-    with pytest.raises(ops.SharedMemoryBudgetError, match="prune"):
-        tr.ternary_refine_prune(big, big, big == 0, None, counts, big == 0,
-                                k=10)
+    out = torch.zeros_like(big, dtype=torch.bool)
+    tau = tr.ternary_refine_prune(big, big, big == 0, None, counts, out, k=10)
+    assert bool(out.all()) and int(counts[0, 0]) == fits + 1
+    assert float(tau[0]) == 0.0
     alive = big[:, :fits] == 0
     tau = tr.ternary_refine_prune(big[:, :fits], big[:, :fits], alive, None,
                                   counts, alive, k=10)
