@@ -566,6 +566,17 @@ def adc_library(torch, codes, ids, lut, valid=None):
     return ms, full
 
 
+def launched_plan(mod, fn):
+    """``fn()``'s result and the chunk plan that ``mod``'s wrapper used at
+    its launches there (its ``last_plan``, set by a global-form launch from
+    the shared bytes the launch asked for), as a dict; None where ``fn``
+    made no global-form launch of that wrapper."""
+    mod.last_plan = None
+    out = fn()
+    plan = mod.last_plan
+    return out, None if plan is None else dataclasses.asdict(plan)
+
+
 def check_adc(torch, pq_adc_mod, codes, ids, valid, lut, label: str):
     """``pq_adc`` against its plain version on one input, +inf on exactly
     the invalid slots; its time, device time per launch, bound, plain
@@ -584,10 +595,13 @@ def check_adc(torch, pq_adc_mod, codes, ids, valid, lut, label: str):
             and bool((got[~valid] == float("inf")).all())):
         fail(f"pq_adc {label}: +inf is not on exactly the invalid slots")
     m, k = lut.shape[1:]
-    row = dict(max_abs_err=err,
-               ms=time_ms(lambda: pq_adc_mod.pq_adc(*args), 20),
+    ms, plan = launched_plan(pq_adc_mod, lambda: time_ms(
+        lambda: pq_adc_mod.pq_adc(*args), 20))
+    row = dict(max_abs_err=err, ms=ms,
                plain_ms=time_ms(lambda: pq_adc_mod.pq_adc_plain(*args), 3),
                **adc_cost(torch, f"pq_adc {label}", ids, valid, m, k))
+    if plan is not None:
+        row["plan"] = plan
     every = torch.ones_like(valid)
     every_ms = time_ms(lambda: pq_adc_mod.pq_adc(codes, ids, every, lut), 20)
     zeros = torch.zeros_like(codes)
@@ -597,7 +611,8 @@ def check_adc(torch, pq_adc_mod, codes, ids, valid, lut, label: str):
     print(f"pq_adc {label}: {row['ms']:.4f} ms with {int(valid.sum())} valid "
           f"slots of {valid.numel()} (bound {row['bound_ms']:.4f} ms), "
           f"{every_ms:.4f} ms with every slot valid, {zero_ms:.4f} ms on an "
-          f"all-zero code store (no bank conflicts), max err {err:.3g}")
+          f"all-zero code store (no bank conflicts), max err {err:.3g}"
+          + (f", chunk plan {plan}" if plan else ""))
     del every, zeros
     return got, row
 
@@ -660,9 +675,9 @@ def edge_adc(torch, pq_adc_mod, ops, gen) -> tuple[float, dict]:
                   + (", the global form bit-equal" if form == "shared"
                      else ""))
             if (m, k) == EDGE_ADC_WIDE:
-                row = dict(max_abs_err=err,
-                           ms=time_ms(lambda: pq_adc_mod.pq_adc(
-                               codes, ids, valid, lut), 20),
+                ms, plan = launched_plan(pq_adc_mod, lambda: time_ms(
+                    lambda: pq_adc_mod.pq_adc(codes, ids, valid, lut), 20))
+                row = dict(max_abs_err=err, ms=ms, plan=plan,
                            plain_ms=time_ms(lambda: pq_adc_mod.pq_adc_plain(
                                codes, ids, valid, lut), 3),
                            library_ms=adc_library(torch, codes, ids, lut)[0],
@@ -672,7 +687,7 @@ def edge_adc(torch, pq_adc_mod, ops, gen) -> tuple[float, dict]:
                       f"{row['ms']:.4f} ms per call (bound "
                       f"{row['bound_ms']:.4f} ms), plain "
                       f"{row['plain_ms']:.3f} ms, embedding_bag "
-                      f"{row['library_ms']:.4f} ms")
+                      f"{row['library_ms']:.4f} ms, chunk plan {plan}")
     return worst, row
 
 
@@ -1299,11 +1314,12 @@ def edge_refine_rows(torch, tr, ops, stores, model, cand, q, label,
     planes = ops.make_query_planes(q, g)
     params = ops.query_params(q, model.w, model.bias, model.resid_std, 3.0)
     args = (stores, q, cand.ids, cand.d0, cand.valid)
+    ms, plan = launched_plan(tr, lambda: time_ms(
+        lambda: tr.ternary_refine_fused(*args, None, model, k=10,
+                                        bound="cauchy", z=3.0), 20))
     rows = {
         "ternary_refine_fused": dict(
-            max_abs_err=errs[0],
-            ms=time_ms(lambda: tr.ternary_refine_fused(
-                *args, None, model, k=10, bound="cauchy", z=3.0), 20),
+            max_abs_err=errs[0], ms=ms, plan=plan,
             plain_ms=time_ms(lambda: tr.refine_plain(
                 stores, planes, params, *args[2:], None, k=10,
                 bound="cauchy"), 3),
@@ -1318,7 +1334,8 @@ def edge_refine_rows(torch, tr, ops, stores, model, cand, q, label,
     for name, row in rows.items():
         print(f"{name} {label} ({ops.refine_form(g)} form): "
               f"{row['ms']:.4f} ms per call (bound {row['bound_ms']:.4f} ms),"
-              f" plain {row['plain_ms']:.3f} ms")
+              f" plain {row['plain_ms']:.3f} ms"
+              + (f", chunk plan {row['plan']}" if row.get("plan") else ""))
     return rows
 
 
@@ -2338,19 +2355,23 @@ def path_kernels(torch, db, cfg, q, label: str, qvalid=None,
         fail(f"ternary_refine_fused {label}: alive or counts differ from "
              f"the plain version ({int((alive != p_alive).sum())} alive "
              f"slots)")
+    ms, plan = launched_plan(tr, lambda: time_ms(
+        lambda: tr.ternary_refine_fused(*args, **kw), 20))
     refine = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: tr.ternary_refine_fused(*args, **kw), 20),
+        max_abs_err=err, ms=ms,
         plain_ms=time_ms(lambda: tr.refine_plain(
             stores, planes, params, *args[2:6], k=k, bound="cauchy"), 3),
         library_ms=None, **refine_cost(torch, stores, cand, q))
+    if plan is not None:
+        refine["plan"] = plan
     print_launches(torch, f"ternary_refine_fused {label}",
                    lambda: tr.ternary_refine_fused(*args, **kw), 20)
     print(f"ternary_refine_fused {label}: est within {err:.3g} on "
           f"{int(cand.valid.sum())} valid slots of {cand.valid.numel()}, "
           f"alive and counts exact, survivors {int(counts[:, 0].sum())}; "
           f"{refine['ms']:.4f} ms per call (bound {refine['bound_ms']:.4f} "
-          f"ms), plain {refine['plain_ms']:.3f} ms")
+          f"ms), plain {refine['plain_ms']:.3f} ms"
+          + (f", chunk plan {plan}" if plan else ""))
     return adc, refine, cand, alive, counts
 
 
@@ -5746,7 +5767,9 @@ def global_entries(rows, wide, edge_rows, launches) -> None:
     level-0 entry points), ``fatrq_shape`` the global form beside the
     shared one at the fatrq shape (bit-equal), and its other
     wide and edge shapes; the fused kernel's ``wide_2048`` entry holds its
-    shared form at G = 410."""
+    shared form at G = 410.  ``plan``, in the ``pq_adc`` and fused-kernel
+    entries of a global form, is the chunk plan its wrapper launched with
+    at the timed call (``launched_plan``)."""
     wide_runs = [launches[p] for p in ("wide_2048", "wide_8192", "wide_ops")]
     count = lambda key: sum(r[key] for r in wide_runs)        # noqa: E731
     refine = rows["ternary_refine_fused"]
@@ -5771,7 +5794,9 @@ def global_entries(rows, wide, edge_rows, launches) -> None:
             pair_tables_launches=launches["wide_ops"]["pair tables (global)"],
             edge=edge_rows[name])
     print("global entries: each kernel's global form (its state in device "
-          "scratch) at its widest shape with its global-form launches over "
+          "memory; pq_adc and the fused kernel stage it back into shared "
+          "memory by the chunk plan in its entry) at its widest shape with "
+          "its global-form launches over "
           "the wide paths (wide_2048, wide_8192, wide_ops); fatrq_shape: "
           "the global form beside the shared form at the fatrq shape, "
           "bit-equal; edge: at the edge shapes (pq_adc M=1024 K=256; the "

@@ -65,11 +65,46 @@
 // Shared memory: the LUT (M*K*4 B, 96 KiB at M = 96, K = 256), the list
 // (kTile * 2 B) and the warps' counts: ops.adc_smem_bytes.  Where the LUT
 // does not fit (M > 218 at K = 256: every backbone width from 2048 on at
-// the JAX package's pq_m = d / 8), the global form (kGlobal) reads each
-// lookup straight from the caller's (Q, M, K) LUT with __ldg instead of
-// copying it: the same adds in the same order, so the same bits, with the
-// LUT served from L1 and the 50 MB L2 (1 MiB a query at M = 1024).  The
-// host picks the form from M and K (ops.adc_form) before the launch.
+// the JAX package's pq_m = d / 8), the global form (kGlobal) stages it in
+// chunks of Mc subspaces (ops.adc_plan: Mc = 64, 16 chunks at M = 1024), a
+// ring of two Mc x K f32 buffers beside the list and the counts (139,328 B
+// at K = 256):
+//
+//  * After the flag scan, every thread starts chunk 0's copy with cp.async
+//    (as point 4), then reads its rows' ids once: thread t owns list entries
+//    t, t + kThreads, ..., at most kTile / kThreads = 8 rows, and keeps one
+//    running sum per row in registers across the chunks.
+//  * Chunk c: the thread waits for chunk c's copy, one barrier (every thread
+//    has finished chunk c - 1, so its buffer is free), then chunk c + 1's
+//    copy starts into it and the thread scores chunk c of its rows from
+//    shared memory, two rows at a time: the next pair's bytes [m0, m0 + Mc)
+//    are loaded before the current pair is scored, and after a chunk's last
+//    pair the next chunk's first pair, so the rows' loads run on across the
+//    barrier.  Each row adds m = m0, m0 + 1, ... to its own sum, so a row's
+//    sum still runs m = 0 ... M - 1 with one accumulator: the shared form's
+//    bits (point 3).
+//  * Mc is a multiple of 16 (so every chunk starts a uint4 of the row) and
+//    at most kRing = 64: two pairs of 64-byte chunks in registers leave room
+//    for the 8 sums under the 128 registers a thread of a 512-thread block
+//    may have.  A chunk of 64 bytes is two whole sectors of a row at
+//    M % 32 == 0, and the ring leaves ~90 KB of the SM's 228 KB to L1 for
+//    the rows' sectors.  64 subspaces time faster than 32 and 48
+//    (wide_variants.py).
+//  * The LUT comes from L2 once per block and chunk: Q x ceil(C / kTile)
+//    copies of it a call (1.27 GB at wide_8192, 19 tiles x 64 queries x
+//    1 MiB), overlapped with the scoring of the chunk before.
+//  * What sets its pace (wide_variants.py times copies of this source,
+//    chip_smoke.py the kernel on an all-zero code store, where every lookup
+//    of an instruction reads one address): at wide_8192 the LUT copies
+//    after the first cost ~4%, the rows' loads after the first pair ~24%,
+//    the lookups' bank conflicts ~15%.  The rest is the lookups and adds
+//    themselves: each row's M adds are one dependent chain in subspace
+//    order (point 3), and a thread holds ~2.8 rows there.  So a larger
+//    tile, or a cluster sharing each LUT chunk, would cut only the copies'
+//    few percent.
+//
+// The host picks the form from M and K (ops.adc_form) and the chunk plan
+// from M and K (ops.adc_plan) before the launch; the plan passes Mc.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,22 +119,28 @@ constexpr int kWarpSlots = kTile / kWarps;  // 256, 8 rounds of 32
 constexpr int kRounds = kWarpSlots / 32;
 constexpr int kChunk = 96;     // row bytes a thread holds in registers
 constexpr int kChunkWords = kChunk / 4;
+constexpr int kRing = 64;      // most subspaces of a global-form LUT chunk
 constexpr int kSmemOptIn = 232448;  // Hopper's per-block maximum
 constexpr unsigned kFull = 0xffffffffu;
 
-// Up to kChunk bytes of one code row, as 32-bit words.
-struct Chunk {
-  uint32_t w[kChunkWords];
+// Up to 4 kW bytes of one code row, as 32-bit words: kChunk bytes in the
+// shared form (Chunk), kRing in the global form's LUT ring (RingChunk).
+template <int kW>
+struct Words {
+  uint32_t w[kW];
 };
+using Chunk = Words<kChunkWords>;
+using RingChunk = Words<kRing / 4>;
 
 // Bytes [b0, b0 + nb) of a row (nb a multiple of 4, or of 16 when vec),
 // every load issued before any use.
-__device__ __forceinline__ void load_chunk(Chunk& c, const uint8_t* row,
+template <int kW>
+__device__ __forceinline__ void load_chunk(Words<kW>& c, const uint8_t* row,
                                            int b0, int nb, bool vec) {
   if (vec) {
     const uint4* p = reinterpret_cast<const uint4*>(row + b0);
 #pragma unroll
-    for (int j = 0; j < kChunk / 16; ++j) {
+    for (int j = 0; j < kW / 4; ++j) {
       if (16 * j < nb) {
         const uint4 v = __ldg(p + j);
         c.w[4 * j + 0] = v.x;
@@ -111,7 +152,7 @@ __device__ __forceinline__ void load_chunk(Chunk& c, const uint8_t* row,
   } else {
     const uint32_t* p = reinterpret_cast<const uint32_t*>(row + b0);
 #pragma unroll
-    for (int j = 0; j < kChunkWords; ++j)
+    for (int j = 0; j < kW; ++j)
       if (4 * j < nb) c.w[j] = __ldg(p + j);
   }
 }
@@ -119,10 +160,12 @@ __device__ __forceinline__ void load_chunk(Chunk& c, const uint8_t* row,
 // Bytes [b0, b0 + nb) of a row at any address and any nb, one byte load
 // each, packed little-endian into the words load_chunk gives (bytes past
 // nb left 0 and never looked up).
-__device__ __forceinline__ void load_chunk_bytes(Chunk& c, const uint8_t* row,
-                                                 int b0, int nb) {
+template <int kW>
+__device__ __forceinline__ void load_chunk_bytes(Words<kW>& c,
+                                                 const uint8_t* row, int b0,
+                                                 int nb) {
 #pragma unroll
-  for (int j = 0; j < kChunkWords; ++j) {
+  for (int j = 0; j < kW; ++j) {
     if (4 * j < nb) {
       uint32_t w = 0;
 #pragma unroll
@@ -134,33 +177,22 @@ __device__ __forceinline__ void load_chunk_bytes(Chunk& c, const uint8_t* row,
   }
 }
 
-// One LUT entry: from shared memory, or (kGlobal) from device memory.
-template <bool kGlobal>
-__device__ __forceinline__ float lut_at(const float* l, int i) {
-  if constexpr (kGlobal)
-    return __ldg(l + i);
-  else
-    return l[i];
-}
-
 // Adds the chunk's nb lookups, subspaces m0, m0 + 1, ..., to s in order
-// (kBytes: nb need not be a multiple of 4).
-template <bool kGlobal, bool kBytes>
-__device__ __forceinline__ float score_chunk(const Chunk& c, float s,
+// (kBytes: nb need not be a multiple of 4); l is the shared LUT, or the
+// global form's chunk of it (m0 = 0 there).
+template <bool kBytes, int kW>
+__device__ __forceinline__ float score_chunk(const Words<kW>& c, float s,
                                              const float* s_lut, int m0,
                                              int nb, int K) {
   const float* l = s_lut + (size_t)m0 * K;
 #pragma unroll
-  for (int j = 0; j < kChunkWords; ++j) {
+  for (int j = 0; j < kW; ++j) {
     if (4 * j < nb) {
       const uint32_t v = c.w[j];
-      s += lut_at<kGlobal>(l, v & 0xffu);
-      if (!kBytes || 4 * j + 1 < nb)
-        s += lut_at<kGlobal>(l, K + ((v >> 8) & 0xffu));
-      if (!kBytes || 4 * j + 2 < nb)
-        s += lut_at<kGlobal>(l, 2 * K + ((v >> 16) & 0xffu));
-      if (!kBytes || 4 * j + 3 < nb)
-        s += lut_at<kGlobal>(l, 3 * K + (v >> 24));
+      s += l[v & 0xffu];
+      if (!kBytes || 4 * j + 1 < nb) s += l[K + ((v >> 8) & 0xffu)];
+      if (!kBytes || 4 * j + 2 < nb) s += l[2 * K + ((v >> 16) & 0xffu)];
+      if (!kBytes || 4 * j + 3 < nb) s += l[3 * K + (v >> 24)];
       l += 4 * K;
     }
   }
@@ -168,9 +200,10 @@ __device__ __forceinline__ float score_chunk(const Chunk& c, float s,
 }
 
 // A row's chunk by the path the wrapper picked (kBytes: byte loads).
-template <bool kBytes>
-__device__ __forceinline__ void load_row_chunk(Chunk& c, const uint8_t* row,
-                                               int b0, int nb, bool vec) {
+template <bool kBytes, int kW>
+__device__ __forceinline__ void load_row_chunk(Words<kW>& c,
+                                               const uint8_t* row, int b0,
+                                               int nb, bool vec) {
   if (kBytes)
     load_chunk_bytes(c, row, b0, nb);
   else
@@ -192,6 +225,100 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// n floats from src to dst in shared memory by the whole block, as one
+// cp.async group: 16-byte pieces where n % 4 == 0 and src is 16-byte
+// aligned (dst always is), else 4-byte ones.
+__device__ __forceinline__ void copy_floats(float* dst, const float* src,
+                                            int n) {
+  if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int i = 4 * threadIdx.x; i < n; i += 4 * kThreads)
+      cp_async(dst + i, src + i, true);
+  } else {
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      cp_async(dst + i, src + i, false);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Row bytes [m0, m0 + nb) of a thread's rows 2 pr and 2 pr + 1 (those it
+// has) into a and b.
+template <bool kBytes>
+__device__ __forceinline__ void load_pair(RingChunk& a, RingChunk& b,
+                                          const uint8_t* codes,
+                                          const int (&rid)[kTile / kThreads],
+                                          int pr, int mine, int M, int m0,
+                                          int nb, bool wide) {
+#pragma unroll
+  for (int i = 0; i < kTile / kThreads; i += 2) {
+    if (i == 2 * pr) {  // pr is a loop counter: one branch survives
+      if (i < mine)
+        load_row_chunk<kBytes>(a, codes + (size_t)rid[i] * M, m0, nb, wide);
+      if (i + 1 < mine)
+        load_row_chunk<kBytes>(b, codes + (size_t)rid[i + 1] * M, m0, nb,
+                               wide);
+    }
+  }
+}
+
+// The global form's scoring (the header's chunk ring): thread t's rows are
+// list entries t + r kThreads, r < kRows, scored in pairs; its chunk-0
+// copy is in flight.
+template <bool kBytes>
+__device__ __forceinline__ void score_ring(
+    const uint8_t* __restrict__ codes, const int32_t* __restrict__ ids,
+    const float* lq, float* __restrict__ out, size_t row,
+    const uint16_t* s_list, float* s_ring, int total, int M, int K, int mc,
+    bool wide) {
+  constexpr int kRows = kTile / kThreads;
+  const int chunks = (M + mc - 1) / mc;
+  const int ring = mc * K;  // floats a buffer
+  const int mine = total > (int)threadIdx.x
+                       ? (total - (int)threadIdx.x + kThreads - 1) / kThreads
+                       : 0;
+  int rid[kRows];
+  float sum[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    rid[r] = r < mine ? ids[row + s_list[threadIdx.x + r * kThreads]] : 0;
+    sum[r] = 0.f;
+  }
+  RingChunk a, b;  // the pair of rows scored next
+  load_pair<kBytes>(a, b, codes, rid, 0, mine, M, 0, min(M, mc), wide);
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int m0 = ch * mc, nb = min(M - m0, mc);
+    const int m1 = m0 + mc, nb1 = min(M - m1, mc);  // the next chunk's
+    cp_async_wait_all();
+    __syncthreads();  // chunk ch landed; chunk ch - 1's buffer is free
+    if (ch + 1 < chunks)
+      copy_floats(s_ring + ((ch + 1) & 1) * ring, lq + (size_t)m1 * K,
+                  nb1 * K);
+    const float* l = s_ring + (ch & 1) * ring;
+#pragma unroll
+    for (int pr = 0; pr < kRows / 2; ++pr) {
+      if (2 * pr < mine) {
+        // the next pair's bytes go out first: this chunk's, or the next
+        // chunk's first pair after this chunk's last
+        RingChunk next_a = a, next_b = b;
+        if (2 * pr + 2 < mine)
+          load_pair<kBytes>(next_a, next_b, codes, rid, pr + 1, mine, M, m0,
+                            nb, wide);
+        else if (ch + 1 < chunks)
+          load_pair<kBytes>(next_a, next_b, codes, rid, 0, mine, M, m1, nb1,
+                            wide);
+        sum[2 * pr] = score_chunk<kBytes>(a, sum[2 * pr], l, 0, nb, K);
+        if (2 * pr + 1 < mine)
+          sum[2 * pr + 1] =
+              score_chunk<kBytes>(b, sum[2 * pr + 1], l, 0, nb, K);
+        a = next_a;
+        b = next_b;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    if (r < mine) out[row + s_list[threadIdx.x + r * kThreads]] = sum[r];
+}
+
 template <bool kGlobal, bool kBytes>
 __global__ void __launch_bounds__(kThreads, 1)
     adc_kernel(const uint8_t* __restrict__ codes,  // (N, M)
@@ -199,12 +326,16 @@ __global__ void __launch_bounds__(kThreads, 1)
                const uint8_t* __restrict__ valid,  // (Q, C)
                const float* __restrict__ lut,      // (Q, M, K)
                float* __restrict__ out,            // (Q, C)
-               int C, int M, int K, int vec) {
+               int C, int M, int K, int vec, int mc) {
   extern __shared__ float4 s_mem[];
-  float* s_lut = reinterpret_cast<float*>(s_mem);  // (M, K); none if global
+  // the LUT (M, K), or the global form's ring of two (mc, K) chunks (one
+  // where a single chunk covers M)
+  float* s_lut = reinterpret_cast<float*>(s_mem);
+  const int lut_floats =
+      kGlobal ? (mc < M ? 2 : 1) * mc * K : M * K;
   uint16_t* s_list =
-      reinterpret_cast<uint16_t*>(s_lut + (kGlobal ? 0 : M * K));  // (kTile,)
-  int* s_cnt = reinterpret_cast<int*>(s_list + kTile);            // (kWarps,)
+      reinterpret_cast<uint16_t*>(s_lut + lut_floats);  // (kTile,)
+  int* s_cnt = reinterpret_cast<int*>(s_list + kTile);  // (kWarps,)
 
   const int q = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tile0 = blockIdx.x * kTile, n_in = min(C - tile0, kTile);
@@ -234,10 +365,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   if (total == 0) return;  // the whole block: no LUT, no rows
 
-  // 4. start the LUT copy (the global form reads the LUT in place)
+  // 4. start the LUT copy (the global form: its first chunk)
   const float* lq = lut + (size_t)q * M * K;
-  const int mk = M * K;
-  if (!kGlobal) {
+  if constexpr (kGlobal) {
+    copy_floats(s_lut, lq, min(mc, M) * K);
+  } else {
+    const int mk = M * K;
     if ((mk & 3) == 0 && (reinterpret_cast<uintptr_t>(lq) & 15) == 0) {
       for (int i = 4 * threadIdx.x; i < mk; i += 4 * kThreads)
         cp_async(s_lut + i, lq + i, true);
@@ -247,7 +380,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
-  const float* l_src = kGlobal ? lq : s_lut;
 
   // the valid slots' offsets, in slot order
   const unsigned below = (1u << lane) - 1u;
@@ -260,46 +392,57 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  // 2. the first row's loads go out before the wait for the LUT
   const bool wide = vec != 0;
-  const int first = min(M, kChunk);
-  int i = threadIdx.x;
-  int slot = 0;
-  const uint8_t* row_cur = codes;
-  Chunk cur;
-  if (i < total) {
-    slot = s_list[i];
-    row_cur = codes + (size_t)ids[row + slot] * M;
-    load_row_chunk<kBytes>(cur, row_cur, 0, first, wide);
-  }
-  if (!kGlobal) {
+  if constexpr (kGlobal) {
+    score_ring<kBytes>(codes, ids, lq, out, row, s_list, s_lut, total, M, K,
+                       mc, wide);
+  } else {
+    // 2. the first row's loads go out before the wait for the LUT
+    const int first = min(M, kChunk);
+    int i = threadIdx.x;
+    int slot = 0;
+    const uint8_t* row_cur = codes;
+    Chunk cur;
+    if (i < total) {
+      slot = s_list[i];
+      row_cur = codes + (size_t)ids[row + slot] * M;
+      load_row_chunk<kBytes>(cur, row_cur, 0, first, wide);
+    }
     cp_async_wait_all();
     __syncthreads();
-  }
 
-  for (; i < total; i += kThreads) {
-    const int i_next = i + kThreads;
-    int slot_next = 0;
-    const uint8_t* row_next = codes;
-    Chunk next;
-    if (i_next < total) {
-      slot_next = s_list[i_next];
-      row_next = codes + (size_t)ids[row + slot_next] * M;
-      load_row_chunk<kBytes>(next, row_next, 0, first, wide);
+    for (; i < total; i += kThreads) {
+      const int i_next = i + kThreads;
+      int slot_next = 0;
+      const uint8_t* row_next = codes;
+      Chunk next;
+      if (i_next < total) {
+        slot_next = s_list[i_next];
+        row_next = codes + (size_t)ids[row + slot_next] * M;
+        load_row_chunk<kBytes>(next, row_next, 0, first, wide);
+      }
+      // 3. one accumulator, subspaces in order
+      float s = score_chunk<kBytes>(cur, 0.f, s_lut, 0, first, K);
+      for (int b0 = kChunk; b0 < M; b0 += kChunk) {  // rows beyond kChunk
+        const int nb = min(M - b0, kChunk);
+        Chunk more;
+        load_row_chunk<kBytes>(more, row_cur, b0, nb, wide);
+        s = score_chunk<kBytes>(more, s, s_lut, b0, nb, K);
+      }
+      out[row + slot] = s;
+      cur = next;
+      slot = slot_next;
+      row_cur = row_next;
     }
-    // 3. one accumulator, subspaces in order
-    float s = score_chunk<kGlobal, kBytes>(cur, 0.f, l_src, 0, first, K);
-    for (int b0 = kChunk; b0 < M; b0 += kChunk) {  // rows beyond kChunk
-      const int nb = min(M - b0, kChunk);
-      Chunk more;
-      load_row_chunk<kBytes>(more, row_cur, b0, nb, wide);
-      s = score_chunk<kGlobal, kBytes>(more, s, l_src, b0, nb, K);
-    }
-    out[row + slot] = s;
-    cur = next;
-    slot = slot_next;
-    row_cur = row_next;
   }
+}
+
+// Dynamic shared memory of one block: the LUT (shared form) or the ring of
+// mc-subspace chunks (global form, two buffers where mc < M), the list and
+// the warps' counts (ops.adc_smem_bytes, ops.adc_plan).
+size_t adc_smem(bool global, int M, int K, int mc) {
+  const size_t lut = global ? (size_t)(mc < M ? 2 : 1) * mc * K : (size_t)M * K;
+  return lut * sizeof(float) + kTile * sizeof(uint16_t) + kWarps * sizeof(int);
 }
 
 // One form and row path of the kernel.  The dynamic shared-memory opt-in
@@ -307,41 +450,46 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <bool kGlobal, bool kBytes>
 int launch_adc(const void* codes, const void* ids, const void* valid,
                const void* lut, void* out, int Q, int C, int M, int K,
-               int vec, cudaStream_t stream) {
+               int vec, int mc, size_t smem, cudaStream_t stream) {
   static const cudaError_t opt_in = cudaFuncSetAttribute(
       adc_kernel<kGlobal, kBytes>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
   if (opt_in != cudaSuccess) return (int)opt_in;
   if (C == 0 || Q == 0) return (int)cudaGetLastError();
-  const size_t smem = (kGlobal ? 0 : (size_t)M * K * sizeof(float)) +
-                      kTile * sizeof(uint16_t) + kWarps * sizeof(int);
   dim3 grid((C + kTile - 1) / kTile, Q);
   adc_kernel<kGlobal, kBytes><<<grid, kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(codes), static_cast<const int32_t*>(ids),
       static_cast<const uint8_t*>(valid), static_cast<const float*>(lut),
-      static_cast<float*>(out), C, M, K, vec);
+      static_cast<float*>(out), C, M, K, vec, mc);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // path: 0 words, 1 16-byte loads, 2 bytes (pq_adc.row_path); global: the
-// LUT read in place (ops.adc_form).
+// LUT staged in chunks of mc subspaces (ops.adc_form, ops.adc_plan; mc is
+// M, or a multiple of 16, at most kRing); smem_out (may be null) receives the
+// dynamic shared bytes the launch asked for.
 extern "C" int fatrq_pq_adc(const void* codes, const void* ids,
                             const void* valid, const void* lut, void* out,
                             int Q, int C, int M, int K, int path, int global,
-                            void* stream) {
+                            int mc, int* smem_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = path == 1;
+  if (global && (mc < 1 || mc > kRing || (mc < M && mc % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = adc_smem(global != 0, M, K, mc);
+  if (smem > (size_t)kSmemOptIn) return (int)cudaErrorInvalidValue;
+  if (smem_out != nullptr) *smem_out = (int)smem;
   if (path == 2)
     return global ? launch_adc<true, true>(codes, ids, valid, lut, out, Q, C,
-                                           M, K, vec, s)
+                                           M, K, vec, mc, smem, s)
                   : launch_adc<false, true>(codes, ids, valid, lut, out, Q,
-                                            C, M, K, vec, s);
+                                            C, M, K, vec, mc, smem, s);
   return global ? launch_adc<true, false>(codes, ids, valid, lut, out, Q, C,
-                                          M, K, vec, s)
+                                          M, K, vec, mc, smem, s)
                 : launch_adc<false, false>(codes, ids, valid, lut, out, Q, C,
-                                           M, K, vec, s);
+                                           M, K, vec, mc, smem, s);
 }
 
 extern "C" const char* fatrq_error_string(int status) {

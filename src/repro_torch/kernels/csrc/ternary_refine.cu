@@ -141,26 +141,53 @@
 // width: G = 1639 at D = 8192) each runs a global form, picked by the host
 // from the shapes alone before the launch (ops.refine_form, prune_form,
 // level0_form), that keeps only that state in a device scratch buffer the
-// wrapper allocates, cached by the 50 MB L2, and is otherwise the same
-// code (a template flag, kGlobal):
+// wrapper allocates, cached by the 50 MB L2 (a template flag, kGlobal), and
+// gives the shared form's bits:
 //
 //  * tables_kernel writes each query's T27/T9 tables once per call with
 //    load_tables into a (Q, 37, Gp) f32 buffer (pair_tables_kernel the
-//    level-0 pair tables into a (Q, 37, Gp) float2 one); score_kernel,
-//    bounds_kernel and level0_kernel read s_b from there instead of
-//    building it in shared memory.  row_dot and level0_row take a generic
-//    pointer, so every lookup adds the same float: the same bits.  The
-//    fused call builds the tables once for all of its levels.  level0's
-//    stages keep the shared memory (up to 16 warps' two stages each); past
-//    G = 3517 even one warp's do not fit (ops.LEVEL0_MAX_G).
+//    level-0 pair tables into a (Q, 37, Gp) float2 one); bounds_kernel and
+//    level0_kernel read s_b from there instead of building it in shared
+//    memory.  row_dot and level0_row take a generic pointer, so every
+//    lookup adds the same float: the same bits.  The fused call builds the
+//    tables once for all of its levels.  level0's stages keep the shared
+//    memory (up to 16 warps' two stages each); past G = 3517 even one
+//    warp's do not fit (ops.LEVEL0_MAX_G).
+//  * score_kernel<true> (score_chunked) stages those tables back into
+//    shared memory by column chunks of P whole passes (ops.refine_plan: the
+//    most passes, at most kSpanPasses = 3, that keep two blocks on an SM;
+//    P = 3 and 4 chunks at G = 1639, 108,544 B a block).  A chunk holds the
+//    37 rows over columns [160 p0, 160 p0 + chunk_width(P)): its passes'
+//    160 columns each and the 3 that a word's offset shifts into, which are
+//    the only columns row_dot addresses for those passes at any offset,
+//    copied from the scratch with 16-byte cp.async.  For each chunk every
+//    warp walks its slots as the shared form does (the same ballot, so the
+//    same rows on the same lane groups in the same rounds), scores only the
+//    chunk's passes of each valid row (row_dot_span) and carries each
+//    lane's partial sum to the next chunk in shared memory (one f32 per
+//    lane of every candidate of the tile, 32 KB).  A lane's partial is
+//    row_dot's sequence of adds cut at pass boundaries, so after the last
+//    chunk the three shuffles reduce the same floats to the same dot; only
+//    then are level0 / deeper and the outputs taken.
+//
+//    The lookups now cost no L1/L2 trip, so each group's chain of row loads
+//    sets the pace: a group loads all of a row's words for the chunk at
+//    once (load_span, 15 a lane at P = 3), and its next row's before it
+//    scores the current one, across the warp's 32-slot steps and across a
+//    chunk's barrier (step_dot: one stream of rows a warp).  128 registers
+//    and 108,544 B hold two blocks (16 warps) an SM; 3 passes a chunk time
+//    faster than 2 and 1 (wide_variants.py).  Copying the tables (265,216 B
+//    a query at G = 1639) rather than building them in each block keeps
+//    the block's issue slots for the lookups: 74 blocks a query would each
+//    rebuild them.
 //  * prune_kernel stages each block's slice of keys and alive bits in a
 //    (Q, 8, span + span / 32) uint32 buffer; the digit counts, the
 //    cluster's exchange and the select stay in shared memory, so masks,
 //    counts and tau are the shared form's.
 //
-// A global form is slower than its shared form (every lookup or staged key
-// goes to L1/L2); redesigning it around shared-memory chunks over G or C
-// is later work.
+// bounds_kernel<true>, level0_kernel<..., true> and prune_kernel<true> are
+// slower than their shared forms (every lookup or staged key goes to
+// L1/L2); redesigning them around shared-memory chunks is later work.
 
 #include <algorithm>
 #include <cooperative_groups.h>
@@ -433,6 +460,182 @@ __device__ __forceinline__ float chunk_dot(const uint8_t* packed, int id,
   return dot;
 }
 
+// ---- the score launch's global form: the tables by column chunks
+
+constexpr int kPassCols = 4 * kPassWords;  // table columns a pass spans
+constexpr int kTileIters = kSlotTile / kScoreThreads;  // a warp's steps
+constexpr int kSpanPasses = 3;  // most passes of a chunk (ops.refine_plan)
+
+// Columns staged for a chunk of P passes: the passes' kPassCols each and
+// the 4 that a word's offset shifts a row's bytes by, rounded up to 32 banks
+// (ops.chunk_width).
+__host__ __device__ __forceinline__ int chunk_width(int P) {
+  return (kPassCols * P + 4 + 31) / 32 * 32;
+}
+
+// Shared memory of the chunked score kernel: T27 and T9 over
+// chunk_width(P) columns, then one partial sum per lane of every candidate
+// of the tile (kSlotTile x kGroup f32; ops.refine_chunk_bytes).
+size_t chunk_smem(int P) {
+  return ((size_t)(27 + kT9Rows) * chunk_width(P) +
+          (size_t)kSlotTile * kGroup) *
+         sizeof(float);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// Columns [c0, c0 + n) of one query's 37 table rows (row stride gp in
+// device memory, 16-byte aligned; n a multiple of 4) to shared memory at
+// row stride gw, by the whole block as one cp.async group.
+__device__ __forceinline__ void stage_tables(float* s_t, const float* tq,
+                                             int gp, int gw, int c0, int n) {
+  const int per_row = n / 4;
+  for (int i = threadIdx.x; i < (27 + kT9Rows) * per_row; i += blockDim.x) {
+    const int r = i / per_row, u = i - r * per_row;
+    cp_async16(s_t + r * gw + 4 * u, tq + (size_t)r * gp + c0 + 4 * u);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// One code row's words for every pass of a chunk [p0, p1), p1 - p0 <=
+// kSpanPasses, as row_dot reads them (lane sub: words 40 p + sub + 8 s,
+// clamped to the row's last word), all issued at once.
+struct SpanWords {
+  const uint32_t* words;
+  int off, last;  // row address mod 4; last word holding a row byte
+  uint32_t v[kSpanPasses][kWords];
+};
+
+__device__ __forceinline__ void load_span(SpanWords& r, const uint8_t* row,
+                                          int G, int sub, int p0, int p1) {
+  r.off = (int)(reinterpret_cast<uintptr_t>(row) & 3);
+  r.words = reinterpret_cast<const uint32_t*>(row - r.off);
+  r.last = (r.off + G - 1) >> 2;
+#pragma unroll
+  for (int i = 0; i < kSpanPasses; ++i) {
+#pragma unroll
+    for (int s = 0; s < kWords; ++s)
+      r.v[i][s] = p0 + i < p1 ? __ldg(r.words +
+                                      min(kPassWords * (p0 + i) + sub +
+                                              kGroup * s,
+                                          r.last))
+                              : 0u;
+  }
+}
+
+// row_dot over passes [p0, p1) of a row (r: their words) on tables staged
+// from column kPassCols * p0 at gw4 bytes a row: sum, the lane's partial
+// over the passes before p0, gets these passes' lookups added in row_dot's
+// order (a pair T27 + T9 first, then onto the sum; a pass only while its
+// first word is in the row, as row_dot stops), so a lane's partial after
+// the row's last chunk is row_dot's, bit for bit.
+__device__ __forceinline__ float row_dot_span(const SpanWords& r,
+                                              const char* s_c, uint32_t gw4,
+                                              int grp, int sub, int p0,
+                                              int p1, float sum) {
+  uint32_t pick[4], o27[4], o9[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int j = (b + grp + r.off) & 3;  // row_dot's bank spread
+    pick[b] = 0x4440u | (uint32_t)j;
+    o27[b] = 4u * (uint32_t)(4 * sub + 4 - r.off + j);
+    o9[b] = o27[b] + 27u * gw4;
+  }
+#pragma unroll
+  for (int i = 0; i < kSpanPasses; ++i) {
+    if (p0 + i < p1 && kPassWords * (p0 + i) <= r.last) {
+#pragma unroll
+      for (int s = 0; s < kWords; ++s) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const uint32_t y = __byte_perm(r.v[i][s], 0u, pick[b]);
+          const uint32_t y27 = __umulhi(y, 159072863u);  // y / 27
+          const uint32_t at = 16u * (uint32_t)(kPassWords * i) +
+                              16u * kGroup * s;
+          const float pair = lds(s_c, y * gw4 - y27 * (27u * gw4) + o27[b] +
+                                          at) +
+                             lds(s_c, y27 * gw4 + o9[b] + at);
+          sum += pair;
+        }
+      }
+    }
+  }
+  return sum;
+}
+
+// A lane group's place in the warp's stream of rows: the row it scores
+// next (src: the lane holding its slot, -1 if none) and its words.
+struct RowStream {
+  SpanWords cur;
+  int src;
+};
+
+// The group's first row of a step (passes [p0, p1)) into s.
+__device__ __forceinline__ void stream_first(RowStream& s,
+                                             const uint8_t* packed,
+                                             unsigned ball, int id, int G,
+                                             int grp, int sub, int p0,
+                                             int p1) {
+  s.src = nth_bit(ball, grp);
+  const int cid = __shfl_sync(kFull, id, s.src < 0 ? 0 : s.src);
+  if (s.src >= 0) load_span(s.cur, packed + (size_t)cid * G, G, sub, p0, p1);
+}
+
+// chunk_dot over passes [p0, p1) of one step (ball, id: its slots; s: its
+// first row, loaded): the same rows on the same lane groups in the same
+// rounds (the ballot fixes them), each lane's partial carried in from
+// part[32 round] (p0 > 0) and, until the row's last chunk (fin), back
+// there; at fin the group reduces its partials as chunk_dot does and each
+// dot goes back to the lane holding its slot.  Each round loads the
+// group's next row before it scores this one: in the last round, the next
+// step's first row (nball, nid over [np0, np1); np0 < 0: none), so s is
+// left holding it.
+__device__ __forceinline__ float step_dot(RowStream& s, const uint8_t* packed,
+                                          unsigned ball, int id,
+                                          unsigned nball, int nid, int np0,
+                                          int np1, const char* s_c, int G,
+                                          uint32_t gw4, int lane, int p0,
+                                          int p1, bool fin, float* part) {
+  const int grp = lane / kGroup, sub = lane % kGroup;
+  const bool mine = (ball >> lane) & 1u;
+  const int rank = __popc(ball & ((1u << lane) - 1u));
+  float dot = 0.f;
+  if (ball == 0u) {  // no row here: the next step's first one
+    if (np0 >= 0) stream_first(s, packed, nball, nid, G, grp, sub, np0, np1);
+    return dot;
+  }
+  unsigned rest = ball;
+  for (int round = 0; rest != 0u; ++round) {
+    const unsigned next_rest = drop4(rest);
+    RowStream next = s;
+    if (next_rest != 0u)
+      stream_first(next, packed, next_rest, id, G, grp, sub, p0, p1);
+    else if (np0 >= 0)
+      stream_first(next, packed, nball, nid, G, grp, sub, np0, np1);
+    float acc = 0.f;
+    if (s.src >= 0) {
+      acc = row_dot_span(s.cur, s_c, gw4, grp, sub, p0, p1,
+                         p0 > 0 ? part[32 * round] : 0.f);
+      if (!fin) part[32 * round] = acc;
+    }
+    if (fin) {
+      acc += __shfl_xor_sync(kFull, acc, 4);
+      acc += __shfl_xor_sync(kFull, acc, 2);
+      acc += __shfl_xor_sync(kFull, acc, 1);
+      const float got = __shfl_sync(kFull, acc, (rank & 3) * kGroup);
+      if (mine && (rank >> 2) == round) dot = got;
+    }
+    s = next;
+    rest = next_rest;
+  }
+  return dot;
+}
+
 // A warp's view of one 32-slot chunk: slot c = c0 + lane of query q.  The
 // next chunk's is loaded before the current one is scored.
 struct Chunk {
@@ -462,6 +665,91 @@ __device__ __forceinline__ int warp_first(int lane) {
   return (int)blockIdx.x * kSlotTile + (int)(threadIdx.x - lane);
 }
 
+// The score launch's global form (the header's column chunks): chunk by
+// chunk the block stages the chunk's table columns, then every warp walks
+// its slots as the shared form does (its steps: 32 slots each, kTileIters
+// of them), scoring only the chunk's passes of each valid row; after the
+// last chunk it writes est / lo / hi.  A warp's rows form one stream over
+// its steps and the chunks: each group loads its next row (the next
+// step's first, across a chunk's barrier too) before it scores its
+// current one.
+__device__ __forceinline__ void score_chunked(
+    const uint8_t* __restrict__ packed, const int32_t* __restrict__ ids,
+    const float* __restrict__ d0, const uint8_t* __restrict__ valid,
+    const float4* __restrict__ rec, const float4* __restrict__ lvl,
+    const float* __restrict__ params, float* est, float* __restrict__ lo,
+    float* __restrict__ hi, const float* __restrict__ tables, int C, int G,
+    int level, int quantile, int P, float* s_t) {
+  const int q = blockIdx.y, gp = table_width(G), gw = chunk_width(P);
+  const int passes = row_passes(G);
+  float* s_part = s_t + (27 + kT9Rows) * gw;  // (warp, step, round, lane)
+  const float* tq = tables + (size_t)q * (27 + kT9Rows) * gp;
+  const Params p = load_params(params + (size_t)q * 8);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane / kGroup, sub = lane % kGroup;
+  const int end = tile_end(C), first = warp_first(lane);
+  // the warp's steps that hold slots of the tile
+  const int steps = max(0, min(kTileIters,
+                               (end - first + kScoreThreads - 1) /
+                                   kScoreThreads));
+  const size_t row = (size_t)q * C;
+  const float* xs = level == 0 ? d0 : est;  // what a slot carries in
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const char* s_c = reinterpret_cast<const char*>(s_t);
+  Chunk k = load_chunk(ids, xs, valid, row, first + lane, end);
+  unsigned ball = __ballot_sync(kFull, k.v);
+  RowStream rs = {};
+  rs.src = -1;
+  if (steps > 0) stream_first(rs, packed, ball, k.id, G, grp, sub, 0,
+                              min(passes, P));
+  for (int p0 = 0; p0 < passes; p0 += P) {
+    const int p1 = min(passes, p0 + P);
+    const bool fin = p1 == passes;
+    __syncthreads();  // no warp still reads the last chunk's columns
+    stage_tables(s_t, tq, gp, gw, kPassCols * p0,
+                 min(gw, gp - kPassCols * p0));
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    for (int it = 0; it < steps; ++it) {
+      const int c = first + it * kScoreThreads + lane;
+      // the next step: this chunk's next 32 slots, or the next chunk's first
+      const bool more = it + 1 < steps;
+      const int np0 = more ? p0 : fin ? -1 : p1;
+      const Chunk next =
+          np0 >= 0 ? load_chunk(ids, xs, valid, row,
+                                more ? c + kScoreThreads : first + lane, end)
+                   : k;
+      const unsigned nball = np0 >= 0 ? __ballot_sync(kFull, next.v) : 0u;
+      const float4 l4 = fin && k.v ? lvl[k.id] : zero;  // [proj, norm, rho,
+                                                        //  sqrt k]
+      const float4 r4 = fin && k.v && level == 0 ? rec[k.id] : zero;
+      const float dot = step_dot(
+          rs, packed, ball, k.id, nball, next.id, np0,
+          min(passes, np0 + P), s_c, G, 4u * gw, lane, p0, p1, fin,
+          s_part + (warp * kTileIters + it) * 8 * 32 + lane);
+      if (fin && k.in) {
+        const size_t slot = row + c;
+        const float align = k.v ? dot / l4.w : 0.f;
+        float e, l, h;
+        if (level == 0) {  // r4 = [||d||^2, <x_c,d>, ||d||, rho]
+          const Level0 s0 = level0(align, p, k.x, r4.x, r4.y, r4.z, r4.w);
+          e = s0.est;
+          level0_bounds(s0, p, quantile, &l, &h);
+        } else {
+          e = deeper(k.x, align, l4, p, &l, &h);
+        }
+        est[slot] = e;
+        lo[slot] = l;
+        hi[slot] = h;
+      }
+      k = next;
+      ball = nball;
+    }
+  }
+}
+
+// kGlobal: the tables of the query come from device memory (tables_kernel),
+// staged chunk_passes passes at a time (score_chunked).
 template <bool kGlobal>
 __global__ void score_kernel(const uint8_t* __restrict__ packed,   // (N, G)
                              const int32_t* __restrict__ ids,      // (Q, C)
@@ -475,42 +763,47 @@ __global__ void score_kernel(const uint8_t* __restrict__ packed,   // (N, G)
                              float* __restrict__ lo,
                              float* __restrict__ hi,
                              const float* __restrict__ tables,  // or null
-                             int C, int G, int level, int quantile) {
+                             int C, int G, int level, int quantile,
+                             int chunk_passes) {
   extern __shared__ float s_t[];  // T27 (27, Gp), T9 (kT9Rows, Gp)
-  const int q = blockIdx.y, gp = table_width(G);
-  if (!kGlobal) load_tables(s_t, qplanes + (size_t)q * 5 * G, G, gp);
+  if constexpr (kGlobal) {
+    score_chunked(packed, ids, d0, valid, rec, lvl, params, est, lo, hi,
+                  tables, C, G, level, quantile, chunk_passes, s_t);
+  } else {
+    const int q = blockIdx.y, gp = table_width(G);
+    load_tables(s_t, qplanes + (size_t)q * 5 * G, G, gp);
 
-  const Params p = load_params(params + (size_t)q * 8);
-  const char* s_b = reinterpret_cast<const char*>(
-      kGlobal ? tables + (size_t)q * (27 + kT9Rows) * gp : s_t);
-  const int lane = threadIdx.x & 31, end = tile_end(C);
-  const size_t row = (size_t)q * C;
-  const float* xs = level == 0 ? d0 : est;  // what a slot carries in
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  Chunk k = load_chunk(ids, xs, valid, row, warp_first(lane) + lane, end);
-  for (int c0 = warp_first(lane); c0 < end; c0 += kScoreThreads) {
-    const Chunk next =
-        load_chunk(ids, xs, valid, row, c0 + kScoreThreads + lane, end);
-    const float4 l4 = k.v ? lvl[k.id] : zero;  // [proj, norm, rho, sqrt k]
-    const float4 r4 = k.v && level == 0 ? rec[k.id] : zero;
-    const float dot = chunk_dot(packed, k.id, __ballot_sync(kFull, k.v),
-                                s_b, G, 4u * gp, lane);
-    if (k.in) {
-      const size_t slot = row + c0 + lane;
-      const float align = k.v ? dot / l4.w : 0.f;
-      float e, l, h;
-      if (level == 0) {  // r4 = [||d||^2, <x_c,d>, ||d||, rho]
-        const Level0 s0 = level0(align, p, k.x, r4.x, r4.y, r4.z, r4.w);
-        e = s0.est;
-        level0_bounds(s0, p, quantile, &l, &h);
-      } else {
-        e = deeper(k.x, align, l4, p, &l, &h);
+    const Params p = load_params(params + (size_t)q * 8);
+    const char* s_b = reinterpret_cast<const char*>(s_t);
+    const int lane = threadIdx.x & 31, end = tile_end(C);
+    const size_t row = (size_t)q * C;
+    const float* xs = level == 0 ? d0 : est;  // what a slot carries in
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    Chunk k = load_chunk(ids, xs, valid, row, warp_first(lane) + lane, end);
+    for (int c0 = warp_first(lane); c0 < end; c0 += kScoreThreads) {
+      const Chunk next =
+          load_chunk(ids, xs, valid, row, c0 + kScoreThreads + lane, end);
+      const float4 l4 = k.v ? lvl[k.id] : zero;  // [proj, norm, rho, sqrt k]
+      const float4 r4 = k.v && level == 0 ? rec[k.id] : zero;
+      const float dot = chunk_dot(packed, k.id, __ballot_sync(kFull, k.v),
+                                  s_b, G, 4u * gp, lane);
+      if (k.in) {
+        const size_t slot = row + c0 + lane;
+        const float align = k.v ? dot / l4.w : 0.f;
+        float e, l, h;
+        if (level == 0) {  // r4 = [||d||^2, <x_c,d>, ||d||, rho]
+          const Level0 s0 = level0(align, p, k.x, r4.x, r4.y, r4.z, r4.w);
+          e = s0.est;
+          level0_bounds(s0, p, quantile, &l, &h);
+        } else {
+          e = deeper(k.x, align, l4, p, &l, &h);
+        }
+        est[slot] = e;
+        lo[slot] = l;
+        hi[slot] = h;
       }
-      est[slot] = e;
-      lo[slot] = l;
-      hi[slot] = h;
+      k = next;
     }
-    k = next;
   }
 }
 
@@ -641,13 +934,6 @@ __global__ void pair_tables_kernel(const float* __restrict__ qplanes,
 
 __device__ __forceinline__ float2 lds2(const char* s_b, uint32_t byte_ofs) {
   return *reinterpret_cast<const float2*>(s_b + byte_ofs);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
 }
 
 // Bytes [src, src + len) to shared memory at dst + (src mod 16), dst 16-byte
@@ -1199,20 +1485,27 @@ extern "C" int fatrq_refine_tables(const void* qplanes, void* tables, int Q,
 }
 
 // tables: null (the shared form) or the query's tables built by
-// fatrq_refine_tables; prune_scratch: null or the prune's global form's.
+// fatrq_refine_tables, staged chunk_passes passes at a time (the global
+// form, ops.refine_plan); prune_scratch: null or the prune's global form's;
+// smem_out (may be null) receives the score launch's dynamic shared bytes.
 extern "C" int fatrq_refine_level(
     const void* packed, const void* ids, const void* d0, const void* valid,
     const void* qplanes, const void* rec, const void* lvl,
     const void* params, const void* alive_in, const void* is_delta, void* est,
     void* lo, void* hi, void* alive_out, void* counts, const void* tables,
     void* prune_scratch, int Q, int C, int G, int level, int L, int k,
-    int quantile, void* stream) {
+    int quantile, int chunk_passes, int* smem_out, void* stream) {
   if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
+  const bool global = tables != nullptr;
+  if (global && (chunk_passes < 1 || chunk_passes > kSpanPasses ||
+                 chunk_smem(chunk_passes) > kSmemLimit))
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = global ? score_kernel<true> : score_kernel<false>;
+  const size_t smem = global ? opt_in(kernel, chunk_smem(chunk_passes))
+                             : tables_smem(kernel, G);
+  if (smem_out != nullptr) *smem_out = (int)smem;
   if (Q == 0 || C == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool global = tables != nullptr;
-  const auto kernel = global ? score_kernel<true> : score_kernel<false>;
-  const size_t smem = global ? 0 : tables_smem(kernel, G);
   dim3 grid((C + kSlotTile - 1) / kSlotTile, Q);
   kernel<<<grid, kScoreThreads, smem, s>>>(
       static_cast<const uint8_t*>(packed), static_cast<const int32_t*>(ids),
@@ -1221,7 +1514,7 @@ extern "C" int fatrq_refine_level(
       static_cast<const float4*>(rec), static_cast<const float4*>(lvl),
       static_cast<const float*>(params), static_cast<float*>(est),
       static_cast<float*>(lo), static_cast<float*>(hi),
-      static_cast<const float*>(tables), C, G, level, quantile);
+      static_cast<const float*>(tables), C, G, level, quantile, chunk_passes);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_prune(lo, hi, alive_in, alive_out, is_delta, counts,

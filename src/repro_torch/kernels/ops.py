@@ -14,13 +14,18 @@ Each kernel has two forms.  The ``"shared"`` form keeps its per-query
 state (the ADC LUT, the refine tables, the prune's staged keys) in shared
 memory; where the shapes need more than a block has, the ``"global"``
 form runs the same arithmetic in the same order with that state in device
-memory (the caller's LUT, or a scratch buffer the wrapper allocates, which
-the 50 MB L2 caches), so both give the same bits.  ``*_form`` picks the
-form from the shapes alone, before any launch; ``*_scratch_bytes`` is the
-global form's scratch.
+memory, so both give the same bits.  ``*_form`` picks the form from the
+shapes alone, before any launch; ``*_scratch_bytes`` is a global form's
+scratch.  The global forms of ``pq_adc`` and of the fused kernel's score
+launch stage that state back into shared memory a chunk at a time: the
+ADC LUT by chunks of subspaces (``adc_plan``), the refine tables by
+column chunks of whole passes (``refine_plan``); the other global forms
+read it from device memory (the 50 MB L2 caches it).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -81,9 +86,39 @@ def adc_smem_bytes(m: int, k: int) -> int:
 
 def adc_form(m: int, k: int) -> str:
     """``"shared"`` where the LUT fits a block (M ≤ 218 at K = 256), else
-    ``"global"``: each lookup read from the caller's (Q, M, K) LUT in
-    device memory, so the global form needs no scratch."""
+    ``"global"``: the caller's (Q, M, K) LUT staged in chunks
+    (``adc_plan``), so the global form needs no scratch."""
     return _form(adc_smem_bytes(m, k))
+
+
+#: the subspaces of one LUT chunk of the ADC kernel's global form (kRing
+#: in the source: a thread holds two rows' chunks of this many bytes, and
+#: the next two, in registers)
+_ADC_RING_SUBSPACES = 64
+
+
+@dataclass(frozen=True)
+class AdcPlan:
+    """How the ADC kernel's global form stages one query's LUT: chunks of
+    ``subspaces`` subspaces (the last may have fewer), two buffers of
+    (subspaces, K) f32 in turn where there are several chunks."""
+
+    subspaces: int
+    chunks: int
+    smem_bytes: int
+
+
+def adc_plan(m: int, k: int) -> AdcPlan:
+    """The global form's LUT chunks at M, K: 64 subspaces a chunk (a
+    multiple of 16, so each chunk starts a 16-byte load of a code row), or
+    M where M ≤ 64.  Its shared memory (the buffers, the list and the
+    counts: 139,328 B at K = 256) must fit a block, else
+    ``SharedMemoryBudgetError``."""
+    mc = min(m, _ADC_RING_SUBSPACES)
+    buffers = 2 if mc < m else 1
+    nbytes = buffers * mc * k * 4 + _ADC_TILE * 2 + _ADC_WARPS * 4
+    check_smem_budget(f"pq_adc global form at M={m} K={k}", nbytes)
+    return AdcPlan(subspaces=mc, chunks=-(-m // mc), smem_bytes=nbytes)
 
 
 #: 32-bit words a lane group of the multi-level kernels reads per pass
@@ -116,7 +151,9 @@ def refine_smem_bytes(g: int) -> int:
 def refine_form(g: int) -> str:
     """The fused and bounds kernels' form: ``"shared"`` up to G = 1437,
     else ``"global"`` (a small kernel writes each query's tables once per
-    call to scratch, and the scoring kernels read them from there)."""
+    call to scratch; the fused kernel's score launch stages them back a
+    column chunk at a time, ``refine_plan``, and the bounds kernel reads
+    them from there)."""
     return _form(refine_smem_bytes(g))
 
 
@@ -124,6 +161,72 @@ def refine_scratch_bytes(q: int, g: int) -> int:
     """The global form's scratch: Q queries' tables, ``refine_smem_bytes``
     each."""
     return q * refine_smem_bytes(g)
+
+
+#: table columns one pass of a row spans (4 per word), the score kernel's
+#: slots per block and lanes per candidate (kSlotTile and kGroup)
+_PASS_COLS, _SLOT_TILE, _GROUP = 4 * _PASS_WORDS, 1024, 8
+#: the chunked score kernel's per-lane partial sums: one f32 per lane of
+#: every candidate a block may score
+_PARTIAL_BYTES = _SLOT_TILE * _GROUP * 4
+#: shared memory of one SM, of which the runtime keeps 1 KB per block, and
+#: the blocks of the chunked score kernel an SM is to hold
+_SM_SMEM_BYTES, _BLOCK_RESERVED, _SCORE_BLOCKS = 233_472, 1024, 2
+#: most passes of a chunk: a row's words for all of them are loaded at once
+#: (kSpanPasses in the source)
+_SPAN_PASSES = 3
+
+
+def chunk_width(passes: int) -> int:
+    """Table columns staged for a chunk of ``passes`` passes: the passes'
+    160 columns each and the 4 that a word's offset shifts a row's bytes
+    by, rounded up to 32 banks (chunk_width in the source)."""
+    return -(-(_PASS_COLS * passes + 4) // 32) * 32
+
+
+def refine_chunk_bytes(passes: int) -> int:
+    """Shared memory of the chunked score kernel: T27 and T9 over
+    ``chunk_width(passes)`` columns and the partial sums."""
+    return (27 + 10) * chunk_width(passes) * 4 + _PARTIAL_BYTES
+
+
+@dataclass(frozen=True)
+class RefinePlan:
+    """How the fused kernel's global score launch stages one query's
+    tables: chunks of ``passes`` whole passes (the last may have fewer),
+    each chunk's columns [160 p0, 160 p0 + ``width``) of the 37 rows."""
+
+    passes: int
+    chunks: int
+    width: int
+    smem_bytes: int
+
+
+def refine_plan(g: int) -> RefinePlan:
+    """The fused kernel's global-form chunks at width g: as many passes a
+    chunk as keep two blocks on an SM (3 at G = 1639: 4 chunks, 108,544
+    B), at least 1 and at most the row's passes and ``_SPAN_PASSES``.
+    Raises ``SharedMemoryBudgetError`` if even one pass does not fit a
+    block."""
+    total = row_passes(g)
+    room = _SM_SMEM_BYTES // _SCORE_BLOCKS - _BLOCK_RESERVED
+    p = 1
+    while p < min(total, _SPAN_PASSES) and \
+            refine_chunk_bytes(p + 1) <= room:
+        p += 1
+    nbytes = check_smem_budget(f"ternary_refine_fused global form at G={g}",
+                               refine_chunk_bytes(p))
+    return RefinePlan(passes=p, chunks=-(-total // p), width=chunk_width(p),
+                      smem_bytes=nbytes)
+
+
+def launched_plan(what: str, plan, nbytes: int):
+    """``plan`` once a launch has asked for ``nbytes`` of shared memory,
+    which must be the plan's (the source sizes its buffers on its own)."""
+    if nbytes != plan.smem_bytes:
+        raise RuntimeError(f"{what}: the launch took {nbytes} bytes of "
+                           f"shared memory, its plan {plan.smem_bytes}")
+    return plan
 
 
 #: slots of a level-0 warp's chunk and most warps of a level-0 block

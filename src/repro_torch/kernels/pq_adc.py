@@ -12,8 +12,10 @@ loads where M % 16 == 0 and the code store is 16-byte aligned, as M/4
 4-byte words where M % 4 == 0 and it is 4-byte aligned, else as M bytes;
 all three sum a row's M lookups in the same order, so a row's distance
 does not depend on its slot or on the path.  It holds the query's LUT in
-shared memory where it fits (``ops.adc_form``), else reads it in place from
-device memory (the global form): the same sums, so the same bits.
+shared memory where it fits (``ops.adc_form``), else (the global form)
+stages it there a chunk of subspaces at a time (``ops.adc_plan``), each
+row's sum carried in a register from chunk to chunk: the same sums, so the
+same bits.
 """
 
 from __future__ import annotations
@@ -29,8 +31,12 @@ from repro_torch.quant.pq import adc_distances
 #: them the global form's
 launches = 0
 global_launches = 0
+#: the global form's chunk plan at its last launch (``ops.AdcPlan``, its
+#: shared bytes as the launch asked for them), None before any
+last_plan = None
 
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 #: the kernel's row paths (``row_path``) by their number in the source
 _PATHS = {"word": 0, "uint4": 1, "byte": 2}
 
@@ -80,14 +86,19 @@ def _pq_adc(pq_codes, ids, valid, lut, *, form: str | None = None):
     if k > 256:
         raise ValueError(f"pq_adc: K={k} does not fit uint8 codes")
     glob = ops.pick_form("pq_adc", ops.adc_form(m, k), form) == "global"
+    plan = ops.adc_plan(m, k) if glob else None
     path = _PATHS[row_path(m, pq_codes.data_ptr())]
     out = torch.empty((nq, c), dtype=torch.float32, device=dev)
+    smem = ctypes.c_int(0)
     fn = build.entry("pq_adc", "fatrq_pq_adc", _ARGS)
     status = fn(build.ptr(pq_codes), build.ptr(ids), build.ptr(valid),
                 build.ptr(lut), build.ptr(out), nq, c, m, k, path, int(glob),
+                plan.subspaces if glob else 0, ctypes.byref(smem),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check("pq_adc", status, "pq_adc")
-    global launches, global_launches
+    global launches, global_launches, last_plan
     launches += 1
-    global_launches += int(glob)
+    if glob:
+        global_launches += 1
+        last_plan = ops.launched_plan("pq_adc", plan, smem.value)
     return out

@@ -33,7 +33,10 @@ Every kernel takes any G and C.  Where a query's tables (or the prune's
 staged slice) do not fit a block's shared memory, the wrapper runs the
 kernel's global form, which keeps them in a scratch buffer it allocates
 and gives the same bits (``ops.refine_form``, ``prune_form``,
-``level0_form``); the level-0 kernel stops at G = ``ops.LEVEL0_MAX_G``.
+``level0_form``); the fused kernel's score launch then stages the tables
+from there into shared memory a column chunk at a time
+(``ops.refine_plan``).  The level-0 kernel stops at G =
+``ops.LEVEL0_MAX_G``.
 """
 
 from __future__ import annotations
@@ -71,6 +74,10 @@ prune_global_launches = 0
 #: (one per level-0 call)
 tables_launches = 0
 pair_tables_launches = 0
+#: the fused kernel's global score launch's chunk plan at its last call
+#: (``ops.RefinePlan``, its shared bytes as the launch asked for them),
+#: None before any
+last_plan = None
 
 #: largest k the pruning step takes (kMaxK in the source)
 MAX_K = 64
@@ -78,7 +85,8 @@ MAX_K = 64
 #: most TRQ levels the bounds kernel walks (kMaxLevels in the source)
 MAX_LEVELS = 8
 
-_ARGS = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+_ARGS = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
+         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 _BOUNDS_ARGS = ([ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p] * 10
                 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _LEVEL0_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -387,12 +395,14 @@ def _fused(stores, q, ids, d0, valid, is_delta, model, *, k, bound, z,
     glob = ops.pick_form("ternary_refine_fused", ops.refine_form(g),
                          form) == "global"
     tables = _tables(q_planes, pairs=False) if glob else None
+    plan = ops.refine_plan(g) if glob else None
     p_form = ops.pick_form("ternary_refine_fused (prune)",
                            ops.prune_form(c), form)
     scratch = _prune_scratch(nq, c, p_form, dev)
     fn = build.entry("ternary_refine", "fatrq_refine_level", _ARGS)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    global launches, global_launches, prune_global_launches
+    smem = ctypes.c_int(0)
+    global launches, global_launches, prune_global_launches, last_plan
     for lv in range(nl):
         status = fn(build.ptr(stores.packed[lv]), build.ptr(ids),
                     build.ptr(d0), build.ptr(valid), build.ptr(q_planes),
@@ -401,11 +411,15 @@ def _fused(stores, q, ids, d0, valid, is_delta, model, *, k, bound, z,
                     build.ptr(is_delta), build.ptr(est), build.ptr(lo),
                     build.ptr(hi), build.ptr(alive), build.ptr(counts),
                     build.ptr(tables), build.ptr(scratch), nq, c, g, lv, nl,
-                    k, int(bound == "quantile"), stream)
+                    k, int(bound == "quantile"), plan.passes if glob else 0,
+                    ctypes.byref(smem), stream)
         build.check("ternary_refine", status, "ternary_refine_fused")
         launches += 1
         global_launches += int(glob)
         prune_global_launches += int(scratch is not None)
+        if glob:
+            last_plan = ops.launched_plan("ternary_refine_fused", plan,
+                                          smem.value)
     return est, alive, counts
 
 
