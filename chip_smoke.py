@@ -215,7 +215,13 @@ Phases, each of which raises on failure:
    ``pq_adc`` and the fused kernel against their plain
    versions at the path's shape with their bounds and ``embedding_bag``;
    at D = 8192 the level-0 ops path on 8 queries' candidates (its global
-   form);
+   form) and the sharded layout on the same index (``wide_sharded``,
+   ``--shards`` shards on one card: the bounds kernel's global form once a
+   shard and micro-batch, never its shared form; ids, distances and
+   per-tier bytes equal to the unsharded answers, the ``reference``
+   backend's ids and ledger, recall@10, queries/s, device ms, and the
+   bounds kernel on shard 0's candidates against its plain version with
+   its chunk plan);
 9. the RAG round trip at the full width of qwen2.5-3b (36 layers,
    d_model 2048, 3,085,697,024 parameters in float32), after every
    earlier phase's tensors are freed: a 1M x 2048 index (``make_dataset``,
@@ -566,14 +572,15 @@ def adc_library(torch, codes, ids, lut, valid=None):
     return ms, full
 
 
-def launched_plan(mod, fn):
+def launched_plan(mod, fn, attr: str = "last_plan"):
     """``fn()``'s result and the chunk plan that ``mod``'s wrapper used at
-    its launches there (its ``last_plan``, set by a global-form launch from
-    the shared bytes the launch asked for), as a dict; None where ``fn``
-    made no global-form launch of that wrapper."""
-    mod.last_plan = None
+    its launches there (its ``last_plan``, or ``attr``: the bounds and
+    level-0 wrappers' ``bounds_last_plan`` / ``level0_last_plan``, set by a
+    global-form launch from the shared bytes the launch asked for), as a
+    dict; None where ``fn`` made no global-form launch of that wrapper."""
+    setattr(mod, attr, None)
     out = fn()
-    plan = mod.last_plan
+    plan = getattr(mod, attr)
     return out, None if plan is None else dataclasses.asdict(plan)
 
 
@@ -935,8 +942,10 @@ def edge_level0(torch, tr, ops, gen) -> tuple[float, float, dict]:
                     packed, planes, scalars, params)) if nq > 1 else (
                     lambda: tr.ternary_refine(packed[0], planes[0],
                                               scalars[0], params[:1]))
+                ms, plan = launched_plan(
+                    tr, lambda: time_ms(call, 20), "level0_last_plan")
                 rows[name] = dict(
-                    max_abs_err=errs[nq == 1], ms=time_ms(call, 20),
+                    max_abs_err=errs[nq == 1], ms=ms, plan=plan,
                     plain_ms=time_ms(lambda: tr.refine_level0_plain(
                         packed, planes, scalars, params), 3),
                     library_ms=None,
@@ -944,7 +953,7 @@ def edge_level0(torch, tr, ops, gen) -> tuple[float, float, dict]:
                 print(f"{name} edge G={g} Q={nq} (global form): "
                       f"{rows[name]['ms']:.4f} ms per call (bound "
                       f"{rows[name]['bound_ms']:.4f} ms), plain "
-                      f"{rows[name]['plain_ms']:.3f} ms")
+                      f"{rows[name]['plain_ms']:.3f} ms, chunk plan {plan}")
         print(f"level-0 edge G={g}: Q={EDGE_Q} and Q=1, C={EDGE_C}, bytes "
               f"0..255, aligned and misaligned bases: max err "
               f"{max(errs):.3g}; {form} form"
@@ -954,14 +963,18 @@ def edge_level0(torch, tr, ops, gen) -> tuple[float, float, dict]:
 
 def level0_attributes(build, g: int, form: str = "shared") -> dict:
     """The level-0 kernel's registers, stack, warps per block, dynamic
-    shared memory and resident blocks per SM at width ``g`` in ``form``,
-    as the CUDA runtime reports them."""
+    shared memory and resident blocks per SM at width ``g`` in ``form``
+    (the global form by ``ops.level0_plan``), as the CUDA runtime reports
+    them."""
     import ctypes
+    from repro_torch.kernels import ops
     fn = build.entry("ternary_refine", "fatrq_level0_attributes",
-                     [ctypes.c_int, ctypes.c_int,
-                      ctypes.POINTER(ctypes.c_int)])
+                     [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
     out = (ctypes.c_int * 5)()
-    build.check("ternary_refine", fn(g, int(form == "global"), out),
+    plan = ops.level0_plan(g) if form == "global" else None
+    build.check("ternary_refine",
+                fn(g, int(plan is not None), plan.passes if plan else 0,
+                   plan.warps if plan else 0, out),
                 "fatrq_level0_attributes")
     attrs = dict(zip(("registers", "stack_bytes", "warps_per_block",
                       "smem_bytes", "blocks_per_sm"), out))
@@ -1317,6 +1330,10 @@ def edge_refine_rows(torch, tr, ops, stores, model, cand, q, label,
     ms, plan = launched_plan(tr, lambda: time_ms(
         lambda: tr.ternary_refine_fused(*args, None, model, k=10,
                                         bound="cauchy", z=3.0), 20))
+    b_ms, b_plan = launched_plan(tr, lambda: time_ms(
+        lambda: tr.ternary_refine_fused_bounds(*args, model, bound="cauchy",
+                                               z=3.0), 20),
+        "bounds_last_plan")
     rows = {
         "ternary_refine_fused": dict(
             max_abs_err=errs[0], ms=ms, plan=plan,
@@ -1325,9 +1342,7 @@ def edge_refine_rows(torch, tr, ops, stores, model, cand, q, label,
                 bound="cauchy"), 3),
             library_ms=None, **refine_cost(torch, stores, cand, q)),
         "ternary_refine_fused_bounds": dict(
-            max_abs_err=errs[1],
-            ms=time_ms(lambda: tr.ternary_refine_fused_bounds(
-                *args, model, bound="cauchy", z=3.0), 20),
+            max_abs_err=errs[1], ms=b_ms, plan=b_plan,
             plain_ms=time_ms(lambda: tr.refine_bounds_plain(
                 stores, planes, params, *args[2:], bound="cauchy"), 3),
             library_ms=None, **bounds_cost(torch, stores, cand, q))}
@@ -5586,13 +5601,15 @@ def wide_dataset(torch, n: int, dim: int, n_queries: int, seed: int):
     q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
     return Dataset(x=x, queries=q, gt=brute_force_topk(x, q, 10))
 WIDE_OPS_QUERIES = 8            # queries of the level-0 ops path at D = 8192
+WIDE_SHARDED_REF_BATCH = 2      # micro-batch of the sharded reference check
 
 
 def wide_phase(torch, args, launches, reset_launches, read_launches,
                build) -> dict:
     """The port's own build and search at the backbones' widths, where
-    ``pq_adc`` (both) and the fused kernel (D = 8192, G = 1639) run their
-    global forms: for each (D, M) of ``WIDE_SHAPES`` a 100,000-row index
+    ``pq_adc`` (both), the fused kernel, the bounds kernel and the level-0
+    kernel (D = 8192, G = 1639) run their global forms: for each (D, M) of
+    ``WIDE_SHAPES`` a 100,000-row index
     (``wide_dataset``; nlist 100, nprobe 16, budget 40, one TRQ level) and
     1000 queries through ``QueryPlan(backend="cuda")``, every count reset
     just before and read just after (``wide_<D>``): the global forms
@@ -5604,7 +5621,9 @@ def wide_phase(torch, args, launches, reset_launches, read_launches,
     kernels against their plain versions at the path's shape
     (``path_kernels``); at D = 8192 also the level-0 ops path
     (``wide_ops``: ``ops.refine_scores_batch`` / ``refine_scores`` on 8
-    queries' candidates, its global form).  Returns the rows by cell."""
+    queries' candidates, its global form) and the sharded layout on the
+    same index (``wide_sharded``: the bounds kernel's global form on every
+    shard).  Returns the rows by cell."""
     from repro_torch.anns import Database, PipelineConfig, QueryPlan, \
         recall_at_k
     from repro_torch.anns.stages import make_ivf_front
@@ -5690,7 +5709,7 @@ def wide_phase(torch, args, launches, reset_launches, read_launches,
         print_launches(torch, f"{label} path (ms per path run of "
                               f"{WIDE_QUERIES} queries)",
                        lambda: db.query(ds.queries, plan=plan), 1)
-        del res, ref, cud, exact
+        del ref, cud, exact     # res: the answers a sharded path must give
         adc, refine, *_ = path_kernels(torch, db, cfg,
                                        ds.queries[:64].contiguous(),
                                        f"{label} shape")
@@ -5703,13 +5722,139 @@ def wide_phase(torch, args, launches, reset_launches, read_launches,
             rows["wide_ops"] = wide_ops(torch, tr, ops, build, index,
                                         make_ivf_front, ds.queries, launches,
                                         reset_launches, read_launches)
+            rows[f"{label}_sharded"] = wide_sharded(
+                torch, args, db, cfg, ds, res, ceiling, launches,
+                reset_launches, read_launches)
         print(f"{label}: peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-        del db, index, ds
+        del db, index, ds, res
         gc.collect()
         torch.cuda.empty_cache()
         print(f"{label}: {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+def wide_sharded(torch, args, db, cfg, ds, want, ceiling, launches,
+                 reset_launches, read_launches) -> dict:
+    """The sharded layout at the wide index's width (``wide_<D>_sharded``,
+    D = 8192: G = 1639, past the refine tables' shared memory): the same
+    ``db`` through ``QueryPlan(shards=args.shards, backend="cuda")``, every
+    count reset just before and read just after: the bounds kernel's
+    global form launched once a shard and micro-batch, the refine tables
+    once a bounds call, never the bounds kernel's shared form or another
+    refine kernel; ids, distances and per-tier bytes equal to the
+    unsharded answers ``want``; the ``reference`` backend's ids and ledger
+    on 64 queries; recall@10 beside the IVF front's ``ceiling``; queries/s
+    (median of 3) and each kernel's device ms in one run of the path; and
+    the bounds kernel on shard 0's candidates of 64 queries (its own
+    store, shard-local ids: what the path launches) against its plain
+    version and the fused kernel's est (``check_bounds``), timed with the
+    chunk plan its launch took.  Returns the row of the cell."""
+    from repro_torch.anns import QueryPlan, make_sharded_executor, \
+        recall_at_k, registry
+    from repro_torch.anns.stages import Candidates
+    from repro_torch.core.estimator import alive_chain
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_refine as tr
+    t0 = time.perf_counter()
+    label = f"wide_{cfg.dim}_sharded"
+    plan = QueryPlan(shards=args.shards, backend="cuda")
+    db.query(ds.queries[:64], plan=plan)  # warm-up: partition, executor
+    torch.cuda.synchronize()
+    reset_launches()
+    res = db.query(ds.queries, plan=plan)
+    torch.cuda.synchronize()
+    launches[label] = got = read_launches()
+    print(f"{label} path launches over {WIDE_QUERIES} queries, "
+          f"{args.shards} shards: {got}")
+    calls = args.shards * -(-WIDE_QUERIES // cfg.micro_batch)
+    name = "ternary_refine_fused_bounds"
+    if got[name] != calls or got[f"{name} (global)"] != calls:
+        fail(f"{label}: {got[name]} bounds launches, {got[f'{name} (global)']}"
+             f" of them global, where {calls} global ones were expected")
+    if got["refine tables (global)"] != calls:
+        fail(f"{label}: {got['refine tables (global)']} refine table "
+             f"launches for {calls} bounds calls")
+    if got["pq_adc"] == 0 or any(got[n] for n in (
+            "ternary_refine_fused", "ternary_refine_batch", "ternary_refine")):
+        fail(f"{label}: pq_adc not launched, or another refine kernel was")
+    same_answer(torch, label, res.ids, res.cost, want.ids, want.cost)
+    ok, err = close(res.distances, want.distances, 1e-5, 1e-5)
+    if not ok:
+        fail(f"{label}: distances off the unsharded ones ({err})")
+    print(f"{label}: ids and per-tier bytes equal to the unsharded "
+          f"wide_{cfg.dim} path's, distances "
+          + ("bit-equal" if torch.equal(res.distances, want.distances)
+             else f"within {err:.3g}"))
+    ledger = lambda c: {k: (v.accesses, v.bytes)              # noqa: E731
+                        for k, v in c.ledger.items()}
+    sub = ds.queries[:64]
+    # the plain sharded refine unpacks every slot's trits at full width
+    # ((micro-batch, C, D) elements): 2 queries a micro-batch, the cache freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = db.query(sub, plan=QueryPlan(shards=args.shards,
+                                       backend="reference",
+                                       micro_batch=WIDE_SHARDED_REF_BATCH))
+    cud = db.query(sub, plan=plan)
+    if not torch.equal(ref.ids, cud.ids) or \
+            ledger(ref.cost) != ledger(cud.cost):
+        fail(f"{label}: the reference and cuda backends differ (ids or "
+             f"ledger)")
+    print(f"{label}: the reference backend on {sub.shape[0]} queries gives "
+          f"the cuda backend's ids and ledger")
+    runs = []
+    for _ in range(TIMING_RUNS):
+        t = time.perf_counter()
+        db.query(ds.queries, plan=plan)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t)
+    recall = recall_at_k(res.ids, ds.gt, cfg.final_k)
+    print(f"{label}: recall@10 {recall:.4f} (the IVF front's ceiling "
+          f"{ceiling:.4f}), {WIDE_QUERIES / statistics.median(runs):.1f} "
+          f"queries/s (median of {[round(r, 6) for r in runs]} s), SSD "
+          f"fetches/query "
+          f"{res.cost.ledger['rerank:ssd'].accesses / WIDE_QUERIES:.1f}")
+    print_launches(torch, f"{label} path (ms per path run of {WIDE_QUERIES} "
+                          f"queries)", lambda: db.query(ds.queries, plan=plan),
+                   1)
+    del res, ref, cud
+    # the bounds kernel at the path's shape: shard 0's candidates
+    si = make_sharded_executor(db.index, shards=args.shards).sharded
+    q = sub.contiguous()
+    sh = registry.sharded_front("ivf").body(
+        q, si.front_rep, si.front_db, si.codebook, si.pq_codes,
+        **dict(si.front_args))[0]
+    cand = Candidates(ids=sh.ids, valid=sh.valid, d0=sh.d0, counters={})
+    stores = tr.RefineStores.from_trq(si.shard_trqs[0])
+    model = db.index.trq.model
+    err, ties = check_bounds(torch, tr, ops, alive_chain, stores, model, cand,
+                             q, k=cfg.final_k, bound_name="cauchy", z=cfg.z,
+                             label=f"{label} shard 0")
+    args_b = (stores, q, cand.ids, cand.d0, cand.valid)
+    call = lambda: tr.ternary_refine_fused_bounds(            # noqa: E731
+        *args_b, model, bound="cauchy", z=cfg.z)
+    ms, b_plan = launched_plan(tr, lambda: time_ms(call, 20),
+                               "bounds_last_plan")
+    g = stores.packed[0].shape[1]
+    planes = ops.make_query_planes(q, g)
+    params = ops.query_params(q, model.w, model.bias, model.resid_std, cfg.z)
+    row = dict(max_abs_err=err, ms=ms, plan=b_plan,
+               plain_ms=time_ms(lambda: tr.refine_bounds_plain(
+                   stores, planes, params, *args_b[2:], bound="cauchy"), 3),
+               library_ms=None, **bounds_cost(torch, stores, cand, q))
+    row["device_ms"] = next((t for k, t in kernel_ms(torch, call, 20).items()
+                             if "bounds_kernel" in k), None)
+    row["launches"] = got[name]
+    print(f"{name} {label} shard 0 (Q={q.shape[0]}, C={cand.ids.shape[1]}, "
+          f"{int(cand.valid.sum())} valid, G={g}): {ms:.4f} ms per call, "
+          f"device {row['device_ms']} ms (bound {row['bound_ms']:.4f} ms), "
+          f"plain {row['plain_ms']:.3f} ms, chunk plan {b_plan}, alive "
+          f"mismatches at near-ties {ties}")
+    print(f"{label}: {time.perf_counter() - t0:.1f} s")
+    return {name: row, "queries_per_s": WIDE_QUERIES
+            / statistics.median(runs), "recall_at_10": recall,
+            "ivf_ceiling": ceiling}
 
 
 def ivf_ceiling(torch, front, queries, gt) -> float:
@@ -5741,6 +5886,7 @@ def wide_ops(torch, tr, ops, build, index, make_ivf_front, queries,
     cols = (cand.d0, rec[..., 0], rec[..., 1], rec[..., 2], rec[..., 3])
     model = index.trq.model
     reset_launches()
+    tr.level0_last_plan = None
     counted = (ops.refine_scores_batch(packed, q, *cols, model.w,
                                        model.bias),
                ops.refine_scores(packed[0], q[0], *(t[0] for t in cols),
@@ -5751,26 +5897,33 @@ def wide_ops(torch, tr, ops, build, index, make_ivf_front, queries,
     if got["level-0 (global)"] != 2 or got["pair tables (global)"] != 2:
         fail("the wide ops path did not run the level-0 kernel's global "
              "form twice, each after its pair tables")
+    plan = dataclasses.asdict(tr.level0_last_plan)
+    print(f"wide_ops: the level-0 global form's chunk plan from the launch "
+          f"{plan}")
     g = packed.shape[-1]
-    return check_level0(torch, tr, ops, model, q, packed, cols, counted,
+    rows = check_level0(torch, tr, ops, model, q, packed, cols, counted,
                         (0.0, 0.0), level0_attributes(build, g, "global"))
+    for row in rows.values():
+        row["plan"] = plan
+    return rows
 
 
 def global_entries(rows, wide, edge_rows, launches) -> None:
     """Each kernel's ``global`` entry of the ``kernels`` line: its global
     form's numbers at the widest shape that runs it (the wide_8192 path for
-    ``pq_adc`` and the fused kernel, the wide_ops path for the level-0
-    entry points, the edge shapes for the bounds kernel and the prune,
-    which no path of this script runs in that form), ``launches`` its
-    global-form launches over the wide paths' runs (``tables_launches``
-    and ``pair_tables_launches`` its table kernel's there, over both
-    level-0 entry points), ``fatrq_shape`` the global form beside the
-    shared one at the fatrq shape (bit-equal), and its other
-    wide and edge shapes; the fused kernel's ``wide_2048`` entry holds its
-    shared form at G = 410.  ``plan``, in the ``pq_adc`` and fused-kernel
-    entries of a global form, is the chunk plan its wrapper launched with
-    at the timed call (``launched_plan``)."""
-    wide_runs = [launches[p] for p in ("wide_2048", "wide_8192", "wide_ops")]
+    ``pq_adc`` and the fused kernel, shard 0 of the wide_8192_sharded path
+    for the bounds kernel, the wide_ops path for the level-0 entry points,
+    the edge shapes for the prune, which no path of this script runs in
+    that form), ``launches`` its global-form launches over the wide paths'
+    runs (``tables_launches`` and ``pair_tables_launches`` its table
+    kernel's there, over both level-0 entry points), ``fatrq_shape`` the
+    global form beside the shared one at the fatrq shape (bit-equal), and
+    its other wide and edge shapes; the fused kernel's ``wide_2048`` entry
+    holds its shared form at G = 410.  ``plan``, in every entry of a
+    global form but the prune's, is the chunk plan its wrapper launched
+    with at the timed call (``launched_plan``)."""
+    wide_runs = [launches[p] for p in ("wide_2048", "wide_8192",
+                                       "wide_8192_sharded", "wide_ops")]
     count = lambda key: sum(r[key] for r in wide_runs)        # noqa: E731
     refine = rows["ternary_refine_fused"]
     big = wide["wide_8192"]
@@ -5784,8 +5937,11 @@ def global_entries(rows, wide, edge_rows, launches) -> None:
         edge=edge_rows["ternary_refine_fused"])
     refine["wide_2048"] = wide["wide_2048"]["ternary_refine_fused"]
     rows["ternary_refine_fused_bounds"]["global"].update(
-        edge_rows["ternary_refine_fused_bounds"],
-        launches=count("ternary_refine_fused_bounds (global)"))
+        wide["wide_8192_sharded"]["ternary_refine_fused_bounds"],
+        launches=count("ternary_refine_fused_bounds (global)"),
+        tables_launches=launches["wide_8192_sharded"][
+            "refine tables (global)"],
+        edge=edge_rows["ternary_refine_fused_bounds"])
     refine["prune"]["global"].update(
         edge_rows["prune"], launches=count("prune (global)"))
     for name in ("ternary_refine_batch", "ternary_refine"):
@@ -5794,10 +5950,10 @@ def global_entries(rows, wide, edge_rows, launches) -> None:
             pair_tables_launches=launches["wide_ops"]["pair tables (global)"],
             edge=edge_rows[name])
     print("global entries: each kernel's global form (its state in device "
-          "memory; pq_adc and the fused kernel stage it back into shared "
-          "memory by the chunk plan in its entry) at its widest shape with "
-          "its global-form launches over "
-          "the wide paths (wide_2048, wide_8192, wide_ops); fatrq_shape: "
+          "memory; all but the prune stage it back into shared memory by "
+          "the chunk plan in its entry) at its widest shape with its "
+          "global-form launches over the wide paths (wide_2048, wide_8192, "
+          "wide_8192_sharded, wide_ops); fatrq_shape: "
           "the global form beside the shared form at the fatrq shape, "
           "bit-equal; edge: at the edge shapes (pq_adc M=1024 K=256; the "
           "refine kernels G=1639, C=4133, Q=5 (the single-query form Q=1); "

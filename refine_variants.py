@@ -153,7 +153,7 @@ PRUNE_CHECKED = ("prune (the source)", "prune, one atomic per digit group")
 
 L0_HEAD = ("__global__ void __launch_bounds__(kL0MaxWarps * 32, 1)\n"
            "    level0_kernel(")
-L0_COUNT = ("        kc += __float_as_int(t27.y) + __float_as_int(t9.y);\n", "")
+L0_COUNT = ("      kc += __float_as_int(t27.y) + __float_as_int(t9.y);\n", "")
 L0_VARIANTS = {
     "level-0 (the source)": [],
     "level-0, no minimum of 1 block per SM": [

@@ -141,18 +141,16 @@
 // width: G = 1639 at D = 8192) each runs a global form, picked by the host
 // from the shapes alone before the launch (ops.refine_form, prune_form,
 // level0_form), that keeps only that state in a device scratch buffer the
-// wrapper allocates, cached by the 50 MB L2 (a template flag, kGlobal), and
-// gives the shared form's bits:
+// wrapper allocates (a template flag, kGlobal), stages it back into shared
+// memory a chunk at a time where the kernel looks it up (all but the
+// prune; the chunk plan comes from the host, and the launch reports its
+// shared bytes, which must be the plan's), and gives the shared form's
+// bits:
 //
 //  * tables_kernel writes each query's T27/T9 tables once per call with
 //    load_tables into a (Q, 37, Gp) f32 buffer (pair_tables_kernel the
-//    level-0 pair tables into a (Q, 37, Gp) float2 one); bounds_kernel and
-//    level0_kernel read s_b from there instead of building it in shared
-//    memory.  row_dot and level0_row take a generic pointer, so every
-//    lookup adds the same float: the same bits.  The fused call builds the
-//    tables once for all of its levels.  level0's stages keep the shared
-//    memory (up to 16 warps' two stages each); past G = 3517 even one
-//    warp's do not fit (ops.LEVEL0_MAX_G).
+//    level-0 pair tables into a (Q, 37, Gp) float2 one).  The fused call
+//    and the bounds call build them once for all of their levels.
 //  * score_kernel<true> (score_chunked) stages those tables back into
 //    shared memory by column chunks of P whole passes (ops.refine_plan: the
 //    most passes, at most kSpanPasses = 3, that keep two blocks on an SM;
@@ -180,14 +178,46 @@
 //    a query at G = 1639) rather than building them in each block keeps
 //    the block's issue slots for the lookups: 74 blocks a query would each
 //    rebuild them.
+//  * bounds_kernel<true> runs score_chunked<true> once per level of the
+//    tile: each level stages the tables' chunks again (they are the same
+//    for every level: L stagings a tile, from L2) and writes its lo / hi
+//    row of the (Q, L, C) outputs, +inf on invalid slots.  A slot's running
+//    estimate goes from level to level through the est output, written and
+//    read back by the one thread that holds the slot at every level, so the
+//    shared memory (and two blocks an SM) is the score launch's at any L
+//    (ops.bounds_plan).  At each level the adds are chunk_dot's cut at pass
+//    boundaries and level0 / deeper take the same floats as the shared
+//    form, so lo, hi and est are bounds_kernel<false>'s bit for bit.  The
+//    other design, all levels inside each chunk, would keep L partials a
+//    lane: 32 KB x L of shared memory.
+//  * level0_kernel<..., true> (level0_chunked) stages the pair tables and
+//    each warp's code rows by the same pass chunks (ops.level0_plan: 1 pass
+//    a chunk, 16 warps a block at every G, 228,864 B): a block walks its
+//    run of one query's 32-slot chunks in tiles of one chunk a warp; for
+//    each chunk of passes it copies the tables' 37 x chunk_width(P) float2
+//    columns (56,832 B at P = 1) from the scratch, while each warp copies
+//    its chunk's 32 rows' words for those passes (160 B a pass) into one of
+//    its two stages with 8-byte cp.async (stage_rows: a row's slot starts
+//    at its first word's offset mod 8; a unit holding the chunk's first or
+//    last byte is copied byte by byte, so any base works), one step ahead.
+//    A lane's 8 (dot, count) partials stay in registers from chunk to
+//    chunk, the adds of level0_row cut at pass boundaries (level0_span), so
+//    after the last chunk the reduce-scatter, the holder shuffle, level0
+//    and the three coalesced output spans give the shared form's bits.
+//    The shared memory does not grow with G, so the kernel takes any width.
+//    The tile is one chunk a warp because a longer one would keep the
+//    partials in shared memory (1 KB a chunk of 32 rows), which 16 warps'
+//    stages leave no room for; each tile restages the whole table from L2
+//    (11 x 56,832 B at G = 1639, with the columns the chunks share) for
+//    16 x 32 rows (839,168 B of codes).
 //  * prune_kernel stages each block's slice of keys and alive bits in a
 //    (Q, 8, span + span / 32) uint32 buffer; the digit counts, the
 //    cluster's exchange and the select stay in shared memory, so masks,
 //    counts and tau are the shared form's.
 //
-// bounds_kernel<true>, level0_kernel<..., true> and prune_kernel<true> are
-// slower than their shared forms (every lookup or staged key goes to
-// L1/L2); redesigning them around shared-memory chunks is later work.
+// prune_kernel<true> is slower than its shared form (every staged key goes
+// to L1/L2) and no path of the port reaches its shapes; redesigning it
+// around shared-memory chunks is later work.
 
 #include <algorithm>
 #include <cooperative_groups.h>
@@ -665,21 +695,25 @@ __device__ __forceinline__ int warp_first(int lane) {
   return (int)blockIdx.x * kSlotTile + (int)(threadIdx.x - lane);
 }
 
-// The score launch's global form (the header's column chunks): chunk by
-// chunk the block stages the chunk's table columns, then every warp walks
-// its slots as the shared form does (its steps: 32 slots each, kTileIters
-// of them), scoring only the chunk's passes of each valid row; after the
-// last chunk it writes est / lo / hi.  A warp's rows form one stream over
-// its steps and the chunks: each group loads its next row (the next
-// step's first, across a chunk's barrier too) before it scores its
-// current one.
+// One level of the score launch's global form (the header's column
+// chunks): chunk by chunk the block stages the chunk's table columns, then
+// every warp walks its slots as the shared form does (its steps: 32 slots
+// each, kTileIters of them), scoring only the chunk's passes of each valid
+// row; after the last chunk it writes est / lo / hi.  A warp's rows form
+// one stream over its steps and the chunks: each group loads its next row
+// (the next step's first, across a chunk's barrier too) before it scores
+// its current one.  kBounds: the bounds kernel's level `level` of L, lo/hi
+// (Q, L, C) with +inf on invalid slots, est +inf there after the last
+// level; a slot's running estimate is carried from level to level in est,
+// read back by the thread that wrote it.
+template <bool kBounds>
 __device__ __forceinline__ void score_chunked(
     const uint8_t* __restrict__ packed, const int32_t* __restrict__ ids,
     const float* __restrict__ d0, const uint8_t* __restrict__ valid,
     const float4* __restrict__ rec, const float4* __restrict__ lvl,
     const float* __restrict__ params, float* est, float* __restrict__ lo,
     float* __restrict__ hi, const float* __restrict__ tables, int C, int G,
-    int level, int quantile, int P, float* s_t) {
+    int level, int L, int quantile, int P, float* s_t) {
   const int q = blockIdx.y, gp = table_width(G), gw = chunk_width(P);
   const int passes = row_passes(G);
   float* s_part = s_t + (27 + kT9Rows) * gw;  // (warp, step, round, lane)
@@ -693,6 +727,9 @@ __device__ __forceinline__ void score_chunked(
                                (end - first + kScoreThreads - 1) /
                                    kScoreThreads));
   const size_t row = (size_t)q * C;
+  // lo / hi of this level: (Q, C), or (Q, L, C) in the bounds kernel
+  const size_t orow = kBounds ? ((size_t)q * L + level) * C : row;
+  const bool last = level == L - 1;
   const float* xs = level == 0 ? d0 : est;  // what a slot carries in
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   const char* s_c = reinterpret_cast<const char*>(s_t);
@@ -738,9 +775,13 @@ __device__ __forceinline__ void score_chunked(
         } else {
           e = deeper(k.x, align, l4, p, &l, &h);
         }
+        if (kBounds && !k.v) {
+          l = h = INFINITY;
+          if (last) e = INFINITY;
+        }
         est[slot] = e;
-        lo[slot] = l;
-        hi[slot] = h;
+        lo[orow + c] = l;
+        hi[orow + c] = h;
       }
       k = next;
       ball = nball;
@@ -767,8 +808,9 @@ __global__ void score_kernel(const uint8_t* __restrict__ packed,   // (N, G)
                              int chunk_passes) {
   extern __shared__ float s_t[];  // T27 (27, Gp), T9 (kT9Rows, Gp)
   if constexpr (kGlobal) {
-    score_chunked(packed, ids, d0, valid, rec, lvl, params, est, lo, hi,
-                  tables, C, G, level, quantile, chunk_passes, s_t);
+    score_chunked<false>(packed, ids, d0, valid, rec, lvl, params, est, lo,
+                         hi, tables, C, G, level, 1, quantile, chunk_passes,
+                         s_t);
   } else {
     const int q = blockIdx.y, gp = table_width(G);
     load_tables(s_t, qplanes + (size_t)q * 5 * G, G, gp);
@@ -808,7 +850,9 @@ __global__ void score_kernel(const uint8_t* __restrict__ packed,   // (N, G)
 }
 
 // st is read in place from the launch's parameter space (__grid_constant__),
-// so indexing it by level makes no local copy.
+// so indexing it by level makes no local copy.  kGlobal: the tables of the
+// query come from device memory (tables_kernel), staged chunk_passes
+// passes at a time for each level in turn (score_chunked<true>).
 template <bool kGlobal>
 __global__ void bounds_kernel(const __grid_constant__ LevelStores st,
                               const int32_t* __restrict__ ids,      // (Q, C)
@@ -821,45 +865,52 @@ __global__ void bounds_kernel(const __grid_constant__ LevelStores st,
                               float* __restrict__ lo,               // (Q, L, C)
                               float* __restrict__ hi,
                               const float* __restrict__ tables,  // or null
-                              int C, int G, int L, int quantile) {
+                              int C, int G, int L, int quantile,
+                              int chunk_passes) {
   extern __shared__ float s_t[];  // T27 (27, Gp), T9 (kT9Rows, Gp)
-  const int q = blockIdx.y, gp = table_width(G);
-  if (!kGlobal) load_tables(s_t, qplanes + (size_t)q * 5 * G, G, gp);
+  if constexpr (kGlobal) {
+    for (int lv = 0; lv < L; ++lv)
+      score_chunked<true>(st.packed[lv], ids, d0, valid, rec, st.lvl[lv],
+                          params, est, lo, hi, tables, C, G, lv, L, quantile,
+                          chunk_passes, s_t);
+  } else {
+    const int q = blockIdx.y, gp = table_width(G);
+    load_tables(s_t, qplanes + (size_t)q * 5 * G, G, gp);
 
-  const Params p = load_params(params + (size_t)q * 8);
-  const char* s_b = reinterpret_cast<const char*>(
-      kGlobal ? tables + (size_t)q * (27 + kT9Rows) * gp : s_t);
-  const int lane = threadIdx.x & 31, end = tile_end(C);
-  const size_t row = (size_t)q * C;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  Chunk k = load_chunk(ids, d0, valid, row, warp_first(lane) + lane, end);
-  for (int c0 = warp_first(lane); c0 < end; c0 += kScoreThreads) {
-    const Chunk next =
-        load_chunk(ids, d0, valid, row, c0 + kScoreThreads + lane, end);
-    const unsigned ballot = __ballot_sync(kFull, k.v);
-    const size_t lvl0 = (size_t)q * L * C + c0 + lane;  // lo/hi at level 0
-    const float4 r4 = k.v ? rec[k.id] : zero;
-    float e = 0.f;
-    for (int lv = 0; lv < L; ++lv) {
-      const float4 l4 = k.v ? st.lvl[lv][k.id] : zero;
-      const float dot =
-          chunk_dot(st.packed[lv], k.id, ballot, s_b, G, 4u * gp, lane);
-      const float align = k.v ? dot / l4.w : 0.f;
-      float l, h;
-      if (lv == 0) {
-        const Level0 s0 = level0(align, p, k.x, r4.x, r4.y, r4.z, r4.w);
-        e = s0.est;
-        level0_bounds(s0, p, quantile, &l, &h);
-      } else {
-        e = deeper(e, align, l4, p, &l, &h);
+    const Params p = load_params(params + (size_t)q * 8);
+    const char* s_b = reinterpret_cast<const char*>(s_t);
+    const int lane = threadIdx.x & 31, end = tile_end(C);
+    const size_t row = (size_t)q * C;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    Chunk k = load_chunk(ids, d0, valid, row, warp_first(lane) + lane, end);
+    for (int c0 = warp_first(lane); c0 < end; c0 += kScoreThreads) {
+      const Chunk next =
+          load_chunk(ids, d0, valid, row, c0 + kScoreThreads + lane, end);
+      const unsigned ballot = __ballot_sync(kFull, k.v);
+      const size_t lvl0 = (size_t)q * L * C + c0 + lane;  // lo/hi at level 0
+      const float4 r4 = k.v ? rec[k.id] : zero;
+      float e = 0.f;
+      for (int lv = 0; lv < L; ++lv) {
+        const float4 l4 = k.v ? st.lvl[lv][k.id] : zero;
+        const float dot =
+            chunk_dot(st.packed[lv], k.id, ballot, s_b, G, 4u * gp, lane);
+        const float align = k.v ? dot / l4.w : 0.f;
+        float l, h;
+        if (lv == 0) {
+          const Level0 s0 = level0(align, p, k.x, r4.x, r4.y, r4.z, r4.w);
+          e = s0.est;
+          level0_bounds(s0, p, quantile, &l, &h);
+        } else {
+          e = deeper(e, align, l4, p, &l, &h);
+        }
+        if (k.in) {
+          lo[lvl0 + (size_t)lv * C] = k.v ? l : INFINITY;
+          hi[lvl0 + (size_t)lv * C] = k.v ? h : INFINITY;
+        }
       }
-      if (k.in) {
-        lo[lvl0 + (size_t)lv * C] = k.v ? l : INFINITY;
-        hi[lvl0 + (size_t)lv * C] = k.v ? h : INFINITY;
-      }
+      if (k.in) est[row + c0 + lane] = k.v ? e : INFINITY;
+      k = next;
     }
-    if (k.in) est[row + c0 + lane] = k.v ? e : INFINITY;
-    k = next;
   }
 }
 
@@ -881,19 +932,36 @@ long level0_table_bytes(int G) {
   return (long)sizeof(float2) * (27 + kT9Rows) * table_width(G);
 }
 
-// The tables (not in the global form) and every warp's two stages.
-size_t level0_smem(int G, int warps, bool global = false) {
-  return (size_t)((global ? 0 : level0_table_bytes(G)) +
-                  2L * warps * level0_stage_bytes(G));
+// The shared form's tables and every warp's two stages.
+size_t level0_smem(int G, int warps) {
+  return (size_t)(level0_table_bytes(G) + 2L * warps * level0_stage_bytes(G));
 }
 
-// Warps of a level-0 block: as many as the shared memory holds, up to
-// kL0MaxWarps (< 1: G too wide for one block).  The global form's shared
-// memory holds only the stages.
-int level0_warps(int G, bool global = false) {
+// Warps of a shared-form level-0 block: as many as the shared memory
+// holds, up to kL0MaxWarps (< 1: G too wide for the shared form).
+int level0_warps(int G) {
   return (int)std::min((long)kL0MaxWarps,
-                       (kSmemLimit - (global ? 0 : level0_table_bytes(G))) /
+                       (kSmemLimit - level0_table_bytes(G)) /
                            (2L * level0_stage_bytes(G)));
+}
+
+// ---- the level-0 global form: rows and pair tables by pass chunks
+
+constexpr int kL0Slack = 8;  // a row's staged words start below this offset
+
+// Bytes of one row's slot in a global-form stage: the row's words for a
+// chunk of P passes (kPassWords each) from an offset below kL0Slack
+// (ops.level0_slot_bytes).
+__host__ __device__ __forceinline__ int level0_slot(int P) {
+  return 4 * kPassWords * P + kL0Slack;
+}
+
+// Shared memory of the global form: the pair tables over chunk_width(P)
+// columns, then two stages of kL0Rows slots per warp
+// (ops.level0_chunk_bytes).
+size_t level0_chunk_smem(int P, int warps) {
+  return (size_t)(27 + kT9Rows) * chunk_width(P) * sizeof(float2) +
+         (size_t)2 * warps * kL0Rows * level0_slot(P);
 }
 
 // One query's level-0 tables: the T27 and T9 of load_tables, each entry a
@@ -994,6 +1062,47 @@ __device__ __forceinline__ uint32_t keep_bytes(uint32_t v, uint32_t keep) {
   return (v & keep) | (kZeroBytes & ~keep);
 }
 
+// Lane sub's kWords words of pass ps of a row (words: the pass's first),
+// its bytes outside the row masked.
+template <bool kOnePass>
+__device__ __forceinline__ void level0_words(uint32_t (&v)[kWords],
+                                             const uint32_t* words,
+                                             const Level0Lane& ln, int ps,
+                                             int sub) {
+#pragma unroll
+  for (int s = 0; s < kWords; ++s) v[s] = words[sub + kGroup * s];
+  if (ps == 0) v[0] = keep_bytes(v[0], ln.lead);
+#pragma unroll
+  for (int s = 0; s < kWords; ++s)
+    v[s] = keep_bytes(v[s], kOnePass ? ln.tail[s]
+                                     : row_keep(ln.room - 4 * kPassWords * ps -
+                                                4 * kGroup * s));
+}
+
+// One pass of a row (v: lane sub's words) onto the lane's (c.q, nonzero
+// trits) partial, the pass's table columns from byte `pass` of s_b (row
+// stride gp8 bytes): two 8-byte lookups per byte.
+__device__ __forceinline__ void level0_pass(const uint32_t (&v)[kWords],
+                                            const Level0Lane& ln,
+                                            const char* s_b, uint32_t gp8,
+                                            uint32_t pass, float& acc,
+                                            int& kc) {
+#pragma unroll
+  for (int s = 0; s < kWords; ++s) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const uint32_t y = __byte_perm(v[s], 0u, ln.sel[b]);
+      const uint32_t top = __umulhi(y, 159072863u);  // y / 27, y < 256
+      const uint32_t col = pass + 32u * kGroup * s;
+      const float2 t27 =
+          lds2(s_b, y * gp8 - top * (27u * gp8) + ln.c27[b] + col);
+      const float2 t9 = lds2(s_b, top * gp8 + ln.c9[b] + col);
+      acc += t27.x + t9.x;
+      kc += __float_as_int(t27.y) + __float_as_int(t9.y);
+    }
+  }
+}
+
 // (c.q, nonzero trits) over one staged row on lane sub of its group: the
 // same words and columns as row_dot, two 8-byte lookups per byte; the
 // caller reduces the group's partial sums.
@@ -1008,33 +1117,73 @@ __device__ __forceinline__ void level0_row(const uint32_t* words,
   const int np = kOnePass ? 1 : passes;
   for (int ps = 0; ps < np; ++ps) {
     uint32_t v[kWords];
-#pragma unroll
-    for (int s = 0; s < kWords; ++s)
-      v[s] = words[kPassWords * ps + sub + kGroup * s];
-    if (ps == 0) v[0] = keep_bytes(v[0], ln.lead);
-#pragma unroll
-    for (int s = 0; s < kWords; ++s)
-      v[s] = keep_bytes(v[s], kOnePass ? ln.tail[s]
-                                       : row_keep(ln.room - 4 * kPassWords * ps -
-                                                  4 * kGroup * s));
-    const uint32_t pass = kOnePass ? 0u : 32u * kPassWords * (uint32_t)ps;
-#pragma unroll
-    for (int s = 0; s < kWords; ++s) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const uint32_t y = __byte_perm(v[s], 0u, ln.sel[b]);
-        const uint32_t top = __umulhi(y, 159072863u);  // y / 27, y < 256
-        const uint32_t col = pass + 32u * kGroup * s;
-        const float2 t27 =
-            lds2(s_b, y * gp8 - top * (27u * gp8) + ln.c27[b] + col);
-        const float2 t9 = lds2(s_b, top * gp8 + ln.c9[b] + col);
-        acc += t27.x + t9.x;
-        kc += __float_as_int(t27.y) + __float_as_int(t9.y);
-      }
-    }
+    level0_words<kOnePass>(v, words + kPassWords * ps, ln, ps, sub);
+    level0_pass(v, ln, s_b, gp8,
+                kOnePass ? 0u : 32u * kPassWords * (uint32_t)ps, acc, kc);
   }
   *dot = acc;
   *cnt = kc;
+}
+
+// level0_row over passes [p0, p1) of a row (words: its staged words from
+// pass p0 on) on pair tables staged from column kPassCols * p0 at gw8 bytes
+// a row, onto the lane's partials acc and kc: the same adds in the same
+// order, so after the row's last chunk they are level0_row's, bit for bit.
+template <bool kOnePass>
+__device__ __forceinline__ void level0_span(const uint32_t* words,
+                                            const Level0Lane& ln,
+                                            const char* s_c, uint32_t gw8,
+                                            int p0, int p1, int sub,
+                                            float& acc, int& kc) {
+  for (int ps = p0; ps < p1; ++ps) {
+    uint32_t v[kWords];
+    level0_words<kOnePass>(v, words + kPassWords * (ps - p0), ln, ps, sub);
+    level0_pass(v, ln, s_c, gw8, 32u * kPassWords * (uint32_t)(ps - p0), acc,
+                kc);
+  }
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// The words of passes [p0, p1) of a chunk's n rows of G bytes (contiguous
+// from src) to a warp's stage, row r's in slot r (slot bytes each) from
+// the offset its first word has mod 8, by the calling warp: the 8-byte
+// units inside the chunk's bytes with cp.async, a unit that holds its
+// first or last byte byte by byte (so any base works), none past them (a
+// row's bytes outside the row are masked when it is scored).
+__device__ __forceinline__ void stage_rows(uint8_t* dst, const uint8_t* src,
+                                           int n, int G, int p0, int p1,
+                                           int slot, int lane) {
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t hi = lo + (uintptr_t)n * G;
+  const int units = 4 * kPassWords / 8 * (p1 - p0) + 1;  // a row's
+  int r = 0, u = lane;
+  while (u >= units) {
+    u -= units;
+    ++r;
+  }
+  while (r < n) {
+    const uintptr_t g = ((lo + (uintptr_t)r * G) & ~(uintptr_t)7) +
+                        4 * kPassWords * p0 + 8 * u;
+    uint8_t* d = dst + r * slot + 8 * u;
+    if (g >= lo && g + 8 <= hi) {
+      cp_async8(d, reinterpret_cast<const void*>(g));
+    } else if (g < hi && g + 8 > lo) {
+      for (int t = 0; t < 8; ++t)
+        if (g + t >= lo && g + t < hi)
+          d[t] = __ldg(reinterpret_cast<const uint8_t*>(g + t));
+    }
+    u += 32;
+    while (u >= units) {
+      u -= units;
+      ++r;
+    }
+  }
 }
 
 // Sums of a lane group's partials v[0..7] (one per round of rows):
@@ -1054,6 +1203,153 @@ __device__ __forceinline__ T group_reduce_scatter(T (&v)[8], int sub) {
   return v[0];
 }
 
+// The chunk's 3n outputs (slot c0 + lane's est / raw / margin in r0 of
+// lane i = the slot's, i < n) as three coalesced 128-byte spans.
+__device__ __forceinline__ void level0_out(float* o, const Level0& r0,
+                                           const int (&osrc)[3],
+                                           const int (&ocomp)[3], int n,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const float e = __shfl_sync(kFull, r0.est, osrc[j]);
+    const float w = __shfl_sync(kFull, r0.raw, osrc[j]);
+    const float m = __shfl_sync(kFull, r0.margin, osrc[j]);
+    if (lane + 32 * j < 3 * n)
+      o[lane + 32 * j] = ocomp[j] == 0 ? e : ocomp[j] == 1 ? w : m;
+  }
+}
+
+// After a chunk's rows are scored (acc, cnt: lane (grp, sub)'s partials of
+// rows 4 rd + grp): each row's dot and count to lane i = its row, level 0
+// from the slot's scalars sv, and the outputs.
+__device__ __forceinline__ void level0_finish(
+    float (&acc)[kL0Rows / 4], int (&cnt)[kL0Rows / 4], const float (&sv)[5],
+    const Params& p, float* o, const int (&osrc)[3], const int (&ocomp)[3],
+    int n, int lane) {
+  const int sub = lane % kGroup;
+  // lane (grp, sub) sums row 4 sub + grp; lane i takes row i
+  const int holder = (lane & 3) * kGroup + (lane >> 2);
+  const float dot = __shfl_sync(kFull, group_reduce_scatter(acc, sub), holder);
+  const int kc = __shfl_sync(kFull, group_reduce_scatter(cnt, sub), holder);
+  const float align = dot / sqrtf(fmaxf((float)kc, 1.f));
+  level0_out(o, level0(align, p, sv[0], sv[1], sv[2], sv[3], sv[4]), osrc,
+             ocomp, n, lane);
+}
+
+// The global form (the header's level-0 pass chunks): the block walks its
+// run of one query's 32-slot chunks in tiles of one chunk a warp; for each
+// tile, chunk of passes by chunk of passes, it stages the pair tables'
+// columns for those passes from the scratch pair_tables_kernel filled,
+// while each warp's stage gets its chunk's rows' words for the same passes
+// (stage_rows), one step ahead: the next chunk of passes' or the next
+// tile's first.  A lane's partials (acc, cnt) stay in registers from chunk
+// to chunk; after the last the chunk's outputs are taken as the shared
+// form takes them (the output lanes as in level0_kernel).
+template <bool kOnePass>
+__device__ __forceinline__ void level0_chunked(
+    const uint8_t* __restrict__ packed, const float* __restrict__ scal,
+    const float* __restrict__ params, float* __restrict__ out,
+    const float2* __restrict__ tables, int Q, int C, int G, int P,
+    float2* s_t2) {
+  const int gp = table_width(G), gw = chunk_width(P), slot = level0_slot(P);
+  const int passes = row_passes(G), npc = (passes + P - 1) / P;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane / kGroup, sub = lane % kGroup;
+  const int warps = blockDim.x >> 5;
+  const uint32_t gw8 = 8u * gw;
+  const int stage = kL0Rows * slot;
+  uint8_t* s_stage = reinterpret_cast<uint8_t*>(s_t2 + (27 + kT9Rows) * gw) +
+                     (size_t)warp * 2 * stage;
+  const char* s_c = reinterpret_cast<const char*>(s_t2);
+  const int nchunks = (C + kL0Rows - 1) / kL0Rows;
+  const long total = (long)Q * nchunks;
+  const long end = total * (blockIdx.x + 1) / gridDim.x;
+  for (long seg = total * blockIdx.x / gridDim.x; seg < end;) {
+    const int q = (int)(seg / nchunks);
+    const long left = end - (long)q * nchunks;  // chunks of q onward
+    const int c_hi = left < nchunks ? (int)left : nchunks;
+    const int k0 = (int)(seg - (long)q * nchunks);  // the run's first
+    seg = (long)q * nchunks + c_hi;
+    const size_t qrow = (size_t)q * C;
+    const float* tq = reinterpret_cast<const float*>(
+        tables + (size_t)q * (27 + kT9Rows) * gp);
+    const int tiles = (c_hi - k0 + warps - 1) / warps;
+    // the rows of tile t's chunk of this warp, passes [P pc, P pc + P),
+    // to stage buffer buf (an empty cp.async group where there are none)
+    auto issue = [&](int t, int pc, int buf) {
+      const int k = k0 + t * warps + warp;
+      if (t < tiles && k < c_hi) {
+        const int c0 = k * kL0Rows;
+        stage_rows(s_stage + buf * stage, packed + (qrow + c0) * G,
+                   min(kL0Rows, C - c0), G, P * pc, min(passes, P * pc + P),
+                   slot, lane);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    issue(0, 0, 0);
+    int it = 0;  // this run's steps: (tile, chunk of passes)
+    for (int t = 0; t < tiles; ++t) {
+      const int k = k0 + t * warps + warp;
+      const int c0 = k * kL0Rows;
+      const int n = k < c_hi ? min(kL0Rows, C - c0) : 0;
+      const int a =
+          n > 0 ? (int)(reinterpret_cast<uintptr_t>(packed + (qrow + c0) * G) &
+                        15)
+                : 0;
+      const Level0Lane ln = level0_lane((a + grp * G) & 3, grp, sub, G, gw8);
+      float acc[kL0Rows / 4];
+      int cnt[kL0Rows / 4];
+#pragma unroll
+      for (int rd = 0; rd < kL0Rows / 4; ++rd) {
+        acc[rd] = 0.f;
+        cnt[rd] = 0;
+      }
+      for (int pc = 0; pc < npc; ++pc, ++it) {
+        const int p0 = P * pc, p1 = min(passes, p0 + P);
+        __syncthreads();  // no warp still reads the last columns
+        stage_tables(reinterpret_cast<float*>(s_t2), tq, 2 * gp, 2 * gw,
+                     2 * kPassCols * p0, 2 * min(gw, gp - kPassCols * p0));
+        if (pc + 1 < npc)
+          issue(t, pc + 1, (it + 1) & 1);
+        else
+          issue(t + 1, 0, (it + 1) & 1);
+        // all but the group just issued: this step's rows and columns
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+        __syncthreads();
+        const uint8_t* cur = s_stage + (it & 1) * stage;
+#pragma unroll
+        for (int rd = 0; rd < kL0Rows / 4; ++rd) {
+          const int r = 4 * rd + grp;
+          // row r's words from the offset its first one has mod 8
+          if (r < n)
+            level0_span<kOnePass>(
+                reinterpret_cast<const uint32_t*>(cur + r * slot +
+                                                  ((a + r * G) & 4)),
+                ln, s_c, gw8, p0, p1, sub, acc[rd], cnt[rd]);
+        }
+      }
+      if (n > 0) {
+        // the query's parameters, the slots' scalars and the output lanes
+        // only now, so that the chunks of passes keep their registers
+        float sv[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+        if (lane < n) {
+#pragma unroll
+          for (int i = 0; i < 5; ++i)
+            sv[i] = __ldg(scal + (qrow + c0 + lane) * 5 + i);
+        }
+        int osrc[3], ocomp[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          osrc[j] = (lane + 32 * j) / 3;
+          ocomp[j] = lane + 32 * j - 3 * osrc[j];
+        }
+        level0_finish(acc, cnt, sv, load_params(params + (size_t)q * 8),
+                      out + (qrow + c0) * 3, osrc, ocomp, n, lane);
+      }
+    }
+  }
+}
+
 // (minimum 1 block per SM: without it ptxas held the kernel to 64
 // registers, which serialised its table lookups)
 template <bool kOnePass, bool kGlobal = false>
@@ -1064,21 +1360,16 @@ __global__ void __launch_bounds__(kL0MaxWarps * 32, 1)
                   const float* __restrict__ params,    // (Q, 8)
                   float* __restrict__ out,             // (Q, C, 3)
                   const float2* __restrict__ tables,   // or null
-                  int Q, int C, int G) {
-  // the pair tables T27 and T9 (not in the global form), then two stages
-  // per warp
+                  int Q, int C, int G, int chunk_passes) {
+  // the pair tables T27 and T9 (in the global form: a chunk of their
+  // columns), then two stages per warp
   extern __shared__ __align__(16) float2 s_t2[];
-  const int gp = table_width(G), passes = row_passes(G);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int grp = lane / kGroup, sub = lane % kGroup;
-  const int warps = blockDim.x >> 5;
-  const uint32_t gp8 = 8u * gp;
-  const int stage = level0_stage_bytes(G);
-  uint8_t* s_stage = reinterpret_cast<uint8_t*>(s_t2) +
-                     (kGlobal ? 0 : (27 + kT9Rows) * gp8) +
-                     (size_t)warp * 2 * stage;
-  const char* s_b = reinterpret_cast<const char*>(s_t2);
-  const int nchunks = (C + kL0Rows - 1) / kL0Rows;
+  if constexpr (kGlobal) {
+    level0_chunked<kOnePass>(packed, scal, params, out, tables, Q, C, G,
+                             chunk_passes, s_t2);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
   // output float f = lane + 32 j of a chunk is component f % 3 of row f / 3
   int osrc[3], ocomp[3];
 #pragma unroll
@@ -1086,6 +1377,16 @@ __global__ void __launch_bounds__(kL0MaxWarps * 32, 1)
     osrc[j] = (lane + 32 * j) / 3;
     ocomp[j] = lane + 32 * j - 3 * osrc[j];
   }
+  const int gp = table_width(G), passes = row_passes(G);
+  const int warp = threadIdx.x >> 5;
+  const int grp = lane / kGroup, sub = lane % kGroup;
+  const int warps = blockDim.x >> 5;
+  const uint32_t gp8 = 8u * gp;
+  const int stage = level0_stage_bytes(G);
+  uint8_t* s_stage = reinterpret_cast<uint8_t*>(s_t2) +
+                     (27 + kT9Rows) * gp8 + (size_t)warp * 2 * stage;
+  const char* s_b = reinterpret_cast<const char*>(s_t2);
+  const int nchunks = (C + kL0Rows - 1) / kL0Rows;
   // this block's share of the Q x nchunks chunks, in order: a run of one
   // query's chunks, or the end of one query's and the start of the next
   const long total = (long)Q * nchunks;
@@ -1106,11 +1407,8 @@ __global__ void __launch_bounds__(kL0MaxWarps * 32, 1)
     };
     __syncthreads();  // no warp still reads the last query's tables
     if (k < c_hi) issue(k, s_stage);
-    if (!kGlobal) load_pair_tables(s_t2, qplanes + (size_t)q * 5 * G, G, gp);
+    load_pair_tables(s_t2, qplanes + (size_t)q * 5 * G, G, gp);
     const Params p = load_params(params + (size_t)q * 8);
-    const char* s_bq = kGlobal ? reinterpret_cast<const char*>(
-                                     tables + (size_t)q * (27 + kT9Rows) * gp)
-                               : s_b;
 
     for (int it = 0; k < c_hi; k += warps, ++it) {
       const uint8_t* cur = s_stage + (it & 1) * stage;
@@ -1146,27 +1444,11 @@ __global__ void __launch_bounds__(kL0MaxWarps * 32, 1)
         if (r < n)
           level0_row<kOnePass>(
               reinterpret_cast<const uint32_t*>(cur + ((a + r * G) & ~3)),
-              ln, s_bq, gp8, passes, sub, &acc[rd], &cnt[rd]);
+              ln, s_b, gp8, passes, sub, &acc[rd], &cnt[rd]);
       }
       __syncwarp();  // the stage is read; the next issue may overwrite it
-      // lane (grp, sub) sums row 4 sub + grp; lane i takes row i
-      const int holder = (lane & 3) * kGroup + (lane >> 2);
-      const float dot =
-          __shfl_sync(kFull, group_reduce_scatter(acc, sub), holder);
-      const int kc =
-          __shfl_sync(kFull, group_reduce_scatter(cnt, sub), holder);
-      const float align = dot / sqrtf(fmaxf((float)kc, 1.f));
-      const Level0 r0 = level0(align, p, sv[0], sv[1], sv[2], sv[3], sv[4]);
-      // the chunk's 3n outputs as three coalesced 128-byte spans
-      float* o = out + (qrow + c0) * 3;
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float e = __shfl_sync(kFull, r0.est, osrc[j]);
-        const float w = __shfl_sync(kFull, r0.raw, osrc[j]);
-        const float m = __shfl_sync(kFull, r0.margin, osrc[j]);
-        if (lane + 32 * j < 3 * n)
-          o[lane + 32 * j] = ocomp[j] == 0 ? e : ocomp[j] == 1 ? w : m;
-      }
+      level0_finish(acc, cnt, sv, p, out + (qrow + c0) * 3, osrc, ocomp, n,
+                    lane);
     }
   }
 }
@@ -1550,22 +1832,29 @@ extern "C" int fatrq_prune_attributes(int global, int* out) {
 }
 
 // packed / lvl: host arrays of L device pointers (the per-level stores);
-// tables as in fatrq_refine_level.
+// tables and chunk_passes as in fatrq_refine_level (ops.bounds_plan);
+// smem_out (may be null) receives the launch's dynamic shared bytes.
 extern "C" int fatrq_refine_bounds(
     const void* const* packed, const void* const* lvl, const void* ids,
     const void* d0, const void* valid, const void* qplanes, const void* rec,
     const void* params, void* est, void* lo, void* hi, const void* tables,
-    int Q, int C, int G, int L, int quantile, void* stream) {
+    int Q, int C, int G, int L, int quantile, int chunk_passes,
+    int* smem_out, void* stream) {
   if (L < 1 || L > kMaxLevels) return (int)cudaErrorInvalidValue;
+  const bool global = tables != nullptr;
+  if (global && (chunk_passes < 1 || chunk_passes > kSpanPasses ||
+                 chunk_smem(chunk_passes) > kSmemLimit))
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = global ? bounds_kernel<true> : bounds_kernel<false>;
+  const size_t smem = global ? opt_in(kernel, chunk_smem(chunk_passes))
+                             : tables_smem(kernel, G);
+  if (smem_out != nullptr) *smem_out = (int)smem;
   if (Q == 0 || C == 0) return (int)cudaGetLastError();
   LevelStores st = {};
   for (int lv = 0; lv < L; ++lv) {
     st.packed[lv] = static_cast<const uint8_t*>(packed[lv]);
     st.lvl[lv] = static_cast<const float4*>(lvl[lv]);
   }
-  const bool global = tables != nullptr;
-  const auto kernel = global ? bounds_kernel<true> : bounds_kernel<false>;
-  const size_t smem = global ? 0 : tables_smem(kernel, G);
   dim3 grid((C + kSlotTile - 1) / kSlotTile, Q);
   kernel<<<grid, kScoreThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       st, static_cast<const int32_t*>(ids), static_cast<const float*>(d0),
@@ -1573,7 +1862,7 @@ extern "C" int fatrq_refine_bounds(
       static_cast<const float4*>(rec), static_cast<const float*>(params),
       static_cast<float*>(est), static_cast<float*>(lo),
       static_cast<float*>(hi), static_cast<const float*>(tables), C, G, L,
-      quantile);
+      quantile, chunk_passes);
   return (int)cudaGetLastError();
 }
 
@@ -1581,7 +1870,7 @@ extern "C" int fatrq_refine_bounds(
 // the shared form or (global) the global form.
 using Level0Kernel = void (*)(const uint8_t*, const float*, const float*,
                               const float*, float*, const float2*, int, int,
-                              int);
+                              int, int);
 
 Level0Kernel level0_for(int G, bool global) {
   if (global)
@@ -1590,51 +1879,78 @@ Level0Kernel level0_for(int G, bool global) {
   return row_passes(G) == 1 ? level0_kernel<true> : level0_kernel<false>;
 }
 
+// A level-0 launch's warps per block and dynamic shared bytes: the shared
+// form's from G, the global form's from its plan (chunk_passes passes a
+// chunk and `warps` warps, ops.level0_plan); false where they do not fit.
+bool level0_size(int G, bool global, int chunk_passes, int warps, int* w,
+                 size_t* smem) {
+  if (G < 1) return false;
+  if (global) {
+    *w = warps;
+    *smem = level0_chunk_smem(chunk_passes, warps);
+    return chunk_passes >= 1 && chunk_passes <= kSpanPasses && warps >= 1 &&
+           warps <= kL0MaxWarps && *smem <= (size_t)kSmemLimit;
+  }
+  *w = level0_warps(G);
+  *smem = level0_smem(G, *w);
+  return *w >= 1;
+}
+
 // tables: null (the shared form) or the queries' pair tables built by
-// fatrq_refine_tables (the global form).
+// fatrq_refine_tables (the global form, staged by the plan chunk_passes /
+// warps); smem_out (may be null) receives the launch's dynamic shared
+// bytes.
 extern "C" int fatrq_refine_level0(const void* packed, const void* qplanes,
                                    const void* scal, const void* params,
                                    void* out, const void* tables, int Q,
-                                   int C, int G, void* stream) {
-  if (Q == 0 || C == 0) return (int)cudaGetLastError();
+                                   int C, int G, int chunk_passes, int warps,
+                                   int* smem_out, void* stream) {
   const bool global = tables != nullptr;
-  const int warps = level0_warps(G, global);
-  if (G < 1 || warps < 1) return (int)cudaErrorInvalidValue;
+  int w = 0;
+  size_t smem = 0;
+  if (!level0_size(G, global, chunk_passes, warps, &w, &smem))
+    return Q == 0 || C == 0 ? (int)cudaGetLastError()
+                            : (int)cudaErrorInvalidValue;
   const Level0Kernel kernel = level0_for(G, global);
-  const size_t smem = opt_in(kernel, level0_smem(G, warps, global));
+  opt_in(kernel, smem);
+  if (smem_out != nullptr) *smem_out = (int)smem;
+  if (Q == 0 || C == 0) return (int)cudaGetLastError();
   // every resident block busy, each with a share of the Q x C / 32 chunks
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * warps,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * w,
                                                 smem);
   const long chunks = (long)Q * ((C + kL0Rows - 1) / kL0Rows);
   const int blocks = (int)std::max(1L, std::min((long)sms * per_sm, chunks));
-  kernel<<<blocks, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, 32 * w, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(packed),
       static_cast<const float*>(qplanes), static_cast<const float*>(scal),
       static_cast<const float*>(params), static_cast<float*>(out),
-      static_cast<const float2*>(tables), Q, C, G);
+      static_cast<const float2*>(tables), Q, C, G, chunk_passes);
   return (int)cudaGetLastError();
 }
 
-// The level-0 kernel for width G in either form: its registers, local
-// (stack) bytes, warps per block, dynamic shared memory and resident blocks
-// per SM.
-extern "C" int fatrq_level0_attributes(int G, int global, int* out) {
-  const int warps = level0_warps(G, global);
-  if (G < 1 || warps < 1) return (int)cudaErrorInvalidValue;
+// The level-0 kernel for width G in either form (the global form's plan
+// as in fatrq_refine_level0): its registers, local (stack) bytes, warps
+// per block, dynamic shared memory and resident blocks per SM.
+extern "C" int fatrq_level0_attributes(int G, int global, int chunk_passes,
+                                       int warps, int* out) {
+  int w = 0;
+  size_t smem = 0;
+  if (!level0_size(G, global, chunk_passes, warps, &w, &smem))
+    return (int)cudaErrorInvalidValue;
   const Level0Kernel kernel = level0_for(G, global);
-  const size_t smem = opt_in(kernel, level0_smem(G, warps, global));
+  opt_in(kernel, smem);
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   int per_sm = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        32 * warps, smem);
+                                                        32 * w, smem);
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  out[2] = warps;
+  out[2] = w;
   out[3] = (int)smem;
   out[4] = per_sm;
   return (int)err;

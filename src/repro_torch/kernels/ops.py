@@ -16,11 +16,14 @@ memory; where the shapes need more than a block has, the ``"global"``
 form runs the same arithmetic in the same order with that state in device
 memory, so both give the same bits.  ``*_form`` picks the form from the
 shapes alone, before any launch; ``*_scratch_bytes`` is a global form's
-scratch.  The global forms of ``pq_adc`` and of the fused kernel's score
-launch stage that state back into shared memory a chunk at a time: the
-ADC LUT by chunks of subspaces (``adc_plan``), the refine tables by
-column chunks of whole passes (``refine_plan``); the other global forms
-read it from device memory (the 50 MB L2 caches it).
+scratch.  The global forms of ``pq_adc``, of the fused kernel's score
+launch, of the bounds kernel and of the level-0 kernel stage that state
+back into shared memory a chunk at a time: the ADC LUT by chunks of
+subspaces (``adc_plan``), the refine tables by column chunks of whole
+passes (``refine_plan``, ``bounds_plan``), the level-0 pair tables and a
+warp's code rows by the same pass chunks (``level0_plan``); the prune's
+global form reads its staged keys from device memory (the 50 MB L2
+caches them).
 """
 
 from __future__ import annotations
@@ -151,9 +154,9 @@ def refine_smem_bytes(g: int) -> int:
 def refine_form(g: int) -> str:
     """The fused and bounds kernels' form: ``"shared"`` up to G = 1437,
     else ``"global"`` (a small kernel writes each query's tables once per
-    call to scratch; the fused kernel's score launch stages them back a
-    column chunk at a time, ``refine_plan``, and the bounds kernel reads
-    them from there)."""
+    call to scratch; the fused kernel's score launch and the bounds kernel
+    stage them back a column chunk at a time, ``refine_plan`` and
+    ``bounds_plan``)."""
     return _form(refine_smem_bytes(g))
 
 
@@ -202,22 +205,55 @@ class RefinePlan:
     smem_bytes: int
 
 
+def _most_passes(g: int, fits) -> int:
+    """The most passes a chunk for which ``fits(passes)`` holds, at least 1
+    and at most the row's passes and ``_SPAN_PASSES``."""
+    p = 1
+    while p < min(row_passes(g), _SPAN_PASSES) and fits(p + 1):
+        p += 1
+    return p
+
+
 def refine_plan(g: int) -> RefinePlan:
     """The fused kernel's global-form chunks at width g: as many passes a
     chunk as keep two blocks on an SM (3 at G = 1639: 4 chunks, 108,544
     B), at least 1 and at most the row's passes and ``_SPAN_PASSES``.
     Raises ``SharedMemoryBudgetError`` if even one pass does not fit a
     block."""
-    total = row_passes(g)
     room = _SM_SMEM_BYTES // _SCORE_BLOCKS - _BLOCK_RESERVED
-    p = 1
-    while p < min(total, _SPAN_PASSES) and \
-            refine_chunk_bytes(p + 1) <= room:
-        p += 1
+    p = _most_passes(g, lambda n: refine_chunk_bytes(n) <= room)
     nbytes = check_smem_budget(f"ternary_refine_fused global form at G={g}",
                                refine_chunk_bytes(p))
-    return RefinePlan(passes=p, chunks=-(-total // p), width=chunk_width(p),
-                      smem_bytes=nbytes)
+    return RefinePlan(passes=p, chunks=-(-row_passes(g) // p),
+                      width=chunk_width(p), smem_bytes=nbytes)
+
+
+@dataclass(frozen=True)
+class BoundsPlan:
+    """How the bounds kernel's global form stages one query's tables: the
+    fused score launch's column chunks (``refine_plan``), walked once per
+    level for each tile of slots (``levels`` times), each slot's running
+    estimate carried from level to level in the kernel's est output."""
+
+    passes: int
+    chunks: int
+    width: int
+    smem_bytes: int
+    levels: int
+
+
+def bounds_plan(g: int, levels: int) -> BoundsPlan:
+    """The bounds kernel's global-form chunks at width g and L levels: the
+    score launch's (3 passes a chunk at G = 1639, 108,544 B, two blocks an
+    SM) at every L, since a level's chunks need the same shared memory.
+    Raises ``ValueError`` outside 1 ≤ L ≤ the kernel's levels."""
+    if not 1 <= levels <= _kernels.MAX_LEVELS:
+        raise ValueError(f"bounds_plan: {levels} levels outside [1, "
+                         f"{_kernels.MAX_LEVELS}]")
+    plan = refine_plan(g)
+    return BoundsPlan(passes=plan.passes, chunks=plan.chunks,
+                      width=plan.width, smem_bytes=plan.smem_bytes,
+                      levels=levels)
 
 
 def launched_plan(what: str, plan, nbytes: int):
@@ -241,55 +277,86 @@ def level0_table_bytes(g: int) -> int:
 
 
 def level0_stage_bytes(g: int) -> int:
-    """One level-0 warp's stage: its chunk's 32 code rows at an offset
-    below 16 with room for the words the last row's passes read past them,
-    rounded up to 16."""
+    """One level-0 warp's stage in the shared form: its chunk's 32 whole
+    code rows at an offset below 16 with room for the words the last row's
+    passes read past them, rounded up to 16."""
     return (_L0_ROWS * g + 4 * _PASS_WORDS * row_passes(g) + 16 + 15) \
         // 16 * 16
 
 
 def level0_warps(g: int) -> int:
-    """Warps of a level-0 block: as many double-buffered stages as fit
-    beside the tables, at most 16 (below 1: g is too wide)."""
+    """Warps of a level-0 block in the shared form: as many
+    double-buffered stages as fit beside the tables, at most 16 (below 1:
+    the shared form does not fit; 2 at G = 410)."""
     room = SMEM_LIMIT_BYTES - level0_table_bytes(g)
     return min(_L0_MAX_WARPS, room // (2 * level0_stage_bytes(g)))
 
 
 def level0_smem_bytes(g: int) -> int:
-    """The level-0 kernel holds one query's pair tables
+    """The level-0 kernel's shared form holds one query's pair tables
     (``level0_table_bytes``) and two stages per warp (``level0_warps``, at
     least one): 220,160 B with 16 warps at G = 154.  Past G = 503 even one
-    warp does not fit beside the tables."""
+    warp does not fit beside the tables, and the global form
+    (``level0_plan``) runs."""
     return (level0_table_bytes(g)
             + 2 * max(1, level0_warps(g)) * level0_stage_bytes(g))
 
 
-def level0_global_warps(g: int) -> int:
-    """Warps of a level-0 block in the global form, whose shared memory
-    holds only the stages: at most 16 (below 1: g is too wide)."""
-    return min(_L0_MAX_WARPS, SMEM_LIMIT_BYTES // (2 * level0_stage_bytes(g)))
-
-
-def _level0_max_g() -> int:
-    g = 1
-    while level0_global_warps(g + 1) >= 1:
-        g += 1
-    return g
-
-
-#: widest G the level-0 kernel takes: one warp's two stages fill a block
-LEVEL0_MAX_G = _level0_max_g()
-
-
 def level0_form(g: int) -> str:
     """``"shared"`` where the pair tables and one warp's two stages fit a
-    block (G ≤ 503), else ``"global"`` (the pair tables in scratch, the
-    stages in shared memory) up to ``LEVEL0_MAX_G``; past it raises
-    ``SharedMemoryBudgetError``."""
-    if level0_warps(g) >= 1:
-        return "shared"
-    check_smem_budget(f"level0 at G={g}", 2 * level0_stage_bytes(g))
-    return "global"
+    block (G ≤ 503), else ``"global"``: the pair tables in scratch
+    (``pair_tables_kernel``), staged back with each warp's code rows by
+    chunks of whole passes (``level0_plan``), which fit at every G."""
+    return "shared" if level0_warps(g) >= 1 else "global"
+
+
+#: bytes a code row's staged words may start past an 8-byte boundary (the
+#: level-0 global form copies them 8 bytes at a time; kL0Slack)
+_L0_SLACK = 8
+
+
+def level0_slot_bytes(passes: int) -> int:
+    """One code row's slot in a level-0 global-form stage: its words for a
+    chunk of ``passes`` passes (160 bytes a pass) from an offset below 8
+    (level0_slot in the source)."""
+    return 4 * _PASS_WORDS * passes + _L0_SLACK
+
+
+def level0_chunk_bytes(passes: int, warps: int) -> int:
+    """Shared memory of the level-0 global form: the pair tables over
+    ``chunk_width(passes)`` columns (8 bytes an entry) and two stages of 32
+    row slots per warp."""
+    return (27 + 10) * chunk_width(passes) * 8 \
+        + 2 * warps * _L0_ROWS * level0_slot_bytes(passes)
+
+
+@dataclass(frozen=True)
+class Level0Plan:
+    """How the level-0 kernel's global form stages one query's pair tables
+    and each warp's 32 code rows: chunks of ``passes`` whole passes (the
+    last may have fewer), each chunk's columns [160 p0, 160 p0 + ``width``)
+    of the 37 rows beside two stages a warp of the rows' words for those
+    passes, ``warps`` warps a block."""
+
+    passes: int
+    chunks: int
+    width: int
+    warps: int
+    smem_bytes: int
+
+
+def level0_plan(g: int) -> Level0Plan:
+    """The level-0 global form's chunks at width g: the most warps (16),
+    then the most passes a chunk that keep them (1 at every G: 192 columns
+    and 16 x 2 stages of 32 x 168 B, 228,864 B).  Its shared memory does
+    not grow with G, so every width has a plan."""
+    warps = _L0_MAX_WARPS
+    p = _most_passes(g, lambda n: level0_chunk_bytes(n, warps)
+                     <= SMEM_LIMIT_BYTES)
+    nbytes = check_smem_budget(f"level0 global form at G={g}",
+                               level0_chunk_bytes(p, warps))
+    return Level0Plan(passes=p, chunks=-(-row_passes(g) // p),
+                      width=chunk_width(p), warps=warps, smem_bytes=nbytes)
 
 
 def level0_scratch_bytes(q: int, g: int) -> int:

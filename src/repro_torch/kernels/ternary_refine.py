@@ -33,10 +33,11 @@ Every kernel takes any G and C.  Where a query's tables (or the prune's
 staged slice) do not fit a block's shared memory, the wrapper runs the
 kernel's global form, which keeps them in a scratch buffer it allocates
 and gives the same bits (``ops.refine_form``, ``prune_form``,
-``level0_form``); the fused kernel's score launch then stages the tables
-from there into shared memory a column chunk at a time
-(``ops.refine_plan``).  The level-0 kernel stops at G =
-``ops.LEVEL0_MAX_G``.
+``level0_form``); the fused kernel's score launch and the bounds kernel
+then stage the tables from there into shared memory a column chunk at a
+time (``ops.refine_plan``, ``ops.bounds_plan``), and the level-0 kernel
+its pair tables with each warp's code rows by the same pass chunks
+(``ops.level0_plan``).
 """
 
 from __future__ import annotations
@@ -74,10 +75,14 @@ prune_global_launches = 0
 #: (one per level-0 call)
 tables_launches = 0
 pair_tables_launches = 0
-#: the fused kernel's global score launch's chunk plan at its last call
-#: (``ops.RefinePlan``, its shared bytes as the launch asked for them),
-#: None before any
+#: the chunk plan of the last global-form launch of the fused kernel's
+#: score launch (``ops.RefinePlan``), of the bounds kernel
+#: (``ops.BoundsPlan``) and of the level-0 kernel (``ops.Level0Plan``),
+#: each checked against the shared bytes the launch asked for; None before
+#: any
 last_plan = None
+bounds_last_plan = None
+level0_last_plan = None
 
 #: largest k the pruning step takes (kMaxK in the source)
 MAX_K = 64
@@ -88,8 +93,10 @@ MAX_LEVELS = 8
 _ARGS = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
          + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 _BOUNDS_ARGS = ([ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p] * 10
-                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-_LEVEL0_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                + [ctypes.c_int] * 6
+                + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+_LEVEL0_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 _PRUNE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _TABLES_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 #: queries per step of the plain version (bounds its (Q, C, G) temporaries)
@@ -525,7 +532,9 @@ def _bounds(stores, q, ids, d0, valid, model, *, bound, z,
     glob = ops.pick_form("ternary_refine_fused_bounds", ops.refine_form(g),
                          form) == "global"
     tables = _tables(q_planes, pairs=False) if glob else None
+    plan = ops.bounds_plan(g, nl) if glob else None
     ptrs = ctypes.c_void_p * nl
+    smem = ctypes.c_int(0)
     fn = build.entry("ternary_refine", "fatrq_refine_bounds", _BOUNDS_ARGS)
     status = fn(ptrs(*(build.ptr(p) for p in stores.packed)),
                 ptrs(*(build.ptr(t) for t in stores.levels)),
@@ -533,30 +542,39 @@ def _bounds(stores, q, ids, d0, valid, model, *, bound, z,
                 build.ptr(q_planes), build.ptr(stores.records),
                 build.ptr(params), build.ptr(est), build.ptr(lo),
                 build.ptr(hi), build.ptr(tables), nq, c, g, nl,
-                int(bound == "quantile"),
-                torch.cuda.current_stream(dev).cuda_stream)
+                int(bound == "quantile"), plan.passes if glob else 0,
+                ctypes.byref(smem), torch.cuda.current_stream(dev).cuda_stream)
     build.check("ternary_refine", status, "ternary_refine_fused_bounds")
-    global bounds_launches, bounds_global_launches
+    global bounds_launches, bounds_global_launches, bounds_last_plan
     bounds_launches += 1
     bounds_global_launches += int(glob)
+    if glob:
+        bounds_last_plan = ops.launched_plan("ternary_refine_fused_bounds",
+                                             plan, smem.value)
     return est, lo, hi
 
 
 def _launch_level0(what: str, packed, q_planes, scalars, params, out,
                    nq: int, c: int, g: int, form: str | None) -> None:
-    """The level-0 kernel in the form G selects (``ops.level0_form``,
-    which raises past ``ops.LEVEL0_MAX_G``) or in ``form``; q_planes
+    """The level-0 kernel in the form G selects (``ops.level0_form``) or
+    in ``form``, the global form by ``ops.level0_plan``; q_planes
     (Q, 5, G)."""
     glob = ops.pick_form(what, ops.level0_form(g), form) == "global"
     tables = _tables(q_planes.reshape(nq, TRITS_PER_BYTE, g), pairs=True) \
         if glob else None
+    plan = ops.level0_plan(g) if glob else None
+    smem = ctypes.c_int(0)
     fn = build.entry("ternary_refine", "fatrq_refine_level0", _LEVEL0_ARGS)
     status = fn(build.ptr(packed), build.ptr(q_planes), build.ptr(scalars),
                 build.ptr(params), build.ptr(out), build.ptr(tables), nq, c,
-                g, torch.cuda.current_stream(packed.device).cuda_stream)
+                g, plan.passes if glob else 0, plan.warps if glob else 0,
+                ctypes.byref(smem),
+                torch.cuda.current_stream(packed.device).cuda_stream)
     build.check("ternary_refine", status, what)
-    global level0_global_launches
+    global level0_global_launches, level0_last_plan
     level0_global_launches += int(glob)
+    if glob:
+        level0_last_plan = ops.launched_plan(what, plan, smem.value)
 
 
 def ternary_refine_batch(packed: torch.Tensor, q_planes: torch.Tensor,

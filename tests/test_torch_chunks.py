@@ -1,15 +1,18 @@
-"""The chunk plans of the two redesigned global forms: ``pq_adc``'s LUT staged
-by chunks of subspaces (``ops.adc_plan``) and the fused kernel's refine
-tables staged by column chunks of whole passes (``ops.refine_plan``).
+"""The chunk plans of the redesigned global forms: ``pq_adc``'s LUT staged by
+chunks of subspaces (``ops.adc_plan``), the fused and bounds kernels'
+refine tables staged by column chunks of whole passes (``ops.refine_plan``,
+``ops.bounds_plan``), and the level-0 kernel's pair tables and code rows
+staged by the same pass chunks (``ops.level0_plan``).
 
 A plan is chosen from the shapes alone, before the launch, so it is held
 here on the CPU: at every backbone width at the JAX package's
 ``pq_m = d // 8`` (and a few odd M), the ADC chunks cover subspaces
-0 … M−1 once and in order and fit a block; the refine chunks are whole
-passes in order, hold every table column that ``row_dot`` addresses for
-their passes at every byte offset of a row, and fit a block beside the
-per-lane partial sums.  The kernels themselves are held against the shared
-forms and the plain versions on the card by chip_smoke.py."""
+0 … M−1 once and in order and fit a block; the refine and level-0 chunks
+are whole passes in order, hold every table column that ``row_dot`` /
+``level0_row`` addresses for their passes at every byte offset of a row,
+and fit a block (beside the per-lane partial sums, or beside 16 warps'
+row stages).  The kernels themselves are held against the shared forms
+and the plain versions on the card by chip_smoke.py."""
 
 import pytest
 
@@ -151,3 +154,83 @@ def test_launched_plan_checks_the_launch():
                             torch.ones((1, 1024, 256)))
     assert torch.equal(out, torch.full((1, 3), 1024.0))
     assert pq_adc_mod.last_plan is before
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 8])
+@pytest.mark.parametrize("g", REFINE_G)
+def test_bounds_plan_stages_every_column_row_dot_reads(g, levels):
+    """The bounds kernel's global form walks the score launch's column
+    chunks once per level: the same passes, columns and shared bytes at
+    every L (so each chunk holds every column ``row_dot`` reads), and its
+    levels."""
+    plan, score = ops.bounds_plan(g, levels), ops.refine_plan(g)
+    assert (plan.passes, plan.chunks, plan.width, plan.smem_bytes) == (
+        score.passes, score.chunks, score.width, score.smem_bytes)
+    assert plan.levels == levels
+    for (p0, p1), (c0, c1) in zip(_refine_spans(plan, g),
+                                  _refine_columns(plan, g)):
+        for p in range(p0, p1):
+            for off in range(4):
+                cols = _row_dot_columns(g, p, off)
+                assert not cols or (c0 <= min(cols) and max(cols) < c1)
+    assert plan.smem_bytes <= ops.SMEM_LIMIT_BYTES
+
+
+def test_bounds_plan_levels():
+    """G = 1639: 3 passes a chunk, two blocks an SM at any L; L outside
+    1 … 8 (the kernel's ``kMaxLevels``) raises."""
+    assert ops.bounds_plan(1639, 1) == ops.BoundsPlan(3, 4, 512, 108_544, 1)
+    for bad in (0, 9):
+        with pytest.raises(ValueError, match="levels"):
+            ops.bounds_plan(1639, bad)
+
+
+def _level0_row_columns(g: int, p: int, off: int) -> set[int]:
+    """Pair-table columns ``level0_row`` reads in pass p of a row whose
+    first byte is byte ``off`` of its word: every pass of the row's
+    ``row_passes``, each lane's words 40 p + sub + 8 s unclamped (bytes
+    outside the row are masked to a zero-scoring byte but still looked
+    up), byte j of word w in column 4 w + 4 − off + j."""
+    return {4 * (40 * p + w) + 4 - off + j
+            for w in range(40) for j in range(4)}
+
+
+@pytest.mark.parametrize("g", REFINE_G)
+def test_level0_plan_stages_every_column_level0_row_reads(g):
+    plan = ops.level0_plan(g)
+    total = ops.row_passes(g)
+    spans = _refine_spans(plan, g)
+    assert len(spans) == plan.chunks
+    assert [p for a, b in spans for p in range(a, b)] == list(range(total))
+    for (p0, p1), (c0, c1) in zip(spans, _refine_columns(plan, g)):
+        assert c0 == 160 * p0 and c1 - c0 <= plan.width
+        assert c1 <= ops.table_width(g) and (c1 - c0) % 2 == 0
+        for p in range(p0, p1):
+            for off in range(4):
+                cols = _level0_row_columns(g, p, off)
+                assert c0 <= min(cols) and max(cols) < c1, (g, p, off)
+        # a row's staged words for these passes (40 a pass) fit its slot
+        # from an offset below 8
+        assert 4 + 4 * 40 * (p1 - p0) <= ops.level0_slot_bytes(plan.passes)
+    assert plan.width == ops.chunk_width(plan.passes)
+    assert plan.smem_bytes == ops.level0_chunk_bytes(plan.passes,
+                                                     plan.warps) == \
+        37 * plan.width * 8 + 2 * plan.warps * 32 * (160 * plan.passes + 8)
+    assert plan.smem_bytes <= ops.SMEM_LIMIT_BYTES
+    # the backbones' widths (and every other) take 16 warps a block
+    assert plan.warps == 16
+
+
+def test_level0_plan_at_the_wide_width():
+    """G = 1639: 11 passes in chunks of 1, 192 columns of pair tables
+    (56,832 B) beside 16 warps' two stages of 32 × 168 B (172,032 B),
+    228,864 B; 2 passes a chunk would leave room for 6 warps, 3 for 2."""
+    plan = ops.level0_plan(1639)
+    assert plan == ops.Level0Plan(passes=1, chunks=11, width=192, warps=16,
+                                  smem_bytes=228_864)
+    assert 37 * ops.chunk_width(1) * 8 == 56_832
+    assert 37 * ops.chunk_width(2) * 8 == 104_192
+    most = {p: max(w for w in range(1, 17)
+                   if ops.level0_chunk_bytes(p, w) <= ops.SMEM_LIMIT_BYTES)
+            for p in (1, 2, 3)}
+    assert most == {1: 16, 2: 6, 3: 2}

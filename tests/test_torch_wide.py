@@ -4,10 +4,14 @@ M = 1024, K = 256), where the kernels' per-query state no longer fits a
 block's shared memory and the card runs their global forms.
 
 A JAX build exported to the port answers with JAX's ids and ledger through
-both backends; each wrapper answers at the shapes past its old limit, held
-to the JAX reference; and ``kernels.ops`` picks each kernel's form from
-the shapes alone.  The global forms themselves are held against the shared
-forms and the plain versions on the card by chip_smoke.py."""
+both backends, unsharded and (at D = 8192, where the card runs the bounds
+kernel's global form) on 2 and 4 shards; each wrapper answers at the
+shapes past its old limit, held to the JAX reference; and ``kernels.ops``
+picks each kernel's form from the shapes alone.  The global forms
+themselves are held against the shared forms and the plain versions on
+the card by chip_smoke.py."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -23,10 +27,12 @@ from repro.anns import PipelineConfig as JConfig  # noqa: E402
 from repro.anns import QueryPlan as JPlan  # noqa: E402
 from repro.anns import build as jbuild  # noqa: E402
 from repro.anns import stages as jstages  # noqa: E402
+from repro.anns.executor import fold_counts as jfold_counts  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.ternary_refine import _kth_smallest  # noqa: E402
 from repro.quant import pq as jpq  # noqa: E402
 from repro_torch.anns import Database, PipelineConfig, QueryPlan  # noqa
+from repro_torch.anns import make_sharded_executor  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.core import estimator as est_mod  # noqa: E402
 from repro_torch.interop import index_from_numpy  # noqa: E402
@@ -49,10 +55,11 @@ def _clustered(rng, n, d, clusters=8):
         np.float32)
 
 
-@pytest.fixture(scope="module", params=WIDE, ids=["d2048", "d8192"])
-def wide(request):
-    """A JAX build at (D, M), its export in the port, and JAX's answers."""
-    d, m = request.param
+@functools.lru_cache(maxsize=None)
+def _wide_build(d: int, m: int):
+    """A JAX build at (D, M), its export in the port, JAX's answers and the
+    JAX index (built once a process: the sharded test takes D = 8192's
+    again)."""
     rng = np.random.default_rng(d)
     x = _clustered(rng, 280, d)
     qs = _clustered(rng, 12, d)
@@ -63,7 +70,24 @@ def wide(request):
                                       plan=JPlan(backend="reference"))
     pidx = index_from_numpy(export_jax_index(jidx), PipelineConfig(**kw),
                             device="cpu")
-    return d, m, pidx, qs, want
+    return d, m, pidx, qs, want, jidx
+
+
+@pytest.fixture(scope="module", params=WIDE, ids=["d2048", "d8192"])
+def wide(request):
+    return _wide_build(*request.param)
+
+
+def _ledger(cost):
+    return {k: (t.accesses, t.bytes) for k, t in cost.ledger.items()}
+
+
+def _tier_bytes(cost):
+    out = {}
+    for key, t in cost.ledger.items():
+        tier = key.rsplit(":", 1)[-1]
+        out[tier] = out.get(tier, 0) + t.bytes
+    return out
 
 
 @pytest.mark.parametrize("backend", ["reference", "cuda"])
@@ -71,7 +95,7 @@ def test_wide_query_matches_jax(wide, backend):
     """``Database.query`` at (2048, 256) and (8192, 1024): JAX's ids and
     ledger, distances within f32 tolerance; the card would run ``pq_adc``
     (and at D = 8192 the fused kernel) in the global form."""
-    d, m, pidx, qs, want = wide
+    d, m, pidx, qs, want, _ = wide
     g = -(-d // 5)
     assert ops.adc_form(m, 256) == "global"
     assert ops.refine_form(g) == ("global" if d == 8192 else "shared")
@@ -81,9 +105,40 @@ def test_wide_query_matches_jax(wide, backend):
     np.testing.assert_allclose(got.distances.numpy(),
                                np.asarray(want.distances), rtol=1e-5,
                                atol=1e-5)
-    ledger = lambda c: {k: (t.accesses, t.bytes)              # noqa: E731
-                        for k, t in c.ledger.items()}
-    assert ledger(got.cost) == ledger(want.cost)
+    assert _ledger(got.cost) == _ledger(want.cost)
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_wide_sharded_query_matches_jax(backend, shards):
+    """``QueryPlan(shards=S)`` at (8192, 1024), where the card runs the
+    bounds kernel's global form on every shard: the unsharded JAX answer's
+    ids, distances within f32 tolerance and per-tier bytes, and a ledger
+    equal to the port's per-shard counts folded by the JAX package's own
+    ``fold_counts`` + ``merge_parallel``."""
+    from repro.anns.stages import fold_ivf_front_cost
+    d, m, pidx, qs, want, jidx = _wide_build(*WIDE[1])
+    assert ops.refine_form(-(-d // 5)) == "global"
+    got = Database.wrap(pidx).query(
+        qs, plan=QueryPlan(shards=shards, backend=backend))
+    assert got.plan.backend == backend
+    np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
+    np.testing.assert_allclose(got.distances.numpy(),
+                               np.asarray(want.distances), rtol=1e-5,
+                               atol=1e-5)
+    assert _tier_bytes(got.cost) == _tier_bytes(want.cost)
+    ex = make_sharded_executor(pidx, shards=shards, backend=backend)
+    _, _, shard_counts = ex._search(torch.from_numpy(qs))
+    assert len(shard_counts) == shards
+    jcosts = [jfold_counts(c, cost=None, config=jidx.config,
+                           layout=jidx.layout,
+                           front_fold=fold_ivf_front_cost)
+              for c in shard_counts]
+    folded = jcosts[0]
+    for c in jcosts[1:]:
+        folded.merge_parallel(c)
+    assert _ledger(got.cost) == _ledger(folded)
+    assert got.cost.breakdown() == folded.breakdown()
 
 
 @pytest.mark.parametrize("m", [6, 256])
@@ -223,8 +278,10 @@ def test_form_from_shapes(fn, shape, form):
 
 
 def test_scratch_and_the_level0_limit():
-    """The global forms' scratch bytes, the widest level-0 G (one warp's
-    two stages fill a block: 3517, past twice the widest backbone's 1639)
+    """The global forms' scratch bytes, the level-0 global form's sizing
+    (its pair-table columns and row stages by chunks of passes, so its
+    shared memory is the same at every G: the width it once stopped at,
+    G = 3517 with one warp of whole rows, and far past it take 16 warps)
     and a forced form: the global one anywhere, the shared one only where
     it fits."""
     assert ops.refine_scratch_bytes(64, 1639) == 64 * 37 * 1792 * 4
@@ -232,11 +289,12 @@ def test_scratch_and_the_level0_limit():
     span = (-(-1_048_576 // 8) + 31) // 32 * 32
     assert ops.prune_scratch_bytes(6, 1_048_576) == 6 * 8 * (span * 4
                                                              + span // 8)
-    assert ops.LEVEL0_MAX_G == 3517
-    assert ops.level0_global_warps(3517) == 1
-    assert ops.level0_global_warps(3518) == 0
-    with pytest.raises(ops.SharedMemoryBudgetError):
-        ops.level0_form(3518)
+    assert not hasattr(ops, "LEVEL0_MAX_G")
+    for g in (504, 1639, 3517, 3518, 20_000):
+        assert ops.level0_form(g) == "global"
+        plan = ops.level0_plan(g)
+        assert (plan.warps, plan.passes, plan.smem_bytes) == (16, 1, 228_864)
+        assert plan.chunks == ops.row_passes(g)
     assert ops.pick_form("x", "shared", None) == "shared"
     assert ops.pick_form("x", "shared", "global") == "global"
     with pytest.raises(ops.SharedMemoryBudgetError, match="x"):
@@ -255,4 +313,4 @@ def test_every_backbone_width_has_a_form():
         forms = (ops.adc_form(d // 8, 256), ops.refine_form(g),
                  ops.level0_form(g))
         assert set(forms) <= set(ops.FORMS)
-        assert g <= ops.LEVEL0_MAX_G // 2
+        assert ops.level0_plan(g).warps == 16

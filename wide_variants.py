@@ -1,6 +1,6 @@
-"""Times the two chunked global forms at the wide cells' shapes against the
+"""Times the chunked global forms at the wide cells' shapes against the
 chunk plans they did not take, and ``pq_adc``'s global form against
-timing-only copies of its source (GPU only, ~1 min).
+timing-only copies of its source (GPU only, ~2 min).
 
 At each (D, M) of ``chip_smoke.WIDE_SHAPES`` it builds the wide cell's
 100,000-row index (``chip_smoke.wide_dataset``) and takes the IVF front's
@@ -15,12 +15,32 @@ candidates of 64 queries, then:
 * the fused kernel (D = 8192, its global form): chunks of 3 passes (the
   plan ``ops.refine_plan`` picks), 2 and 1, each bit-equal to the picked
   plan's est, alive and counts, with the score launch's device ms.
+* the bounds kernel (D = 8192, its global form) on shard 0's candidates of
+  the 64 queries at ``--shards`` shards (the wide_8192_sharded path's
+  shape): chunks of 3 passes (``ops.bounds_plan``), 2 and 1, each
+  bit-equal to the picked plan's est, lo and hi, with its device ms.
+* the level-0 kernel (D = 8192, its global form) on the first 8 queries'
+  gathered candidates (the wide_ops path's shape, ``ops.refine_scores_batch``
+  and ``refine_scores``): 1 pass a chunk with 16 warps (``ops.level0_plan``),
+  2 with 6 and 3 with 2 (the most warps each leaves room for), each
+  bit-equal to the picked plan's outputs, with its device ms.
 
 The plans are swapped in by replacing ``ops.adc_plan`` / ``ops.refine_plan``
-in this process; the library has no such option.  It fails loudly if a
-plan's output differs or the source no longer matches its patches.
+/ ``ops.bounds_plan`` / ``ops.level0_plan`` in this process; the library
+has no such option.  It fails loudly if a plan's output differs or the
+source no longer matches its patches.
 
-    python3 wide_variants.py
+With ``--forms`` it only times the bounds and level-0 kernels at those two
+shapes in the forms the shapes select; with ``--shared`` only the five
+shared forms (``pq_adc``, the fused kernel's score and prune launches, the
+bounds kernel on shard 0, both level-0 entry points) at chip_smoke.py's
+fatrq shape (its 1M x 768 index, the first 64 queries' IVF candidates).
+Both go through calls that every version of the package since its global
+forms has: copied beside another checkout's ``chip_smoke.py`` and
+``src/``, the script times that checkout's kernels on the same inputs (the
+data and the build are drawn from one seed).
+
+    python3 wide_variants.py [--forms | --shared] [--shards 4]
 """
 
 from __future__ import annotations
@@ -33,9 +53,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "src/repro_torch/kernels/_build/wide_variants"  # not committed
 
-#: subspaces of a pq_adc LUT chunk, and passes of a refine chunk, to time
+#: subspaces of a pq_adc LUT chunk, and passes of a refine, bounds or
+#: level-0 chunk, to time
 ADC_CHUNKS, REFINE_PASSES = (64, 32, 48), (3, 2, 1)
+LEVEL0_PASSES = (1, 2, 3)
 QUERIES, TURNS = 64, 2
+#: queries of the level-0 ops path (chip_smoke.WIDE_OPS_QUERIES)
+OPS_QUERIES = 8
 
 COPY = """      copy_floats(s_ring + ((ch + 1) & 1) * ring, lq + (size_t)m1 * K,
                   nb1 * K);"""
@@ -72,7 +96,186 @@ def adc_copies(build) -> dict:
     return {name: lib for name, (lib, _) in jobs.items()}
 
 
+def wide_index(torch, cs, dim: int, m: int):
+    """The wide cell's index at (D, M), built from seed 0, and its data."""
+    from repro_torch.anns import Database, PipelineConfig
+    ds = cs.wide_dataset(torch, cs.WIDE_N, dim, QUERIES, 0)
+    cfg = PipelineConfig(dim=dim, pq_m=m, pq_k=256, nlist=100, nprobe=16,
+                         trq_levels=1, final_k=10, refine_budget=40,
+                         bound="cauchy", micro_batch=QUERIES)
+    db = Database.build(ds.x, cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    return ds, cfg, db
+
+
+def path_calls(torch, db, cfg, q, shards: int):
+    """The bounds kernel's call on shard 0's candidates of the queries
+    ``q`` at ``shards`` shards (its own store, shard-local ids, as the
+    sharded path launches it), and the level-0 ops path's two calls on the
+    first ``OPS_QUERIES`` queries' gathered candidates, as closures."""
+    from repro_torch.anns import make_sharded_executor, registry
+    from repro_torch.anns.stages import make_ivf_front
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_refine as t
+    si = make_sharded_executor(db.index, shards=shards).sharded
+    sh = registry.sharded_front("ivf").body(
+        q, si.front_rep, si.front_db, si.codebook, si.pq_codes,
+        **dict(si.front_args))[0]
+    stores0 = t.RefineStores.from_trq(si.shard_trqs[0])
+    model = db.index.trq.model
+
+    def bounds():
+        return t.ternary_refine_fused_bounds(stores0, q, sh.ids, sh.d0,
+                                             sh.valid, model, bound="cauchy",
+                                             z=cfg.z)
+
+    qo = q[:OPS_QUERIES].contiguous()
+    cand = make_ivf_front(db.index).candidates(qo)
+    stores = t.RefineStores.from_trq(db.index.trq)
+    ids = cand.ids.long()
+    rec, packed = stores.records[ids], stores.packed[0][ids]
+    cols = (cand.d0, rec[..., 0], rec[..., 1], rec[..., 2], rec[..., 3])
+
+    def level0():
+        return (ops.refine_scores_batch(packed, qo, *cols, model.w,
+                                        model.bias),
+                ops.refine_scores(packed[0], qo[0], *(c[0] for c in cols),
+                                  model.w, model.bias))
+
+    shape = (f"bounds shard 0 of {shards}: Q={q.shape[0]} C={sh.ids.shape[1]}"
+             f" ({int(sh.valid.sum())} valid); level 0: {OPS_QUERIES} x "
+             f"{packed.shape[1]} x {packed.shape[2]}")
+    return bounds, level0, shape
+
+
+def device_ms(torch, cs, fn, kernel: str, reps: int = 10) -> str:
+    """The device ms per call of the kernels whose name holds ``kernel``,
+    summed, over ``reps`` calls of ``fn`` (``chip_smoke.kernel_ms``)."""
+    ms = [t for name, t in cs.kernel_ms(torch, fn, reps).items()
+          if kernel in name]
+    return f"{sum(ms):.4f} ms" if ms else "not measured"
+
+
+def forms(torch, cs, shards: int) -> None:
+    """``--forms``: the bounds and level-0 kernels at the wide_8192 paths'
+    shapes in the forms the shapes select, timed in turns."""
+    dim, m = cs.WIDE_SHAPES[-1]
+    ds, cfg, db = wide_index(torch, cs, dim, m)
+    bounds, level0, shape = path_calls(torch, db, cfg,
+                                       ds.queries.contiguous(), shards)
+    print(f"wide_{dim} forms: {shape}")
+    for turn in range(TURNS):
+        for name, fn, kernel in (("bounds", bounds, "bounds_kernel"),
+                                 ("level-0 (both calls)", level0,
+                                  "level0_kernel")):
+            print(f"{name} (turn {turn}): {cs.time_ms(fn, 10):.4f} ms per "
+                  f"call, {kernel} device {device_ms(torch, cs, fn, kernel)}")
+
+
+def shared(torch, cs, shards: int) -> None:
+    """``--shared``: each kernel's shared form at the fatrq shape, its
+    device ms per call by kernel, in two turns."""
+    from repro_torch.anns import Database, PipelineConfig, \
+        make_sharded_executor, registry
+    from repro_torch.anns.stages import make_ivf_front
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pq_adc as p
+    from repro_torch.kernels import ternary_refine as t
+    from repro_torch.quant import pq as pq_mod
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ds = make_dataset(n=1_000_000, d=768, n_queries=1000, k_gt=100,
+                      generator=gen)
+    cfg = PipelineConfig(dim=768, pq_m=96, pq_k=256, nlist=1024, nprobe=16,
+                         trq_levels=1, final_k=10, refine_budget=40,
+                         bound="cauchy", micro_batch=64)
+    index = Database.build(ds.x, cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0)).index
+    q = ds.queries[:QUERIES].contiguous()
+    cand = make_ivf_front(index).candidates(q)
+    lut = pq_mod.adc_table(index.codebook, q)
+    stores, model = t.RefineStores.from_trq(index.trq), index.trq.model
+    si = make_sharded_executor(index, shards=shards).sharded
+    sh = registry.sharded_front("ivf").body(
+        q, si.front_rep, si.front_db, si.codebook, si.pq_codes,
+        **dict(si.front_args))[0]
+    stores0 = t.RefineStores.from_trq(si.shard_trqs[0])
+    ids = cand.ids.long()
+    rec, packed = stores.records[ids], stores.packed[0][ids]
+    cols = (cand.d0, rec[..., 0], rec[..., 1], rec[..., 2], rec[..., 3])
+    planes, params, scal = ops.level0_inputs(q, packed.shape[-1], *cols,
+                                             model.w, model.bias)
+    calls = {
+        "pq_adc": (lambda: p.pq_adc(index.pq_codes, cand.ids, cand.valid,
+                                    lut), ("adc_kernel",)),
+        "fused": (lambda: t.ternary_refine_fused(
+            stores, q, cand.ids, cand.d0, cand.valid, None, model, k=10,
+            bound="cauchy", z=cfg.z), ("score_kernel", "prune_kernel")),
+        "bounds shard 0": (lambda: t.ternary_refine_fused_bounds(
+            stores0, q, sh.ids, sh.d0, sh.valid, model, bound="cauchy",
+            z=cfg.z), ("bounds_kernel",)),
+        "level-0 batch": (lambda: t.ternary_refine_batch(
+            packed, planes, scal, params), ("level0_kernel",)),
+        "level-0 Q = 1": (lambda: t.ternary_refine(
+            packed[0], planes[0], scal[0], params[:1]), ("level0_kernel",))}
+    print(f"shared forms at the fatrq shape: Q={q.shape[0]} "
+          f"C={cand.ids.shape[1]} ({int(cand.valid.sum())} valid), G="
+          f"{packed.shape[-1]}; bounds on shard 0 of {shards}")
+    for turn in range(TURNS):
+        for name, (fn, kernels) in calls.items():
+            split = cs.kernel_ms(torch, fn, 20)
+            parts = ", ".join(
+                f"{k} {sum(v for n, v in split.items() if k in n):.4f}"
+                for k in kernels)
+            print(f"{name} (turn {turn}): device ms per call {parts}")
+
+
+def plan_choices(torch, cs, ops, t, db, cfg, q, shards: int) -> None:
+    """The bounds kernel's and the level-0 kernel's chunk plans against
+    the ones not taken, each bit-equal to the picked plan's outputs."""
+    bounds, level0, shape = path_calls(torch, db, cfg, q, shards)
+    print(f"plan choices: {shape}")
+    picked_b, picked_l = ops.bounds_plan, ops.level0_plan
+    want_b, want_l = bounds(), level0()
+    for turn in range(TURNS):
+        for passes in REFINE_PASSES:
+            ops.bounds_plan = lambda g, L, n=passes: ops.BoundsPlan(
+                n, -(-ops.row_passes(g) // n), ops.chunk_width(n),
+                ops.refine_chunk_bytes(n), L)
+            if not all(torch.equal(a, b) for a, b in zip(bounds(), want_b)):
+                raise SystemExit(f"wide_variants: the bounds kernel at "
+                                 f"{passes} passes a chunk differs")
+            print(f"bounds_kernel<true> {passes} passes a chunk (turn "
+                  f"{turn}): {cs.time_ms(bounds, 10):.4f} ms per call, "
+                  f"device {device_ms(torch, cs, bounds, 'bounds_kernel')}")
+        ops.bounds_plan = picked_b
+        for passes in LEVEL0_PASSES:
+            warps = max(w for w in range(1, 17) if ops.level0_chunk_bytes(
+                passes, w) <= ops.SMEM_LIMIT_BYTES)
+            ops.level0_plan = lambda g, n=passes, w=warps: ops.Level0Plan(
+                n, -(-ops.row_passes(g) // n), ops.chunk_width(n), w,
+                ops.level0_chunk_bytes(n, w))
+            if not all(torch.equal(a, b) for a, b in zip(level0(), want_l)):
+                raise SystemExit(f"wide_variants: the level-0 kernel at "
+                                 f"{passes} passes a chunk differs")
+            print(f"level0_kernel<…, true> {passes} passes a chunk, {warps} "
+                  f"warps (turn {turn}): {cs.time_ms(level0, 10):.4f} ms "
+                  f"per both calls, device "
+                  f"{device_ms(torch, cs, level0, 'level0_kernel')}")
+        ops.level0_plan = picked_l
+    del want_b, want_l
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--forms", action="store_true",
+                    help="only the bounds and level-0 kernels' selected "
+                         "forms at the wide_8192 paths' shapes")
+    ap.add_argument("--shared", action="store_true",
+                    help="only the five shared forms at the fatrq shape")
+    ap.add_argument("--shards", type=int, default=4)
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("wide_variants: no CUDA device; this script runs on the GPU",
@@ -80,7 +283,7 @@ def main() -> int:
         return 1
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import chip_smoke as cs
-    from repro_torch.anns import Database, PipelineConfig, QueryPlan
+    from repro_torch.anns import QueryPlan
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import pq_adc as p
     from repro_torch.kernels import ternary_refine as t
@@ -90,26 +293,23 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     build.build_all()
+    if args.forms or args.shared:
+        (forms if args.forms else shared)(torch, cs, args.shards)
+        return 0
     copies = adc_copies(build)
     picked_adc, picked_refine = ops.adc_plan, ops.refine_plan
     for dim, m in cs.WIDE_SHAPES:
-        ds = cs.wide_dataset(torch, cs.WIDE_N, dim, QUERIES, 0)
-        cfg = PipelineConfig(dim=dim, pq_m=m, pq_k=256, nlist=100,
-                             nprobe=16, trq_levels=1, final_k=10,
-                             refine_budget=40, bound="cauchy",
-                             micro_batch=QUERIES)
-        db = Database.build(ds.x, cfg, generator=torch.Generator(
-            device="cuda").manual_seed(0))
+        ds, cfg, db = wide_index(torch, cs, dim, m)
         ex = db.executor_for(QueryPlan(backend="cuda"))
         q = ds.queries.contiguous()
         cand = ex.front.candidates(q)
         lut = pq_mod.adc_table(db.index.codebook, q)
-        args = (db.index.pq_codes, cand.ids, cand.valid, lut)
+        a_args = (db.index.pq_codes, cand.ids, cand.valid, lut)
         label = f"wide_{dim} (Q={QUERIES}, C={cand.ids.shape[1]}, M={m})"
-        want = p.pq_adc(*args)
+        want = p.pq_adc(*a_args)
 
         def adc():
-            return p.pq_adc(*args)
+            return p.pq_adc(*a_args)
 
         plans = {}
         for mc in ADC_CHUNKS:
@@ -159,7 +359,8 @@ def main() -> int:
                           f"{f'{score[0]:.4f}' if score else 'not measured'}"
                           f" ms")
                 ops.refine_plan = picked_refine
-        del db, ex, cand, lut, args, want
+            plan_choices(torch, cs, ops, t, db, cfg, q, args.shards)
+        del db, ex, cand, lut, want
         torch.cuda.empty_cache()
     return 0
 
