@@ -42,7 +42,9 @@ Phases, each of which raises on failure:
    shared form's capacity), 446,465, 1,048,576 (the global form, timed)}
    and k in {1, 10, 64}, three levels with the mask written
    over the alive buffer it reads, forced ties at tau, queries with every,
-   no and fewer than k alive slots, with and without delta rows; both
+   no and fewer than k alive slots, one hi for every slot and hi falling
+   along the slots (the global form's worst case, timed), with and
+   without delta rows; both
    level-0 forms (``ternary_refine_batch``, ``ternary_refine``) against
    ``refine_level0_plain`` at each G and at G = 319, 503 and 504 (past
    the shared pair tables from 504), at Q = 5 and Q = 1 with C = 4133, on
@@ -185,11 +187,20 @@ Phases, each of which raises on failure:
    again; then over a ``TieredIndex`` on Zipfian queries around a
    ``rebalance_tiers()``.  Each mutation must purge the cache and every
    response after it equal a fresh sequential ``db.query``;
+   then the high-recall IVF path (``nprobe_path``, ``fatrq_nprobe256``):
+   nprobe 256 on the 1M index (C = 750,080, past the prune's shared
+   form) through ``make_executor``, one fused call and one global-form
+   prune launch per micro-batch, no scratch, 40 SSD fetches a query,
+   recall@10 beside the IVF ceiling, queries/s, the prune on its level-0
+   bounds against ``prune_plain``, and ``reference`` equal to ``cuda``
+   on 128 queries;
    then the sharded search across processes (``mesh_phase``): a one-rank
    NCCL group (``make_search_mesh(1)``) whose ``QueryPlan(shards=1,
    backend="cuda")`` answers with ``mesh=`` must equal the stacked
    ``shards=1`` answers bit for bit (ids, distances, ledger, modelled
-   breakdown) on both fronts, timed against them in turns; then
+   breakdown) on both fronts, timed against them in turns, one 64-query
+   batch blocking the host as often as the stacked form's
+   (``host_syncs``); then
    ``--shards`` gloo ranks spawned on the one card, one shard each, the
    IVF front placed by ``Database.query(..., mesh=)`` itself over the
    index the parent saved and the graph front by ``ShardedIndex.place``
@@ -241,9 +252,9 @@ Phases, each of which raises on failure:
    ``ServingEngine``: ids equal to a direct ``db.query`` bit for bit, the
    two forms' ids and tokens equal, ``pq_adc`` and the fused kernel
    launched, every decode step run with host synchronizes raising
-   (``torch.cuda.set_sync_debug_mode("error")``) and no synchronize or
-   blocking copy among the CUDA runtime calls of two steps
-   (``torch.profiler``); recall@5, the ledger,
+   (``torch.cuda.set_sync_debug_mode("error")``) and no host synchronize
+   (``host_syncs``) and no synchronize or blocking copy among the CUDA
+   runtime calls (``torch.profiler``) of two steps; recall@5, the ledger,
    tokens/s, the phase's time and its peak memory (under 70 GB);
 10. the other model families at full width, after the LM is freed
    (``families_phase``): zamba2-1.2b (38 layers, d_model 2048),
@@ -584,15 +595,11 @@ def launched_plan(mod, fn, attr: str = "last_plan"):
     return out, None if plan is None else dataclasses.asdict(plan)
 
 
-def check_adc(torch, pq_adc_mod, codes, ids, valid, lut, label: str):
+def hold_adc(torch, pq_adc_mod, codes, ids, valid, lut, label: str):
     """``pq_adc`` against its plain version on one input, +inf on exactly
-    the invalid slots; its time, device time per launch, bound, plain
-    time, and its time with every slot valid and on an all-zero code store
-    (each lookup instruction of a warp then reads one address: no bank
-    conflict).  Returns the kernel's output and its row."""
-    args = (codes, ids, valid, lut)
-    got = pq_adc_mod.pq_adc(*args)
-    want = pq_adc_mod.pq_adc_plain(*args)
+    the invalid slots: the kernel's output and the max error."""
+    got = pq_adc_mod.pq_adc(codes, ids, valid, lut)
+    want = pq_adc_mod.pq_adc_plain(codes, ids, valid, lut)
     torch.cuda.synchronize()
     ok, err = close(got, want, ADC_ATOL, ADC_RTOL)
     if not ok:
@@ -601,6 +608,18 @@ def check_adc(torch, pq_adc_mod, codes, ids, valid, lut, label: str):
     if not (torch.equal(torch.isinf(got), ~valid)
             and bool((got[~valid] == float("inf")).all())):
         fail(f"pq_adc {label}: +inf is not on exactly the invalid slots")
+    del want
+    return got, err
+
+
+def check_adc(torch, pq_adc_mod, codes, ids, valid, lut, label: str):
+    """``pq_adc`` against its plain version on one input (``hold_adc``);
+    its time, device time per launch, bound, plain time, and its time with
+    every slot valid and on an all-zero code store (each lookup
+    instruction of a warp then reads one address: no bank conflict).
+    Returns the kernel's output and its row."""
+    args = (codes, ids, valid, lut)
+    got, err = hold_adc(torch, pq_adc_mod, *args, label)
     m, k = lut.shape[1:]
     ms, plan = launched_plan(pq_adc_mod, lambda: time_ms(
         lambda: pq_adc_mod.pq_adc(*args), 20))
@@ -1046,6 +1065,7 @@ GRAPH_C = 64                   # the graph front's beam: its candidate slots
 EDGE_PRUNE_C, EDGE_PRUNE_K = (1, 31, 48, GRAPH_C, 4133, 46_880, 446_000,
                               446_465, 1_048_576), (1, 10, 64)
 EDGE_PRUNE_WIDE = 1_048_576    # the global form's timed edge shape
+EDGE_PRUNE_Q = 6               # its queries (the first six of the edge's)
 
 
 def edge_prune(torch, tr, ops, gen) -> dict:
@@ -1054,11 +1074,15 @@ def edge_prune(torch, tr, ops, gen) -> dict:
     mask written over the alive buffer it reads from level 1 on, as the
     fused kernel runs them.  Query 0 has every slot alive, query 1 none,
     query 2 hi and lo drawn from five values (ties at tau, lo on it),
-    query 3 k − 1 alive slots.  Masks and counts must be equal, tau equal
-    as floats; where the shared form fits, the global form's chain must
-    give the same masks, counts and tau.  Returns the global form's row at
-    C = ``EDGE_PRUNE_WIDE``, k = 10."""
-    dev, nq, nl = gen.device, 6, 3
+    query 3 k − 1 alive slots, query 6 every slot alive with hi falling
+    along the slots (every key passes the global form's filter), query 7
+    one hi for every slot.  Masks and counts must be equal, tau equal as
+    floats; where the shared form fits, the global form's chain must give
+    the same masks, counts and tau.  Returns the global form's row at
+    C = ``EDGE_PRUNE_WIDE``, k = 10 on the first ``EDGE_PRUNE_Q`` queries,
+    with its time where every query's hi falls along the slots
+    (``falling``)."""
+    dev, nq, nl = gen.device, 8, 3
     row = None
     for c in EDGE_PRUNE_C:
         form = ops.prune_form(c)
@@ -1066,13 +1090,15 @@ def edge_prune(torch, tr, ops, gen) -> dict:
         for _ in range(nl):
             h = torch.randn((nq, c), generator=gen, device=dev)
             h[2] = torch.randint(0, 5, (c,), generator=gen, device=dev) / 4
+            h[6] = h[6].sort(descending=True).values
+            h[7] = 0.25
             step = torch.rand((nq, c), generator=gen, device=dev)
             step[2] = torch.randint(0, 3, (c,), generator=gen, device=dev) / 4
             lo.append(h - step)
             hi.append(h)
         for k in EDGE_PRUNE_K:
             alive = torch.rand((nq, c), generator=gen, device=dev) < 0.5
-            alive[0], alive[1], alive[3] = True, False, False
+            alive[0], alive[1], alive[3], alive[6] = True, False, False, True
             alive[3, torch.randperm(c, generator=gen, device=dev)[:k - 1]] \
                 = True
             is_delta = torch.rand((nq, c), generator=gen, device=dev) < 0.4
@@ -1113,8 +1139,14 @@ def edge_prune(torch, tr, ops, gen) -> dict:
                          f"counts {counts.tolist()} vs {want_counts.tolist()}"
                          f" (global form {g_counts.tolist()})")
             if c == EDGE_PRUNE_WIDE and k == 10:
-                row = prune_row(torch, tr, lo[0], hi[0], alive, k,
-                                f"prune edge C={c}")
+                q = EDGE_PRUNE_Q
+                row = prune_row(torch, tr, lo[0][:q], hi[0][:q], alive[:q],
+                                k, f"prune edge C={c} Q={q}")
+                falling = hi[0][6:7].expand(q, c).contiguous()
+                row["falling"] = prune_row(
+                    torch, tr, falling - 1, falling,
+                    torch.ones_like(alive[:q]), k,
+                    f"prune edge C={c} Q={q}, hi falling along the slots")
         print(f"prune edge C={c}: k {EDGE_PRUNE_K}, {nl} levels in place, "
               f"delta rows and none: masks, counts and tau equal to "
               f"prune_plain; {form} form"
@@ -1123,17 +1155,24 @@ def edge_prune(torch, tr, ops, gen) -> dict:
 
 
 def prune_row(torch, tr, lo, hi, alive, k: int, label: str) -> dict:
-    """The prune alone's ms, bound, plain ms and one ``torch.topk`` of the
+    """The prune alone's ms (CUDA events), device ms (the profiler's
+    per-call reading), bound, plain ms and one ``torch.topk`` of the
     masked upper bounds (τ only) on one input, as ``check_prune`` times
-    them."""
+    them; the prune's masks, counts and τ must be ``prune_plain``'s."""
     nq, c = hi.shape
     out = torch.empty_like(alive)
     counts = torch.zeros((nq, 2), dtype=torch.int32, device=alive.device)
+    call = lambda: tr.ternary_refine_prune(  # noqa: E731
+        lo, hi, alive, None, counts, out, k=k)
+    tau = call()
+    want, cnt, dcnt, want_tau = tr.prune_plain(lo, hi, alive, None, k=k)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, want) and torch.equal(tau, want_tau)
+            and torch.equal(counts, torch.stack([cnt, dcnt], 1))):
+        fail(f"{label}: the prune differs from prune_plain")
     masked = torch.where(alive, hi, float("inf"))
     n_alive = int(alive.sum())
-    row = dict(max_abs_err=0.0,
-               ms=time_ms(lambda: tr.ternary_refine_prune(
-                   lo, hi, alive, None, counts, out, k=k), 20),
+    row = dict(max_abs_err=0.0, ms=time_ms(call, 20),
                plain_ms=time_ms(lambda: tr.prune_plain(lo, hi, alive, None,
                                                        k=k), 3),
                library_ms=time_ms(lambda: torch.topk(masked, k,
@@ -1141,24 +1180,38 @@ def prune_row(torch, tr, lo, hi, alive, k: int, label: str) -> dict:
                **dict(zip(("bound_ms", "bound_by"), bound(
                    label, nq * c * 2 + n_alive * 8 + nq * 2 * 4,
                    2 * n_alive))))
-    print(f"{label}: {row['ms']:.4f} ms per call (bound {row['bound_ms']:.4f}"
-          f" ms), plain {row['plain_ms']:.3f} ms, torch.topk "
-          f"{row['library_ms']:.4f} ms")
+    row["device_ms"] = next((ms for name, ms in kernel_ms(
+        torch, call, 20).items() if "prune_kernel" in name), None)
+    device = "not measured" if row["device_ms"] is None \
+        else f"{row['device_ms']:.4f} ms"
+    print(f"{label}: {row['ms']:.4f} ms per call, device {device} (bound "
+          f"{row['bound_ms']:.4f} ms), plain {row['plain_ms']:.3f} ms, "
+          f"torch.topk {row['library_ms']:.4f} ms; equal to prune_plain")
     return row
 
 
-def prune_attributes(build, form: str = "shared") -> str:
+def prune_attributes(build, form: str = "shared", c: int = 46_880) -> str:
     """The prune kernel's registers, stack, static shared memory and
-    cluster width in ``form`` as the CUDA runtime reports them."""
+    cluster width in ``form`` as the CUDA runtime reports them, with its
+    dynamic shared memory at C = ``c`` and the clusters of 8 the card
+    holds at once with it.  The global form's dynamic shared memory must
+    be ``ops.PRUNE_STREAM_SMEM``, the size the port states for it."""
     import ctypes
+    from repro_torch.kernels import ops
     fn = build.entry("ternary_refine", "fatrq_prune_attributes",
-                     [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
-    out = (ctypes.c_int * 4)()
-    build.check("ternary_refine", fn(int(form == "global"), out),
+                     [ctypes.c_int, ctypes.c_int,
+                      ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * 6)()
+    build.check("ternary_refine", fn(int(form == "global"), c, out),
                 "fatrq_prune_attributes")
+    if form == "global" and out[4] != ops.PRUNE_STREAM_SMEM:
+        fail(f"prune_kernel's global form takes {out[4]} B of dynamic "
+             f"shared memory, not ops.PRUNE_STREAM_SMEM = "
+             f"{ops.PRUNE_STREAM_SMEM}")
     return (f"prune_kernel ({form} form, runtime): {out[0]} registers, "
             f"{out[1]} B stack, {out[2]} B static shared memory, cluster "
-            f"width {out[3]}")
+            f"width {out[3]}; at C = {c:,} {out[4]} B dynamic shared "
+            f"memory, {out[5]} clusters resident ({out[5] * 8} blocks)")
 
 
 def check_prune(torch, tr, lo, hi, alive, fused, *, k,
@@ -2850,16 +2903,63 @@ def blocking_of(calls: dict) -> dict:
         ("Memcpy" in n or "Memset" in n) and "Async" not in n)}
 
 
+def host_syncs(torch, fn) -> int:
+    """The times ``fn`` blocks the host on the card, counted from calls
+    rather than from profiler events, which a run may drop: the
+    synchronizing operations PyTorch reports under
+    ``torch.cuda.set_sync_debug_mode("warn")`` (a copy to the host, a
+    stream synchronize: one ``cudaStreamSynchronize`` each) plus the calls
+    of ``torch.cuda.synchronize`` (a ``cudaDeviceSynchronize``, which that
+    mode does not report)."""
+    import warnings
+    torch.cuda.synchronize()
+    real, calls = torch.cuda.synchronize, []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    torch.cuda.synchronize = counted
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        torch.cuda.synchronize = real
+    real()
+    return len(calls) + sum("synchronizing CUDA operation" in str(w.message)
+                            for w in caught)
+
+
+def check_syncs(label: str, syncs: int, calls: dict) -> None:
+    """Fail if the profiler's runtime calls ``calls`` hold more blocking
+    calls than the ``host_syncs`` count ``syncs`` of the same work: one
+    that the count cannot see (a profiler may drop events, never add
+    them)."""
+    seen = sum(blocking_of(calls).values())
+    if seen > syncs:
+        fail(f"{label}: the profiler recorded blocking calls "
+             f"{blocking_of(calls)}, more than the {syncs} host "
+             f"synchronizes counted")
+
+
 def blocking_calls(torch, label: str, fn) -> None:
-    """Fail if the CUDA runtime calls of ``fn`` (``runtime_calls``)
-    include a synchronize or a blocking copy or memset."""
+    """Fail if ``fn`` blocks the host (``host_syncs``), or if its CUDA
+    runtime calls (``runtime_calls``) include a synchronize or a blocking
+    copy or memset."""
+    syncs = host_syncs(torch, fn)
+    if syncs:
+        fail(f"{label} blocked the host {syncs} times")
     calls = runtime_calls(torch, fn)
-    blocking = blocking_of(calls)
-    if blocking:
-        fail(f"{label} made blocking CUDA runtime calls {blocking}")
-    print(f"{label} runtime calls: {calls}; none blocks the host" if calls
-          else f"{label} runtime calls: not measured (the profiler "
-          f"recorded no CUDA runtime call)")
+    check_syncs(label, 0, calls)
+    print(f"{label}: no host synchronize; runtime calls: {calls}, none "
+          f"blocks the host" if calls
+          else f"{label}: no host synchronize; runtime calls: not "
+          f"measured (the profiler recorded no CUDA runtime call)")
 
 
 def rag_phase(torch, args, launches, reset_launches, read_launches
@@ -4894,22 +4994,27 @@ def mesh_phase(torch, args, cfg, db, queries, results, launches,
                       ledger_of(got.cost), got.cost.breakdown(), want)
             check_mesh_launches(label, launches[label], mesh_rows)
             # NCCL queues its collectives on the stream: the mesh form
-            # blocks the host exactly where the stacked form does (the
-            # counters' one transfer)
+            # blocks the host exactly as often as the stacked form (the
+            # counters' transfers), counted by host_syncs; the profiler's
+            # runtime calls are printed beside it and may only hold fewer
+            forms = (("stacked", {}), ("nccl", {"mesh": mesh}))
+            syncs = {name: host_syncs(torch, lambda kw=kw: db.query(
+                queries[:64], plan=plan, **kw)) for name, kw in forms}
             calls = {name: runtime_calls(torch, lambda kw=kw: db.query(
-                queries[:64], plan=plan, **kw))
-                for name, kw in (("stacked", {}), ("nccl", {"mesh": mesh}))}
-            if not calls["nccl"]:
-                print(f"{label}: runtime calls not measured (the profiler "
-                      f"recorded no CUDA runtime call)")
-            elif blocking_of(calls["nccl"]) != blocking_of(calls["stacked"]):
-                fail(f"{label}: blocking runtime calls "
-                     f"{blocking_of(calls['nccl'])} against the stacked "
-                     f"form's {blocking_of(calls['stacked'])}")
-            else:
-                print(f"{label}: blocking runtime calls of one 64-query "
-                      f"batch {blocking_of(calls['nccl'])}, the stacked "
-                      f"form's; all calls {calls['nccl']}")
+                queries[:64], plan=plan, **kw)) for name, kw in forms}
+            if syncs["nccl"] != syncs["stacked"]:
+                fail(f"{label}: one 64-query batch blocks the host "
+                     f"{syncs['nccl']} times, the stacked form "
+                     f"{syncs['stacked']}")
+            for name, _ in forms:
+                check_syncs(f"{label} ({name} form)", syncs[name],
+                            calls[name])
+            print(f"{label}: one 64-query batch blocks the host "
+                  f"{syncs['nccl']} times, as the stacked form does "
+                  f"(set_sync_debug_mode counts); the profiler's blocking "
+                  f"runtime calls {blocking_of(calls['nccl'])} against "
+                  f"{blocking_of(calls['stacked'])}, all calls "
+                  f"{calls['nccl'] or 'not recorded'}")
             runs = {"stacked": [], "nccl": []}
             for _ in range(3):
                 for name, kw in (("stacked", {}), ("nccl", {"mesh": mesh})):
@@ -5513,6 +5618,11 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
     invalidation_phase(torch, args, cfg, index, ds)
     t_phase = phase("serving (invalidation)", t_phase)
 
+    # ---- the high-recall IVF path (the prune's global form)
+    nprobe_row, nprobe_adc_err = nprobe_path(
+        torch, cfg, index, ds, launches, reset_launches, read_launches)
+    t_phase = phase(f"fatrq_nprobe{NPROBE}", t_phase)
+
     # ---- the sharded search across processes, over the same index
     mesh_rows = mesh_phase(torch, args, cfg, db, queries, results, launches,
                            reset_launches, read_launches)
@@ -5562,10 +5672,181 @@ def index_paths(torch, args, edge_errs: tuple, level0_attrs: dict,
                       ("prune", refine["prune"]),
                       *level0_rows.items()):
         row["global"] = {"fatrq_shape": glob[name]}
+    refine["prune"]["global"]["fatrq_nprobe256"] = nprobe_row
+    adc["max_abs_err"] = max(adc["max_abs_err"], nprobe_adc_err)
     return {"pq_adc": adc, "ternary_refine_fused": refine,
             "ternary_refine_fused_bounds": bounds_row,
             "ternary_refine_batch": level0_rows["ternary_refine_batch"],
             "ternary_refine": level0_rows["ternary_refine"]}, launches
+
+
+# ------------------------------------------------ the high-recall IVF path
+
+NPROBE = 256                    # lists probed by the fatrq_nprobe256 path
+NPROBE_C = 750_080              # its C at the 1M index's IVF cap of 2,930
+NPROBE_REF_QUERIES = 128        # queries of its reference-backend check
+NPROBE_ADC_QUERIES = 8          # queries of its pq_adc check
+NPROBE_REF_BATCH = 2            # micro-batch of that check (the plain
+                                # unpack of (2, C, 768) trits)
+
+
+def nprobe_path(torch, cfg, index, ds, launches, reset_launches,
+                read_launches) -> tuple[dict, float]:
+    """The high-recall end of a recall/QPS sweep (``fatrq_nprobe256``):
+    the static IVF fatrq search with ``NPROBE`` of the 1024 lists probed,
+    through ``make_executor(index, front="ivf", backend="cuda",
+    micro_batch=64, nprobe=NPROBE)``, where C = NPROBE x cap is past the
+    prune's shared form.  Over all queries, every count reset just before
+    and read just after: one fused call and one prune launch in the
+    global form per 64-query micro-batch and TRQ level, no other global
+    form, no bounds or level-0 kernel; distances the ids' exact L2, ``rerank:ssd`` the budget
+    per query, recall@10 beside the IVF ceiling (``recall_by_cut``),
+    queries/s (median of ``TIMING_RUNS``), each kernel's device ms in one
+    run; ``pq_adc`` against its plain version on the first
+    ``NPROBE_ADC_QUERIES`` queries' candidates (``hold_adc``: the
+    ``reference`` backend's front calls the same kernel, so the check
+    below cannot see it), the front's d0 bit-equal to it; one fused call
+    allocating only its outputs (no scratch); the prune alone on the first
+    64 queries' level-0 bounds (``check_prune``); the ``reference``
+    backend's ids, distances and ledger equal to ``cuda``'s on the first
+    ``NPROBE_REF_QUERIES``.  Returns the prune's row at the path's shape
+    and ``pq_adc``'s max error there."""
+    from repro_torch.anns import recall_at_k
+    from repro_torch.anns.executor import make_executor
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pq_adc as pq_adc_mod
+    from repro_torch.kernels import ternary_refine as tr
+    from repro_torch.quant import pq as pq_mod
+    label = "fatrq_nprobe256"
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    queries = ds.queries
+    nq = queries.shape[0]
+    c = NPROBE * index.ivf.cap
+    ex = make_executor(index, front="ivf", backend="cuda",
+                       micro_batch=cfg.micro_batch, nprobe=NPROBE)
+    print(f"{label}: nprobe {NPROBE} of {cfg.nlist} lists, C = {c:,} "
+          f"(cap {index.ivf.cap}), prune form {ops.prune_form(c)}")
+    if ops.prune_form(c) != "global":
+        fail(f"{label}: C = {c} does not select the prune's global form")
+    ex.execute(queries[:64])                        # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    ids, dists, cost = ex.execute(queries)
+    torch.cuda.synchronize()
+    launches[label] = got = read_launches()
+    print(f"{label} path launches over {nq} queries: {got}")
+    calls = -(-nq // cfg.micro_batch) * cfg.trq_levels
+    for name in ("ternary_refine_fused", "prune (global)"):
+        if got[name] != calls:
+            fail(f"{label}: {got[name]} launches of {name}, not {calls}")
+    if got["pq_adc"] == 0:
+        fail(f"the {label} path never launched pq_adc")
+    for name in ("ternary_refine_fused_bounds", "ternary_refine_batch",
+                 "ternary_refine", *GLOBAL_COUNTS):
+        if name != "prune (global)" and got[name]:
+            fail(f"the {label} path launched {name}")
+    runs = []
+    for _ in range(TIMING_RUNS):
+        t = time.perf_counter()
+        ex.execute(queries)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t)
+    exact = ((index.x[ids.long()] - queries[:, None]) ** 2).sum(-1)
+    ok, err = close(dists, exact, 1e-5, 1e-5)
+    if not ok:
+        fail(f"{label}: distances are not the ids' exact L2 ({err})")
+    ssd = cost.ledger["rerank:ssd"].accesses / nq
+    if ssd != cfg.refine_budget:
+        fail(f"{label}: {ssd} SSD fetches a query, not the budget "
+             f"{cfg.refine_budget}")
+    recall = recall_at_k(ids, ds.gt, cfg.final_k)
+    cuts = ex.recall_by_cut(queries, ds.gt)
+    valid = cost.ledger["refine:cxl"].accesses / nq
+    print(f"{label}: C {c:,}, {valid:.1f} valid slots a query; recall@10 "
+          f"{recall:.4f} (the IVF ceiling {cuts['candidates']:.4f}: the "
+          f"share of the true top-10 among the candidates; by cut {cuts}),"
+          f" {nq / statistics.median(runs):.1f} queries/s (median of "
+          f"{[round(r, 6) for r in runs]} s), rerank:ssd {ssd:.1f} a query")
+    if recall < 0.5:
+        fail(f"{label}: recall@10 {recall:.4f} below 0.5")
+    print_launches(torch, f"{label} path (ms per path run of {nq} queries)",
+                   lambda: ex.execute(queries), 1)
+    device_breakdown(torch, f"{label} ({nq} queries)",
+                     lambda: ex.execute(queries))
+    del exact
+
+    # one fused call on the first 64 queries allocates its outputs (est,
+    # lo, hi: 4 B a slot; alive: 1 B) and small per-query rows, no scratch
+    q64 = queries[:64].contiguous()
+    cand = ex.front.candidates(q64)
+    # pq_adc at the path's shape, on a few queries: the plain version's
+    # (Q, C, M) gather takes ~13 B an element
+    na = NPROBE_ADC_QUERIES
+    lut = pq_mod.adc_table(index.codebook, q64)       # the front's LUTs
+    d0, adc_err = hold_adc(torch, pq_adc_mod, index.pq_codes,
+                           cand.ids[:na], cand.valid[:na], lut[:na],
+                           f"the {label} shape")
+    if not torch.equal(d0, cand.d0[:na]):
+        fail(f"{label}: the front's d0 is not pq_adc's")
+    print(f"pq_adc at the {label} shape (Q = {na}, C = {c:,}, M = "
+          f"{index.pq_codes.shape[1]}, {int(cand.valid[:na].sum())} valid): "
+          f"equal to pq_adc_plain (max err {adc_err:.3g}), the front's d0 "
+          f"bit-equal to it")
+    del d0, lut
+    stores, model = ex.backend.stores(index.trq), index.trq.model
+    kw = dict(k=cfg.final_k, bound=cfg.bound, z=cfg.z)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused = tr.ternary_refine_fused(stores, q64, cand.ids, cand.d0,
+                                    cand.valid, None, model, **kw)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    outputs = 13 * cand.ids.numel()
+    if extra > outputs + (4 << 20):
+        fail(f"{label}: one fused call allocated {extra} B, over its "
+             f"outputs' {outputs} B")
+    print(f"{label}: one fused call over {tuple(cand.ids.shape)} slots "
+          f"allocated {extra / 1e6:.1f} MB (its outputs {outputs / 1e6:.1f} "
+          f"MB; no prune scratch)")
+    _, lo_b, hi_b = tr.ternary_refine_fused_bounds(
+        stores, q64, cand.ids, cand.d0, cand.valid, model,
+        bound=cfg.bound, z=cfg.z)
+    row = check_prune(torch, tr, lo_b[:, 0].contiguous(),
+                      hi_b[:, 0].contiguous(), cand.valid, fused,
+                      k=cfg.final_k, label=f"the {label} shape")
+    row.update(smem_bytes=ops.PRUNE_STREAM_SMEM,
+               launches=got["prune (global)"])
+    del fused, lo_b, hi_b, cand
+
+    # the plain reference backend on the first queries
+    sub = queries[:NPROBE_REF_QUERIES]
+    ref = make_executor(index, front="ivf", backend="reference",
+                        micro_batch=NPROBE_REF_BATCH, nprobe=NPROBE)
+    r_ids, r_d, r_cost = ref.execute(sub)
+    c_ids, c_d, c_cost = ex.execute(sub)
+    if not (torch.equal(r_ids, c_ids) and torch.equal(r_d, c_d)
+            and ledger_of(r_cost) == ledger_of(c_cost)):
+        fail(f"{label}: the reference and cuda backends differ on "
+             f"{sub.shape[0]} queries (ids, distances or ledger)")
+    print(f"{label}: the reference backend on {sub.shape[0]} queries "
+          f"(micro-batch {NPROBE_REF_BATCH}) gives the cuda backend's ids, "
+          f"distances and ledger")
+    del ref, r_ids, r_d, c_ids, c_d
+    peak = max(peak, torch.cuda.max_memory_allocated()) / 1e9
+    index.__dict__.get("_executor_cache", {}).clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label}: peak device memory {peak:.1f} GB, "
+          f"{time.perf_counter() - t0:.1f} s")
+    if peak >= PEAK_GB:
+        fail(f"{label}: peak device memory {peak:.1f} GB reaches {PEAK_GB}"
+             f" GB")
+    return row, adc_err
 
 
 # ------------------------------------------------------- the wide phase
@@ -5602,6 +5883,7 @@ def wide_dataset(torch, n: int, dim: int, n_queries: int, seed: int):
     return Dataset(x=x, queries=q, gt=brute_force_topk(x, q, 10))
 WIDE_OPS_QUERIES = 8            # queries of the level-0 ops path at D = 8192
 WIDE_SHARDED_REF_BATCH = 2      # micro-batch of the sharded reference check
+WIDE_SHARDED_ADC_QUERIES = 4    # queries of its shard-0 pq_adc check
 
 
 def wide_phase(torch, args, launches, reset_launches, read_launches,
@@ -5749,13 +6031,18 @@ def wide_sharded(torch, args, db, cfg, ds, want, ceiling, launches,
     the bounds kernel on shard 0's candidates of 64 queries (its own
     store, shard-local ids: what the path launches) against its plain
     version and the fused kernel's est (``check_bounds``), timed with the
-    chunk plan its launch took.  Returns the row of the cell."""
+    chunk plan its launch took, and ``pq_adc`` (its global form) on the
+    same candidates against its plain version on a few queries
+    (``hold_adc``), timed beside its per-shard bound (``adc_cost``).
+    Returns the row of the cell."""
     from repro_torch.anns import QueryPlan, make_sharded_executor, \
         recall_at_k, registry
     from repro_torch.anns.stages import Candidates
     from repro_torch.core.estimator import alive_chain
     from repro_torch.kernels import ops
+    from repro_torch.kernels import pq_adc as pq_adc_mod
     from repro_torch.kernels import ternary_refine as tr
+    from repro_torch.quant import pq as pq_mod
     t0 = time.perf_counter()
     label = f"wide_{cfg.dim}_sharded"
     plan = QueryPlan(shards=args.shards, backend="cuda")
@@ -5851,8 +6138,22 @@ def wide_sharded(torch, args, db, cfg, ds, want, ceiling, launches,
           f"device {row['device_ms']} ms (bound {row['bound_ms']:.4f} ms), "
           f"plain {row['plain_ms']:.3f} ms, chunk plan {b_plan}, alive "
           f"mismatches at near-ties {ties}")
+    lut = pq_mod.adc_table(db.index.codebook, q)
+    # pq_adc on shard 0's candidates: against its plain version on the
+    # first WIDE_SHARDED_ADC_QUERIES queries (its (Q, C, M) gather takes
+    # ~13 B an element), then timed on all 64
+    na = WIDE_SHARDED_ADC_QUERIES
+    adc_err = hold_adc(torch, pq_adc_mod, si.pq_codes[0], sh.ids[:na],
+                       sh.valid[:na], lut[:na], f"{label} shard 0")[1]
+    adc = dict(max_abs_err=adc_err, ms=time_ms(lambda: pq_adc_mod.pq_adc(
+        si.pq_codes[0], sh.ids, sh.valid, lut), 20), launches=got["pq_adc"],
+        **adc_cost(torch, f"pq_adc {label} shard 0", sh.ids, sh.valid,
+                   cfg.pq_m, cfg.pq_k))
+    print(f"pq_adc {label} shard 0: equal to pq_adc_plain on {na} queries "
+          f"(max err {adc_err:.3g}); {adc['ms']:.4f} ms per call (bound "
+          f"{adc['bound_ms']:.4f} ms, {adc['bound_by']})")
     print(f"{label}: {time.perf_counter() - t0:.1f} s")
-    return {name: row, "queries_per_s": WIDE_QUERIES
+    return {name: row, "pq_adc": adc, "queries_per_s": WIDE_QUERIES
             / statistics.median(runs), "recall_at_10": recall,
             "ivf_ceiling": ceiling}
 
@@ -5913,15 +6214,17 @@ def global_entries(rows, wide, edge_rows, launches) -> None:
     form's numbers at the widest shape that runs it (the wide_8192 path for
     ``pq_adc`` and the fused kernel, shard 0 of the wide_8192_sharded path
     for the bounds kernel, the wide_ops path for the level-0 entry points,
-    the edge shapes for the prune, which no path of this script runs in
-    that form), ``launches`` its global-form launches over the wide paths'
-    runs (``tables_launches`` and ``pair_tables_launches`` its table
-    kernel's there, over both level-0 entry points), ``fatrq_shape`` the
-    global form beside the shared one at the fatrq shape (bit-equal), and
-    its other wide and edge shapes; the fused kernel's ``wide_2048`` entry
-    holds its shared form at G = 410.  ``plan``, in every entry of a
-    global form but the prune's, is the chunk plan its wrapper launched
-    with at the timed call (``launched_plan``)."""
+    the fatrq_nprobe256 path for the prune), ``launches`` its global-form
+    launches over the wide paths' runs (the prune's over the
+    fatrq_nprobe256 path's; ``tables_launches`` and
+    ``pair_tables_launches`` its table kernel's there, over both level-0
+    entry points), ``fatrq_shape`` the global form beside the shared one
+    at the fatrq shape (bit-equal), and its other wide and edge shapes;
+    the fused kernel's ``wide_2048`` entry holds its shared form at
+    G = 410.  ``plan``, in every entry of a global form, is the plan its
+    wrapper launched with at the timed call (``launched_plan``); the
+    prune's global form has no plan, and its entry gives its fixed shared
+    bytes (``smem_bytes``) instead."""
     wide_runs = [launches[p] for p in ("wide_2048", "wide_8192",
                                        "wide_8192_sharded", "wide_ops")]
     count = lambda key: sum(r[key] for r in wide_runs)        # noqa: E731
@@ -5929,7 +6232,9 @@ def global_entries(rows, wide, edge_rows, launches) -> None:
     big = wide["wide_8192"]
     rows["pq_adc"]["global"].update(
         big["pq_adc"], launches=count("pq_adc (global)"),
-        wide_2048=wide["wide_2048"]["pq_adc"], edge=edge_rows["pq_adc"])
+        wide_2048=wide["wide_2048"]["pq_adc"],
+        wide_8192_sharded=wide["wide_8192_sharded"]["pq_adc"],
+        edge=edge_rows["pq_adc"])
     refine["global"].update(
         big["ternary_refine_fused"],
         launches=count("ternary_refine_fused (global)"),
@@ -5942,18 +6247,21 @@ def global_entries(rows, wide, edge_rows, launches) -> None:
         tables_launches=launches["wide_8192_sharded"][
             "refine tables (global)"],
         edge=edge_rows["ternary_refine_fused_bounds"])
-    refine["prune"]["global"].update(
-        edge_rows["prune"], launches=count("prune (global)"))
+    prune = refine["prune"]["global"]
+    prune.update(prune.pop("fatrq_nprobe256"), edge=edge_rows["prune"])
+    if count("prune (global)"):
+        fail("a wide path ran the prune's global form")
     for name in ("ternary_refine_batch", "ternary_refine"):
         rows[name]["global"].update(
             wide["wide_ops"][name], launches=launches["wide_ops"][name],
             pair_tables_launches=launches["wide_ops"]["pair tables (global)"],
             edge=edge_rows[name])
     print("global entries: each kernel's global form (its state in device "
-          "memory; all but the prune stage it back into shared memory by "
-          "the chunk plan in its entry) at its widest shape with its "
-          "global-form launches over the wide paths (wide_2048, wide_8192, "
-          "wide_8192_sharded, wide_ops); fatrq_shape: "
+          "memory, staged back into shared memory by the chunk plan in its "
+          "entry; the prune's streams its slice and keeps candidate keys "
+          "only) at its widest shape with its global-form launches over the "
+          "wide paths (wide_2048, wide_8192, wide_8192_sharded, wide_ops; "
+          "the prune's over fatrq_nprobe256); fatrq_shape: "
           "the global form beside the shared form at the fatrq shape, "
           "bit-equal; edge: at the edge shapes (pq_adc M=1024 K=256; the "
           "refine kernels G=1639, C=4133, Q=5 (the single-query form Q=1); "
@@ -6005,7 +6313,7 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t:.1f} s")
     print_resources(build._target(name) for name in build.SOURCES)
     print(prune_attributes(build))
-    print(prune_attributes(build, "global"))
+    print(prune_attributes(build, "global", NPROBE_C))
     level0_attrs = level0_attributes(build, 154)
     sass_profile(build._target("ternary_refine"), "level0_kernelILb1ELb0E")
     t = phase("kernel build and attributes", t)

@@ -73,7 +73,8 @@
 //    the merge on chip in one launch.  Bound: bytes, 1 B of alive_in and of
 //    alive_out per slot and 4 B each of hi and lo per alive slot (~13.5 MB
 //    at the main path's shapes, ~0.004 ms at 3.35 TB/s).  The staged slice
-//    caps C at 8 x 55,808 = 446,464 slots per query (ops.prune_smem_bytes).
+//    caps this shared form at C = 8 x 55,808 = 446,464 slots per query
+//    (ops.prune_smem_bytes); past it the global form below runs.
 //
 // Bound: device-memory bytes.  Level 0 reads per candidate slot a 4 B id,
 // 4 B d0 and 1 B valid (+1 B delta flag), and per distinct record its G
@@ -140,12 +141,12 @@
 // warp's two stages at G = 503.  Past those (the JAX package indexes any
 // width: G = 1639 at D = 8192) each runs a global form, picked by the host
 // from the shapes alone before the launch (ops.refine_form, prune_form,
-// level0_form), that keeps only that state in a device scratch buffer the
-// wrapper allocates (a template flag, kGlobal), stages it back into shared
-// memory a chunk at a time where the kernel looks it up (all but the
-// prune; the chunk plan comes from the host, and the launch reports its
-// shared bytes, which must be the plan's), and gives the shared form's
-// bits:
+// level0_form), a template flag, kGlobal, and gives the shared form's
+// bits.  The refine and level-0 global forms keep that state in a device
+// scratch buffer the wrapper allocates and stage it back into shared
+// memory a chunk at a time where the kernel looks it up (the chunk plan
+// comes from the host, and the launch reports its shared bytes, which must
+// be the plan's); the prune's global form keeps no per-slot state at all:
 //
 //  * tables_kernel writes each query's T27/T9 tables once per call with
 //    load_tables into a (Q, 37, Gp) f32 buffer (pair_tables_kernel the
@@ -210,14 +211,32 @@
 //    stages leave no room for; each tile restages the whole table from L2
 //    (11 x 56,832 B at G = 1639, with the columns the chunks share) for
 //    16 x 32 rows (839,168 B of codes).
-//  * prune_kernel stages each block's slice of keys and alive bits in a
-//    (Q, 8, span + span / 32) uint32 buffer; the digit counts, the
-//    cluster's exchange and the select stay in shared memory, so masks,
-//    counts and tau are the shared form's.
-//
-// prune_kernel<true> is slower than its shared form (every staged key goes
-// to L1/L2) and no path of the port reaches its shapes; redesigning it
-// around shared-memory chunks is later work.
+//  * prune_kernel<true> streams each block's slice once, in tiles of
+//    4096 slots (prune_stream), and keeps only a candidate filter in
+//    shared memory: a key buffer of kPruneBuf = 4352 keys, and theta, the
+//    block's running kth-smallest key.  A key below theta joins the
+//    buffer; a key at or above it cannot be among the slice's k smallest
+//    and is dropped.  When the buffer may not hold the next tile's keys,
+//    a block-local radix select (block_kth: the cluster select's 4 passes
+//    over this block's counts) keeps its k smallest and lowers theta to
+//    their kth.  The kth-smallest of a multiset is the kth-smallest of the
+//    union of each part's k smallest, so the cluster's select over the 8
+//    buffers gives the shared form's tau, and the union holds fewer than
+//    k keys only where fewer than k slots are alive.  alive_in is read as
+//    16-byte vectors a tile ahead in registers, hi as float4 only where a
+//    vector holds an alive slot, copied by cp.async into two stages a tile
+//    ahead of the keys it yields (walk_tiles); the mask phase walks the
+//    slice again the same way, alive_in read again and lo staged as hi
+//    was (a thread reads a unit's flags, and the next tile's, before it
+//    writes the unit), so the shared memory (50,448 B,
+//    ops.PRUNE_STREAM_SMEM) is the same at every C, nothing is staged in
+//    device memory, and four blocks fit an SM.  With slots in random
+//    order theta falls fast (after the first tile ~k of every n keys
+//    pass), so a block compacts once or twice; with hi falling along the
+//    slice every key passes and every tile compacts.  Bound: bytes, as
+//    the shared form's.  Staging the slice's keys in device memory
+//    instead would read them back in each of the 4 radix passes (~198 MB
+//    a micro-batch at Q = 64, C = 750,080, four times the L2).
 
 #include <algorithm>
 #include <cooperative_groups.h>
@@ -237,6 +256,13 @@ constexpr int kPruneThreads = 256;
 constexpr int kPruneWarps = kPruneThreads / 32;
 constexpr int kRadixBins = 256;     // 8-bit digits, 4 passes
 constexpr int kMaxK = 64;           // largest top-k the pruning step keeps
+// the prune's global form: a thread's 16-slot unit of a tile, the tile's
+// slots, its stages of hi, and the keys the block's buffer holds (a
+// tile's beside those kept)
+constexpr int kPruneUnit = 16;
+constexpr int kPruneTile = kPruneThreads * kPruneUnit;
+constexpr int kPruneStages = 2;
+constexpr int kPruneBuf = kPruneTile + 256;
 constexpr int kMaxLevels = 8;       // levels the bounds kernel walks
 constexpr int kGroup = 8;           // lanes scoring one candidate
 constexpr int kWords = 5;           // code words a lane loads before use
@@ -1492,10 +1518,21 @@ __host__ __device__ __forceinline__ int prune_span(int C) {
   return ((C + kPruneCluster - 1) / kPruneCluster + 31) / 32 * 32;
 }
 
-// Dynamic shared memory of the prune: the slice's keys and alive bits.
+// Dynamic shared memory of the prune's shared form: the slice's keys and
+// alive bits.
 size_t prune_dynamic_smem(int C) {
   const size_t span = (size_t)prune_span(C);
   return span * sizeof(uint32_t) + span / 8;
+}
+
+// The global form's dynamic shared memory, the same at every C
+// (ops.PRUNE_STREAM_SMEM): kPruneStages stages of a tile's hi as float4
+// [stage][j][thread], the key buffer, the keys below a compaction's kth
+// and their count.
+constexpr size_t kPruneStageFloats = (size_t)4 * 4 * kPruneThreads;
+size_t prune_stream_smem() {
+  return kPruneStages * kPruneStageFloats * sizeof(float) +
+         (size_t)(kPruneBuf + kMaxK + 4) * sizeof(uint32_t);
 }
 
 struct PruneShared {
@@ -1526,6 +1563,215 @@ __device__ __forceinline__ int reserve_keys(PruneShared& sh, int n,
   return __shfl_sync(kFull, first, 31) + incl - n;
 }
 
+// The kth-smallest (1 <= k <= nk) of this block's nk keys: the cluster
+// select's 4 passes of 8 bits over this block's digit counts alone.  Its
+// digit pick repeats the cluster select's: one helper called by both
+// timed the shared form's prune 2.7% slower on an H100.
+__device__ uint32_t block_kth(PruneShared& sh, const uint32_t* keys, int nk,
+                              int k) {
+  static_assert(kPruneThreads == kRadixBins, "a thread a digit");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  uint32_t prefix = 0, pmask = 0;
+  int remain = k;
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    uint32_t* hist = sh.hist[pass & 1];
+    hist[tid] = 0;
+    __syncthreads();
+    for (int i = tid; i < nk; i += kPruneThreads) {
+      const uint32_t key = keys[i];
+      if ((key & pmask) == prefix)
+        atomicAdd(&hist[(key >> shift) & 0xffu], 1u);
+    }
+    __syncthreads();
+    const int tot = (int)hist[tid];
+    int incl = warp_scan(tot, lane);
+    if (lane == 31) sh.wsum[warp] = (uint32_t)incl;
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) incl += (int)sh.wsum[w];
+    if (incl - tot < remain && remain <= incl) {
+      sh.digit = tid;
+      sh.remain = remain - (incl - tot);
+    }
+    __syncthreads();
+    prefix |= (uint32_t)sh.digit << shift;
+    pmask |= 0xffu << shift;
+    remain = sh.remain;
+  }
+  return prefix;
+}
+
+// Keep the k smallest of the block's nk buffered keys: those below their
+// kth-smallest, then copies of it up to k (ties past k dropped); returns
+// the kth, the block's new theta.
+__device__ uint32_t compact_keys(PruneShared& sh, uint32_t* keys,
+                                 uint32_t* below, int* nbelow, int nk,
+                                 int k) {
+  const int tid = threadIdx.x;
+  const uint32_t kth = block_kth(sh, keys, nk, k);
+  if (tid == 0) *nbelow = 0;
+  __syncthreads();
+  for (int i = tid; i < nk; i += kPruneThreads)
+    if (keys[i] < kth) below[atomicAdd(nbelow, 1)] = keys[i];  // < k of them
+  __syncthreads();
+  if (tid < k) keys[tid] = tid < *nbelow ? below[tid] : kth;
+  if (tid == 0) sh.nkeys = k;
+  __syncthreads();
+  return kth;
+}
+
+// The global form's walk over this thread's 16-slot units of a block's
+// slice of n slots (n % 16 == 0, 16-byte aligned rows), tile by tile: at
+// tile t the unit t * kPruneThreads + tid.  Its alive flags are read a
+// tile ahead in registers, the floats of src (hi or lo) where its vector
+// holds an alive slot are copied by cp.async a tile ahead of their use
+// into the stages (float4 j at st + 4 j kPruneThreads), and visit(u, m,
+// st) runs once tile t's have landed (u < 0 past the slice; m the unit's
+// alive bits).  Each thread copies and reads only its own stage
+// cells, so the stages need no barrier; a unit's flags are read (and
+// the next tile's) before visit may write it.
+template <typename Visit>
+__device__ __forceinline__ void walk_tiles(const uint8_t* alive_in,
+                                           const float* __restrict__ src,
+                                           size_t row, int n, float* s_st,
+                                           Visit visit) {
+  const int tid = threadIdx.x;
+  const int units = n / kPruneUnit;
+  const int tiles = (units + kPruneThreads - 1) / kPruneThreads;
+  const uint4* a4 = reinterpret_cast<const uint4*>(alive_in + row);
+  const float* f = src + row;
+  const uint4 none = make_uint4(0u, 0u, 0u, 0u);
+  auto stage = [&](int t, uint32_t m) {
+    const int u = t * kPruneThreads + tid;
+    float* st = s_st + (t % kPruneStages) * kPruneStageFloats + 4 * tid;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if ((m >> (4 * j)) & 0xfu)
+        cp_async16(st + j * 4 * kPruneThreads, f + 16 * u + 4 * j);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  uint32_t m_cur = nonzero_bits(tid < units ? a4[tid] : none);
+  stage(0, m_cur);
+  uint4 a_next = kPruneThreads + tid < units ? a4[kPruneThreads + tid]
+                                             : none;
+  for (int t = 0; t < tiles; ++t) {
+    const uint32_t m_next = nonzero_bits(a_next);
+    stage(t + 1, m_next);  // its stage was read at tile t - 1
+    const int u2 = (t + 2) * kPruneThreads + tid;
+    a_next = u2 < units ? a4[u2] : none;
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // tile t's
+    const int u = t * kPruneThreads + tid;
+    visit(u < units ? u : -1, m_cur,
+          s_st + (t % kPruneStages) * kPruneStageFloats + 4 * tid);
+    m_cur = m_next;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The global form's one pass over a block's slice of n slots: every alive
+// slot's key is taken once, tile by tile (kPruneTile slots, a 16-slot
+// unit a thread), and only the keys below theta, the block's running
+// kth-smallest (above every key until the block has kept k), go to the
+// key buffer.  Once the buffer may not hold another tile's keys it is
+// compacted to its k smallest (compact_keys) and theta drops to their
+// kth.  A key equal to theta is dropped: the buffer always holds the k
+// smallest keys of the slots read so far (as a multiset), and the
+// kth-smallest of a multiset is the kth-smallest of the union of each
+// part's k smallest, so the cluster's select over the 8 buffers gives the
+// shared form's tau; the union holds fewer than k keys only where fewer
+// than k slots are alive.  With 16-byte vectors (vec) the units come
+// through walk_tiles, hi staged; else 1-byte loads, slot j of a thread's
+// tile at j * kPruneThreads + tid.  Leaves the buffer's count in
+// sh.nkeys.
+__device__ void prune_stream(PruneShared& sh, uint32_t* s_dyn,
+                             const float* __restrict__ hi,
+                             const uint8_t* alive_in, size_t row, int n,
+                             int k, int vec) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  float* s_st = reinterpret_cast<float*>(s_dyn);
+  uint32_t* keys = s_dyn + kPruneStages * kPruneStageFloats;
+  uint32_t* below = keys + kPruneBuf;
+  int* nbelow = reinterpret_cast<int*>(below + kMaxK);
+  uint64_t theta = 1ull << 32;
+  // this thread's keys of one tile below theta, bits pm of its 16 slots
+  // (key_of(j): slot j's key, read again), to the buffer; then, once every
+  // thread's are in, a compaction where the next tile's might not fit
+  auto append = [&](uint32_t pm, auto key_of) {
+    if (__any_sync(kFull, pm)) {
+      int at = reserve_keys(sh, __popc(pm), lane);
+      for (uint32_t b = pm; b != 0; b &= b - 1)
+        keys[at++] = key_of(__ffs(b) - 1);
+    }
+    __syncthreads();
+    const int nk = sh.nkeys;
+    __syncthreads();  // every thread has the count before the next appends
+    if (nk > kPruneBuf - kPruneTile)
+      theta = compact_keys(sh, keys, below, nbelow, nk, k);
+  };
+  if (vec) {
+    walk_tiles(alive_in, hi, row, n, s_st,
+               [&](int, uint32_t m, const float* st) {
+      uint32_t pm = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if ((m >> (4 * j)) & 0xfu) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(st + j * 4 * kPruneThreads);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (order_key(lane_of(v, i)) < theta) pm |= 1u << (4 * j + i);
+        }
+      }
+      append(pm & m, [&](int j) {
+        return order_key(st[(j >> 2) * 4 * kPruneThreads + (j & 3)]);
+      });
+    });
+  } else {
+    const int tiles = (n + kPruneTile - 1) / kPruneTile;
+    for (int t = 0; t < tiles; ++t) {
+      const size_t base = row + (size_t)t * kPruneTile + tid;
+      uint32_t pm = 0;
+#pragma unroll
+      for (int j = 0; j < kPruneUnit; ++j) {
+        const int i = t * kPruneTile + j * kPruneThreads + tid;
+        if (i < n && alive_in[row + i] && order_key(hi[row + i]) < theta)
+          pm |= 1u << j;
+      }
+      append(pm, [&](int j) {
+        return order_key(hi[base + (size_t)j * kPruneThreads]);
+      });
+    }
+  }
+}
+
+// The mask of one 16-slot vector u whose alive flags are the bits m:
+// alive_out = alive && lo <= tau as one 16-byte store, lo's float4 j
+// from lo4(j), taken only where it holds an alive slot; adds its
+// survivors and their delta-page share to cnt and dcnt.
+template <typename Lo4>
+__device__ __forceinline__ void mask_vector(
+    Lo4 lo4, uint8_t* alive_out, const uint8_t* __restrict__ is_delta,
+    size_t row, int u, uint32_t m, float tau, int& cnt, int& dcnt) {
+  uint32_t out = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if ((m >> (4 * j)) & 0xfu) {
+      const float4 l = lo4(j);
+      out |= ((uint32_t)(l.x <= tau) | (uint32_t)(l.y <= tau) << 1 |
+              (uint32_t)(l.z <= tau) << 2 | (uint32_t)(l.w <= tau) << 3)
+             << (4 * j);
+    }
+  }
+  out &= m;
+  *reinterpret_cast<uint4*>(alive_out + row + 16 * u) =
+      make_uint4(bit_bytes(out & 0xfu), bit_bytes((out >> 4) & 0xfu),
+                 bit_bytes((out >> 8) & 0xfu), bit_bytes(out >> 12));
+  cnt += __popc(out);
+  if (is_delta != nullptr && out)
+    dcnt += __popc(out & nonzero_bits(__ldg(
+                reinterpret_cast<const uint4*>(is_delta + row + 16 * u))));
+}
+
 // (no __launch_bounds__: with it ptxas capped this kernel at 32 registers
 // and spilled one to the stack)
 template <bool kGlobal>
@@ -1537,19 +1783,17 @@ __global__ void __cluster_dims__(kPruneCluster, 1, 1)
                  const uint8_t* __restrict__ is_delta,   // or null
                  int32_t* __restrict__ counts,           // (Q, 2L)
                  float* __restrict__ tau_out,            // (Q,) or null
-                 uint32_t* __restrict__ scratch,  // (Q, 8, span + span/32)
                  int C, int k, int level, int L, int vec) {
-  extern __shared__ uint32_t s_dyn[];  // alive keys, then the alive bits
+  // the shared form: alive keys, then the alive bits; the global form:
+  // prune_stream's stages and key buffer
+  extern __shared__ __align__(16) uint32_t s_dyn[];
   __shared__ PruneShared sh;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int span = prune_span(C);
-  // the global form stages the slice in this block's part of scratch
-  uint32_t* s_key =
-      kGlobal ? scratch + ((size_t)blockIdx.y * kPruneCluster + rank) *
-                              (span + span / 32)
-              : s_dyn;
+  uint32_t* s_key = kGlobal ? s_dyn + kPruneStages * kPruneStageFloats
+                            : s_dyn;
   const int s0 = rank * span;
   const int n = max(0, min(C, s0 + span) - s0);  // this block's slots
   const size_t row = (size_t)blockIdx.y * C + s0;
@@ -1559,8 +1803,11 @@ __global__ void __cluster_dims__(kPruneCluster, 1, 1)
   for (int i = tid; i < kRadixBins; i += kPruneThreads) sh.hist[0][i] = 0;
   __syncthreads();
 
-  // stage: alive bits and the alive slots' keys
-  if (vec) {
+  if constexpr (kGlobal) {
+    prune_stream(sh, s_dyn, hi, alive_in, row, n, k, vec);
+    sh.hist[0][tid] = 0;  // the compactions' counts
+  } else if (vec) {
+    // stage: alive bits and the alive slots' keys
     const int units = n / 16;
     for (int u0 = warp * 32; u0 < units; u0 += kPruneThreads) {
       const int u = u0 + lane;
@@ -1640,34 +1887,36 @@ __global__ void __cluster_dims__(kPruneCluster, 1, 1)
   }
   const float tau = fewer ? INFINITY : key_value(prefix);
 
-  // mask: alive_out = alive_in && lo <= tau, with the counts
+  // mask: alive_out = alive_in && lo <= tau, with the counts; the global
+  // form reads alive_in again (a thread reads a unit's flags, and the next
+  // tile's, before it writes the unit), its lo staged as hi was
   int cnt = 0, dcnt = 0;
   if (vec) {
-    for (int u = tid; u < n / 16; u += kPruneThreads) {
-      const uint32_t m = reinterpret_cast<const uint16_t*>(s_bits)[u];
-      const float4* l4 = reinterpret_cast<const float4*>(lo + row + 16 * u);
-      uint32_t out = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if ((m >> (4 * j)) & 0xfu) {
-          const float4 l = __ldg(l4 + j);
-          out |= ((uint32_t)(l.x <= tau) | (uint32_t)(l.y <= tau) << 1 |
-                  (uint32_t)(l.z <= tau) << 2 | (uint32_t)(l.w <= tau) << 3)
-                 << (4 * j);
-        }
+    if constexpr (kGlobal) {
+      walk_tiles(alive_in, lo, row, n, reinterpret_cast<float*>(s_dyn),
+                 [&](int u, uint32_t m, const float* st) {
+        if (u >= 0)
+          mask_vector(
+              [&](int j) {
+                return *reinterpret_cast<const float4*>(
+                    st + j * 4 * kPruneThreads);
+              },
+              alive_out, is_delta, row, u, m, tau, cnt, dcnt);
+      });
+    } else {
+      const int units = n / 16;
+      for (int u = tid; u < units; u += kPruneThreads) {
+        const float4* l4 = reinterpret_cast<const float4*>(lo + row + 16 * u);
+        mask_vector([&](int j) { return __ldg(l4 + j); }, alive_out,
+                    is_delta, row, u,
+                    reinterpret_cast<const uint16_t*>(s_bits)[u], tau, cnt,
+                    dcnt);
       }
-      out &= m;
-      *reinterpret_cast<uint4*>(alive_out + row + 16 * u) =
-          make_uint4(bit_bytes(out & 0xfu), bit_bytes((out >> 4) & 0xfu),
-                     bit_bytes((out >> 8) & 0xfu), bit_bytes(out >> 12));
-      cnt += __popc(out);
-      if (is_delta != nullptr && out)
-        dcnt += __popc(out & nonzero_bits(__ldg(
-                    reinterpret_cast<const uint4*>(is_delta + row + 16 * u))));
     }
   } else {
     for (int i = tid; i < n; i += kPruneThreads) {
-      const bool a = (s_bits[i / 32] >> (i % 32)) & 1u;
+      const bool a = kGlobal ? alive_in[row + i] != 0
+                             : (s_bits[i / 32] >> (i % 32)) & 1u;
       const bool o = a && lo[row + i] <= tau;
       alive_out[row + i] = (uint8_t)o;
       cnt += o;
@@ -1722,12 +1971,18 @@ size_t tables_smem(Kernel kernel, int G) {
                 (size_t)(27 + kT9Rows) * table_width(G) * sizeof(float));
 }
 
-// The prune over one level's (lo, hi): k in [1, kMaxK]; scratch null (the
-// shared form: C within the staged slice's shared memory) or the global
-// form's (Q, 8, span + span / 32) words.
+// The prune's dynamic shared bytes at C in its form, opted in: the shared
+// form's staged slice, or the global form's stages and key buffer.
+size_t prune_smem(bool global, int C) {
+  return global ? opt_in(prune_kernel<true>, prune_stream_smem())
+                : opt_in(prune_kernel<false>, prune_dynamic_smem(C));
+}
+
+// The prune over one level's (lo, hi): k in [1, kMaxK]; global picks the
+// global form (C past the shared form's staged slice, ops.prune_form).
 cudaError_t launch_prune(const void* lo, const void* hi, const void* alive_in,
                          void* alive_out, const void* is_delta, void* counts,
-                         void* tau, void* scratch, int Q, int C, int k,
+                         void* tau, bool global, int Q, int C, int k,
                          int level, int L, cudaStream_t s) {
   const uintptr_t any = reinterpret_cast<uintptr_t>(lo) |
                         reinterpret_cast<uintptr_t>(hi) |
@@ -1735,16 +1990,14 @@ cudaError_t launch_prune(const void* lo, const void* hi, const void* alive_in,
                         reinterpret_cast<uintptr_t>(alive_out) |
                         reinterpret_cast<uintptr_t>(is_delta);
   const int vec = C % 16 == 0 && (any & 15) == 0;
-  const bool global = scratch != nullptr;
   const auto kernel = global ? prune_kernel<true> : prune_kernel<false>;
-  const size_t smem = opt_in(kernel, global ? 0 : prune_dynamic_smem(C));
-  kernel<<<dim3(kPruneCluster, Q), kPruneThreads, smem, s>>>(
-      static_cast<const float*>(lo), static_cast<const float*>(hi),
-      static_cast<const uint8_t*>(alive_in),
-      static_cast<uint8_t*>(alive_out),
-      static_cast<const uint8_t*>(is_delta), static_cast<int32_t*>(counts),
-      static_cast<float*>(tau), static_cast<uint32_t*>(scratch), C, k, level,
-      L, vec);
+  kernel<<<dim3(kPruneCluster, Q), kPruneThreads, prune_smem(global, C),
+           s>>>(static_cast<const float*>(lo), static_cast<const float*>(hi),
+                static_cast<const uint8_t*>(alive_in),
+                static_cast<uint8_t*>(alive_out),
+                static_cast<const uint8_t*>(is_delta),
+                static_cast<int32_t*>(counts), static_cast<float*>(tau), C, k,
+                level, L, vec);
   return cudaGetLastError();
 }
 
@@ -1768,14 +2021,14 @@ extern "C" int fatrq_refine_tables(const void* qplanes, void* tables, int Q,
 
 // tables: null (the shared form) or the query's tables built by
 // fatrq_refine_tables, staged chunk_passes passes at a time (the global
-// form, ops.refine_plan); prune_scratch: null or the prune's global form's;
-// smem_out (may be null) receives the score launch's dynamic shared bytes.
+// form, ops.refine_plan); prune_global: the prune's global form; smem_out
+// (may be null) receives the score launch's dynamic shared bytes.
 extern "C" int fatrq_refine_level(
     const void* packed, const void* ids, const void* d0, const void* valid,
     const void* qplanes, const void* rec, const void* lvl,
     const void* params, const void* alive_in, const void* is_delta, void* est,
     void* lo, void* hi, void* alive_out, void* counts, const void* tables,
-    void* prune_scratch, int Q, int C, int G, int level, int L, int k,
+    int prune_global, int Q, int C, int G, int level, int L, int k,
     int quantile, int chunk_passes, int* smem_out, void* stream) {
   if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
   const bool global = tables != nullptr;
@@ -1800,34 +2053,46 @@ extern "C" int fatrq_refine_level(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_prune(lo, hi, alive_in, alive_out, is_delta, counts,
-                           nullptr, prune_scratch, Q, C, k, level, L, s);
+                           nullptr, prune_global, Q, C, k, level, L, s);
 }
 
 // The prune alone on given (lo, hi): tau (Q,) is written where not null;
-// scratch as in fatrq_refine_level.
+// global as prune_global in fatrq_refine_level.
 extern "C" int fatrq_refine_prune(const void* lo, const void* hi,
                                   const void* alive_in, void* alive_out,
                                   const void* is_delta, void* counts,
-                                  void* tau, void* scratch, int Q, int C,
-                                  int k, int level, int L, void* stream) {
+                                  void* tau, int global, int Q, int C, int k,
+                                  int level, int L, void* stream) {
   if (k < 1 || k > kMaxK || level < 0 || level >= L)
     return (int)cudaErrorInvalidValue;
   if (Q == 0 || C == 0) return (int)cudaGetLastError();
   return (int)launch_prune(lo, hi, alive_in, alive_out, is_delta, counts, tau,
-                           scratch, Q, C, k, level, L,
+                           global, Q, C, k, level, L,
                            static_cast<cudaStream_t>(stream));
 }
 
 // The prune kernel's registers, local (stack) bytes, static shared bytes
-// and cluster width in either form, as the runtime reports them.
-extern "C" int fatrq_prune_attributes(int global, int* out) {
+// and cluster width in either form, as the runtime reports them, its
+// dynamic shared bytes at C and the clusters of 8 the card holds at once
+// with those bytes.
+extern "C" int fatrq_prune_attributes(int global, int C, int* out) {
+  const auto kernel = global ? prune_kernel<true> : prune_kernel<false>;
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(
-      &a, global ? prune_kernel<true> : prune_kernel<false>);
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  const size_t smem = prune_smem(global, C);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kPruneCluster, 1024);
+  cfg.blockDim = dim3(kPruneThreads);
+  cfg.dynamicSmemBytes = smem;
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)a.sharedSizeBytes;
   out[3] = a.requiredClusterWidth;
+  out[4] = (int)smem;
+  out[5] = clusters;
   return (int)err;
 }
 

@@ -13,17 +13,18 @@ per-candidate arrays and run the level-0 kernel.
 Each kernel has two forms.  The ``"shared"`` form keeps its per-query
 state (the ADC LUT, the refine tables, the prune's staged keys) in shared
 memory; where the shapes need more than a block has, the ``"global"``
-form runs the same arithmetic in the same order with that state in device
-memory, so both give the same bits.  ``*_form`` picks the form from the
-shapes alone, before any launch; ``*_scratch_bytes`` is a global form's
-scratch.  The global forms of ``pq_adc``, of the fused kernel's score
-launch, of the bounds kernel and of the level-0 kernel stage that state
-back into shared memory a chunk at a time: the ADC LUT by chunks of
-subspaces (``adc_plan``), the refine tables by column chunks of whole
-passes (``refine_plan``, ``bounds_plan``), the level-0 pair tables and a
-warp's code rows by the same pass chunks (``level0_plan``); the prune's
-global form reads its staged keys from device memory (the 50 MB L2
-caches them).
+form runs the same arithmetic with that state in device memory, or with
+none, and gives the same bits.  ``*_form`` picks the form from the shapes
+alone, before any launch; ``*_scratch_bytes`` is a global form's scratch.
+The global forms of ``pq_adc``, of the fused kernel's score launch, of the
+bounds kernel and of the level-0 kernel stage that state back into shared
+memory a chunk at a time: the ADC LUT by chunks of subspaces
+(``adc_plan``), the refine tables by column chunks of whole passes
+(``refine_plan``, ``bounds_plan``), the level-0 pair tables and a warp's
+code rows by the same pass chunks (``level0_plan``).  The prune's global
+form keeps nothing in device memory: each block streams its slice of the
+bounds once and keeps only a buffer of candidate keys below its running
+kth-smallest (``PRUNE_STREAM_SMEM``, the same shared memory at every C).
 """
 
 from __future__ import annotations
@@ -367,27 +368,29 @@ def level0_scratch_bytes(q: int, g: int) -> int:
 #: blocks per query in the prune's cluster, and its static shared memory
 #: (kPruneCluster and sizeof(PruneShared) in the source)
 _PRUNE_CLUSTER, _PRUNE_STATIC = 8, 2224
+#: the prune's global form's dynamic shared memory, the same at every C:
+#: two stages of a 4096-slot tile's hi (32,768 B), a 4352-key candidate
+#: buffer, the compaction's kMaxK = 64 keys and its count (kPruneStages,
+#: kPruneTile, kPruneBuf and kMaxK in the source): 50,448 B, four blocks an
+#: SM beside the static 2,224 B
+PRUNE_STREAM_SMEM = 2 * 4096 * 4 + (4352 + 64 + 4) * 4
+check_smem_budget("prune global form", PRUNE_STREAM_SMEM + _PRUNE_STATIC)
 
 
 def prune_smem_bytes(c: int) -> int:
-    """The prune holds each block's slice of ceil(C / 8) slots, rounded up
-    to 32, as one uint32 key and one alive bit per slot, beside its digit
-    counts and reduction scratch: C up to 8 × 55,808 = 446,464 fits."""
+    """The prune's shared form holds each block's slice of ceil(C / 8)
+    slots, rounded up to 32, as one uint32 key and one alive bit per slot,
+    beside its digit counts and reduction scratch: C up to 8 × 55,808 =
+    446,464 fits."""
     span = (-(-c // _PRUNE_CLUSTER) + 31) // 32 * 32
     return span * 4 + span // 8 + _PRUNE_STATIC
 
 
 def prune_form(c: int) -> str:
-    """``"shared"`` up to C = 446,464, else ``"global"``: each block's
-    slice of keys and alive bits in scratch, the digit counts, the
-    cluster's exchange and the select in shared memory as before."""
+    """``"shared"`` up to C = 446,464, else ``"global"``: each block
+    streams its slice once and keeps only candidate keys
+    (``PRUNE_STREAM_SMEM`` of shared memory), at any C."""
     return _form(prune_smem_bytes(c))
-
-
-def prune_scratch_bytes(q: int, c: int) -> int:
-    """The global form's scratch: every block's slice of keys and alive
-    bits, for Q queries of 8 blocks."""
-    return q * _PRUNE_CLUSTER * (prune_smem_bytes(c) - _PRUNE_STATIC)
 
 
 def make_query_planes(q: torch.Tensor, g: int) -> torch.Tensor:

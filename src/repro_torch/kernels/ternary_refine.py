@@ -31,13 +31,15 @@ and every scalar as 0 (``_plain_levels`` applies the same rule).
 
 Every kernel takes any G and C.  Where a query's tables (or the prune's
 staged slice) do not fit a block's shared memory, the wrapper runs the
-kernel's global form, which keeps them in a scratch buffer it allocates
-and gives the same bits (``ops.refine_form``, ``prune_form``,
-``level0_form``); the fused kernel's score launch and the bounds kernel
-then stage the tables from there into shared memory a column chunk at a
-time (``ops.refine_plan``, ``ops.bounds_plan``), and the level-0 kernel
-its pair tables with each warp's code rows by the same pass chunks
-(``ops.level0_plan``).
+kernel's global form, which gives the same bits (``ops.refine_form``,
+``prune_form``, ``level0_form``): the refine and level-0 kernels keep the
+tables in a scratch buffer the wrapper allocates, and the fused kernel's
+score launch and the bounds kernel stage them from there into shared
+memory a column chunk at a time (``ops.refine_plan``,
+``ops.bounds_plan``), the level-0 kernel its pair tables with each warp's
+code rows by the same pass chunks (``ops.level0_plan``); the prune streams
+each block's slice once and keeps only candidate keys in shared memory
+(``ops.PRUNE_STREAM_SMEM``), with no scratch.
 """
 
 from __future__ import annotations
@@ -64,8 +66,7 @@ single_launches = 0
 prune_launches = 0
 #: of those launches, the global forms': fused levels whose scoring read
 #: scratch tables, bounds calls, level-0 calls (both entry points), and
-#: prune launches staged in scratch (the fused kernel's and the prune's
-#: alone)
+#: streaming prune launches (the fused kernel's and the prune's alone)
 global_launches = 0
 bounds_global_launches = 0
 level0_global_launches = 0
@@ -90,14 +91,14 @@ MAX_K = 64
 #: most TRQ levels the bounds kernel walks (kMaxLevels in the source)
 MAX_LEVELS = 8
 
-_ARGS = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 8
+_ARGS = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
          + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 _BOUNDS_ARGS = ([ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_void_p] * 10
                 + [ctypes.c_int] * 6
                 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 _LEVEL0_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
-_PRUNE_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_PRUNE_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _TABLES_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 #: queries per step of the plain version (bounds its (Q, C, G) temporaries)
 _PLAIN_QUERIES = 8
@@ -336,14 +337,6 @@ def _tables(q_planes: torch.Tensor, *, pairs: bool) -> torch.Tensor:
     return tables
 
 
-def _prune_scratch(nq: int, c: int, form: str, dev) -> torch.Tensor | None:
-    """The prune's global form's scratch (None in the shared form)."""
-    if form != "global":
-        return None
-    return torch.empty(ops.prune_scratch_bytes(nq, c) // 4,
-                       dtype=torch.int32, device=dev)
-
-
 def ternary_refine_fused(stores: RefineStores, q: torch.Tensor,
                          ids: torch.Tensor, d0: torch.Tensor,
                          valid: torch.Tensor, is_delta: torch.Tensor | None,
@@ -403,9 +396,8 @@ def _fused(stores, q, ids, d0, valid, is_delta, model, *, k, bound, z,
                          form) == "global"
     tables = _tables(q_planes, pairs=False) if glob else None
     plan = ops.refine_plan(g) if glob else None
-    p_form = ops.pick_form("ternary_refine_fused (prune)",
-                           ops.prune_form(c), form)
-    scratch = _prune_scratch(nq, c, p_form, dev)
+    p_glob = ops.pick_form("ternary_refine_fused (prune)",
+                           ops.prune_form(c), form) == "global"
     fn = build.entry("ternary_refine", "fatrq_refine_level", _ARGS)
     stream = torch.cuda.current_stream(dev).cuda_stream
     smem = ctypes.c_int(0)
@@ -417,13 +409,13 @@ def _fused(stores, q, ids, d0, valid, is_delta, model, *, k, bound, z,
                     build.ptr(params), build.ptr(valid if lv == 0 else alive),
                     build.ptr(is_delta), build.ptr(est), build.ptr(lo),
                     build.ptr(hi), build.ptr(alive), build.ptr(counts),
-                    build.ptr(tables), build.ptr(scratch), nq, c, g, lv, nl,
-                    k, int(bound == "quantile"), plan.passes if glob else 0,
+                    build.ptr(tables), int(p_glob), nq, c, g, lv, nl, k,
+                    int(bound == "quantile"), plan.passes if glob else 0,
                     ctypes.byref(smem), stream)
         build.check("ternary_refine", status, "ternary_refine_fused")
         launches += 1
         global_launches += int(glob)
-        prune_global_launches += int(scratch is not None)
+        prune_global_launches += int(p_glob)
         if glob:
             last_plan = ops.launched_plan("ternary_refine_fused", plan,
                                           smem.value)
@@ -475,17 +467,17 @@ def _prune(lo, hi, alive, is_delta, counts, out, *, k: int, level: int = 0,
     build.require("counts", counts, dtype=torch.int32, shape=(nq, 2 * nl),
                   device=dev)
     tau = torch.empty((nq,), dtype=torch.float32, device=dev)
-    scratch = _prune_scratch(nq, c, ops.pick_form(
-        "ternary_refine_prune", ops.prune_form(c), form), dev)
+    glob = ops.pick_form("ternary_refine_prune", ops.prune_form(c),
+                         form) == "global"
     fn = build.entry("ternary_refine", "fatrq_refine_prune", _PRUNE_ARGS)
     status = fn(build.ptr(lo), build.ptr(hi), build.ptr(alive),
                 build.ptr(out), build.ptr(is_delta), build.ptr(counts),
-                build.ptr(tau), build.ptr(scratch), nq, c, k, level, nl,
+                build.ptr(tau), int(glob), nq, c, k, level, nl,
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check("ternary_refine", status, "ternary_refine_prune")
     global prune_launches, prune_global_launches
     prune_launches += 1
-    prune_global_launches += int(scratch is not None)
+    prune_global_launches += int(glob)
     return tau
 
 

@@ -278,17 +278,20 @@ def test_form_from_shapes(fn, shape, form):
 
 
 def test_scratch_and_the_level0_limit():
-    """The global forms' scratch bytes, the level-0 global form's sizing
-    (its pair-table columns and row stages by chunks of passes, so its
-    shared memory is the same at every G: the width it once stopped at,
-    G = 3517 with one warp of whole rows, and far past it take 16 warps)
-    and a forced form: the global one anywhere, the shared one only where
-    it fits."""
+    """The global forms' scratch bytes (the prune's global form has none:
+    its shared memory is the same at every C), the level-0 global
+    form's sizing (its pair-table columns and row stages by chunks of
+    passes, so its shared memory is the same at every G: the width it once
+    stopped at, G = 3517 with one warp of whole rows, and far past it take
+    16 warps) and a forced form: the global one anywhere, the shared one
+    only where it fits."""
     assert ops.refine_scratch_bytes(64, 1639) == 64 * 37 * 1792 * 4
     assert ops.level0_scratch_bytes(64, 1639) == 64 * 37 * 1792 * 8
-    span = (-(-1_048_576 // 8) + 31) // 32 * 32
-    assert ops.prune_scratch_bytes(6, 1_048_576) == 6 * 8 * (span * 4
-                                                             + span // 8)
+    assert not hasattr(ops, "prune_scratch_bytes")
+    for c in (446_465, 750_080, 1_048_576, 8_388_608):
+        assert ops.prune_form(c) == "global"
+    assert ops.PRUNE_STREAM_SMEM == 50_448
+    assert ops.PRUNE_STREAM_SMEM + 2224 <= ops.SMEM_LIMIT_BYTES
     assert not hasattr(ops, "LEVEL0_MAX_G")
     for g in (504, 1639, 3517, 3518, 20_000):
         assert ops.level0_form(g) == "global"

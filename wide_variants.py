@@ -34,13 +34,16 @@ With ``--forms`` it only times the bounds and level-0 kernels at those two
 shapes in the forms the shapes select; with ``--shared`` only the five
 shared forms (``pq_adc``, the fused kernel's score and prune launches, the
 bounds kernel on shard 0, both level-0 entry points) at chip_smoke.py's
-fatrq shape (its 1M x 768 index, the first 64 queries' IVF candidates).
-Both go through calls that every version of the package since its global
-forms has: copied beside another checkout's ``chip_smoke.py`` and
-``src/``, the script times that checkout's kernels on the same inputs (the
-data and the build are drawn from one seed).
+fatrq shape (its 1M x 768 index, the first 64 queries' IVF candidates);
+with ``--prune`` the prune alone at its global form's shapes (an edge
+input at C = 1,048,576, Q = 6, the same with hi falling along the slots,
+and the fatrq_nprobe256 path's level-0 bounds at Q = 64, C = 750,080),
+then ``--shared``.  These go through calls that every version of the
+package since its global forms has: copied beside another checkout's
+``chip_smoke.py`` and ``src/``, the script times that checkout's kernels
+on the same inputs (the data and the build are drawn from one seed).
 
-    python3 wide_variants.py [--forms | --shared] [--shards 4]
+    python3 wide_variants.py [--forms | --shared | --prune] [--shards 4]
 """
 
 from __future__ import annotations
@@ -172,17 +175,10 @@ def forms(torch, cs, shards: int) -> None:
                   f"call, {kernel} device {device_ms(torch, cs, fn, kernel)}")
 
 
-def shared(torch, cs, shards: int) -> None:
-    """``--shared``: each kernel's shared form at the fatrq shape, its
-    device ms per call by kernel, in two turns."""
-    from repro_torch.anns import Database, PipelineConfig, \
-        make_sharded_executor, registry
-    from repro_torch.anns.stages import make_ivf_front
+def fatrq_index(torch):
+    """chip_smoke.py's 1M x 768 index (seed 0), its data and config."""
+    from repro_torch.anns import Database, PipelineConfig
     from repro_torch.data import make_dataset
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import pq_adc as p
-    from repro_torch.kernels import ternary_refine as t
-    from repro_torch.quant import pq as pq_mod
     gen = torch.Generator(device="cuda").manual_seed(0)
     ds = make_dataset(n=1_000_000, d=768, n_queries=1000, k_gt=100,
                       generator=gen)
@@ -191,6 +187,77 @@ def shared(torch, cs, shards: int) -> None:
                          bound="cauchy", micro_batch=64)
     index = Database.build(ds.x, cfg, generator=torch.Generator(
         device="cuda").manual_seed(0)).index
+    return ds, cfg, index
+
+
+def prune(torch, cs, shards: int) -> None:
+    """``--prune``: the prune alone (``ternary_refine_prune``, k = 10) in
+    the form its shapes select, on chip_smoke.py's edge-like input
+    (C = 1,048,576, Q = 6: hi normal, lo below it, half the slots alive,
+    query 0 all and query 1 none), on the same with every query's hi
+    falling along the slots and every slot alive, and on the
+    fatrq_nprobe256 path's shape (the 1M index's first 64 queries' IVF
+    candidates at nprobe 256 and their level-0 bounds), each checked
+    against ``prune_plain`` and timed in two turns (CUDA events and the
+    profiler's device ms); then ``--shared`` on the same index."""
+    from repro_torch.anns.executor import make_executor
+    from repro_torch.kernels import ternary_refine as t
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, c, k = 6, 1_048_576, 10
+    hi = torch.randn((q, c), generator=gen, device="cuda")
+    lo = hi - torch.rand((q, c), generator=gen, device="cuda")
+    alive = torch.rand((q, c), generator=gen, device="cuda") < 0.5
+    alive[0], alive[1] = True, False
+    falling = hi.sort(dim=1, descending=True).values
+    ds, cfg, index = fatrq_index(torch)
+    ex = make_executor(index, front="ivf", backend="cuda", nprobe=256)
+    qs = ds.queries[:QUERIES].contiguous()
+    cand = ex.front.candidates(qs)
+    _, p_lo, p_hi = t.ternary_refine_fused_bounds(
+        ex.backend.stores(index.trq), qs, cand.ids, cand.d0, cand.valid,
+        index.trq.model, bound="cauchy", z=cfg.z)
+    inputs = {
+        f"edge C={c:,} Q={q}": (lo, hi, alive),
+        f"edge C={c:,} Q={q}, hi falling": (falling - 1, falling,
+                                            torch.ones_like(alive)),
+        f"fatrq_nprobe256 Q={QUERIES} C={cand.ids.shape[1]:,} "
+        f"({int(cand.valid.sum())} valid)": (
+            p_lo[:, 0].contiguous(), p_hi[:, 0].contiguous(), cand.valid)}
+    del cand, p_lo, p_hi
+    for label, (lo_, hi_, al) in inputs.items():
+        out = torch.empty_like(al)
+        counts = torch.zeros((al.shape[0], 2), dtype=torch.int32,
+                             device=al.device)
+
+        def call():
+            return t.ternary_refine_prune(lo_, hi_, al, None, counts, out,
+                                          k=k)
+
+        tau = call()
+        want, _, _, want_tau = t.prune_plain(lo_, hi_, al, None, k=k)
+        if not (torch.equal(out, want) and torch.equal(tau, want_tau)):
+            raise SystemExit(f"wide_variants: the prune at {label} differs "
+                             f"from prune_plain")
+        for turn in range(TURNS):
+            print(f"prune {label} (turn {turn}): {cs.time_ms(call, 20):.4f} "
+                  f"ms per call, device "
+                  f"{device_ms(torch, cs, call, 'prune_kernel', 20)}")
+    del inputs, ex
+    torch.cuda.empty_cache()
+    shared(torch, cs, shards, (ds, cfg, index))
+
+
+def shared(torch, cs, shards: int, built=None) -> None:
+    """``--shared``: each kernel's shared form at the fatrq shape, its
+    device ms per call by kernel, in two turns (on ``built``, the
+    ``fatrq_index`` triple, where given)."""
+    from repro_torch.anns import make_sharded_executor, registry
+    from repro_torch.anns.stages import make_ivf_front
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pq_adc as p
+    from repro_torch.kernels import ternary_refine as t
+    from repro_torch.quant import pq as pq_mod
+    ds, cfg, index = built or fatrq_index(torch)
     q = ds.queries[:QUERIES].contiguous()
     cand = make_ivf_front(index).candidates(q)
     lut = pq_mod.adc_table(index.codebook, q)
@@ -274,6 +341,9 @@ def main() -> int:
                          "forms at the wide_8192 paths' shapes")
     ap.add_argument("--shared", action="store_true",
                     help="only the five shared forms at the fatrq shape")
+    ap.add_argument("--prune", action="store_true",
+                    help="only the prune at its edge and fatrq_nprobe256 "
+                         "shapes, then --shared")
     ap.add_argument("--shards", type=int, default=4)
     args = ap.parse_args()
     import torch
@@ -293,8 +363,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     build.build_all()
-    if args.forms or args.shared:
-        (forms if args.forms else shared)(torch, cs, args.shards)
+    if args.forms or args.shared or args.prune:
+        mode = forms if args.forms else prune if args.prune else shared
+        mode(torch, cs, args.shards)
         return 0
     copies = adc_copies(build)
     picked_adc, picked_refine = ops.adc_plan, ops.refine_plan
